@@ -1,0 +1,3 @@
+from repro_torch.kernels.fused_engn.ops import fused_engn_layer, fused_engn_plain
+
+__all__ = ["fused_engn_layer", "fused_engn_plain"]

@@ -1,0 +1,7 @@
+from repro_torch.kernels.rer_gather.ops import (PackedGroup, flat_entries,
+                                               packed_flat_plain, packed_spmm,
+                                               packed_spmm_plain,
+                                               prepare_packed_groups)
+
+__all__ = ["PackedGroup", "flat_entries", "packed_flat_plain", "packed_spmm",
+           "packed_spmm_plain", "prepare_packed_groups"]

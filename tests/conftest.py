@@ -51,6 +51,12 @@ def _assert_multi_device_view(count: int, who: str) -> None:
             "or drop whatever imported jax before conftest.py ran.")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card (the port's kernels); "
+        "the test skips itself when none is present")
+
+
 if _FLAG not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") + " " + _FLAG + "=8").strip()
