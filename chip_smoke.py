@@ -8,26 +8,36 @@ prints no result.  Phases, each of which fails the run if it fails:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit (every time below stands beside them);
-2. build: the three CUDA kernels, from `src/repro_torch/csrc/`, one
+2. build: the four CUDA kernels, from `src/repro_torch/csrc/`, one
    `nvcc` each, in parallel, into `build/repro_torch/`;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the calls one forward of its main-path run makes (max variants
    `torch.equal`, sum variants `allclose(rtol=1e-4, atol=1e-5)`, since
    their reduction order differs), then timed with CUDA events beside
-   its bound and a `torch.sparse.mm` yardstick;
+   its bound and a `torch.sparse.mm` yardstick.  The streamed
+   executor's kernels: `chunk_queue` on the synthD stand-in at 262,144
+   vertices and layer-1 width (F=50), with and without its relu
+   epilogue, and `rer_gather`'s tile-part form on a stated sample of
+   one forward's calls on the 65,536-vertex graph;
 4. path: the inference path a user runs — `make_gnn_stack` ->
    `prepare_graph` -> `apply_stack` on `cuda` — for the quickstart (cora
    GCN [1433, 64, 7] on "fused", T=256) and pubmed GCN / GS-Pool
-   [500, 64, 3] on "blocked" with dense and packed tiles.  Launch
-   counters are zeroed just before these runs and read just after; each
-   run must have launched its kernel and must match the "segment"
-   backend on the card (`allclose(rtol=1e-4, atol=1e-5)`).
+   [500, 64, 3] on "blocked" with dense and packed tiles;
+5. tiled path: synthD at 65,536 vertices, [50, 64, 16], T=256, through
+   the streamed executor: GCN on "tiled" (layer 1 on the chunk queue,
+   layer 2 streamed in row order), GCN on "blocked" under a 32 MB budget
+   (spills to "tiled"; no queue fits), GS-Pool on "tiled" (streamed
+   max).
+Launch counters are zeroed just before each of the two path phases and
+read just after; each run must have launched its kernels and must match
+the "segment" backend on the card (`allclose(rtol=1e-4, atol=1e-5)`).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -65,8 +75,11 @@ def main() -> int:
                                            unpermute_features)
     from repro_torch.graphs.format import COOGraph
     from repro_torch.graphs.generate import make_dataset, random_features
-    from repro_torch.graphs.partition import merge_by_key
+    from repro_torch.graphs.partition import (build_tile_store,
+                                              chunk_tile_row, merge_by_key,
+                                              pack_tile_store)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.chunk_queue import ops as queue_ops
     from repro_torch.kernels.fused_engn import ops as fused_ops
     from repro_torch.kernels.rer_gather import ops as gather_ops
     from repro_torch.kernels.rer_spmm import ops as spmm_ops
@@ -92,8 +105,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # -- graphs (host) ------------------------------------------------------
-    def dataset(name, merge_duplicates=False):
-        g, f, classes = make_dataset(name, seed=0)
+    def dataset(name, merge_duplicates=False, max_vertices=None):
+        g, f, classes = make_dataset(name, seed=0, max_vertices=max_vertices)
         x = random_features(g.num_vertices, f, seed=1)
         perm = degree_sort_permutation(g)
         g = apply_vertex_permutation(g, perm).gcn_normalized()
@@ -154,8 +167,10 @@ def main() -> int:
     records = []
 
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
-                    library=None):
-        """calls: (kernel thunk, plain thunk) for one forward's calls."""
+                    library=None, record=True):
+        """calls: (kernel thunk, plain thunk) for one forward's calls;
+        `record=False` checks and times a variant no path launches,
+        printed on its own line and kept out of the record."""
         err = 0.0
         for kern, plain in calls:
             yk, yp = kern(), plain()
@@ -180,7 +195,8 @@ def main() -> int:
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": lib_ms, "calls": len(calls),
                "bytes": int(nbytes), "ops": int(ops)}
-        records.append(rec)
+        if record:
+            records.append(rec)
         print(f"kernel {name}: {len(calls)} calls/forward, max_abs_err "
               f"{err:.3g} ({'equal' if exact else 'allclose'}), "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
@@ -280,6 +296,125 @@ def main() -> int:
                              for x, w in pairs])
         del fused, cf
 
+    # -- the streamed executor's kernels ------------------------------------
+    def queue_sizes(label, packed):
+        """The ragged queue the walker reads beside the (K, S) layout the
+        reference's TileQueue pads every tile to."""
+        nnz = packed.tile_nnz()
+        k, s_max = packed.nnzb, int(nnz.max())
+        bucket = 1 << (max(s_max, 8) - 1).bit_length()
+        idx = 4 * (packed.q + 1) + 4 * k
+        ragged = idx + 4 * (k + 1) + 12 * packed.nnz
+        padded = idx + 12 * k * bucket
+        hub = int(np.bincount(packed.block_row, weights=nnz,
+                              minlength=packed.q).max())
+        print(f"queue {label}: K={k} tiles, {packed.nnz} entries, largest "
+              f"tile {s_max}, largest interval {hub}, S={bucket}: padded "
+              f"(K, S) {padded / 1e9:.3f} GB, ragged {ragged / 1e6:.3f} MB")
+        return {"tiles": k, "entries": packed.nnz, "largest_tile": s_max,
+                "largest_interval": hub, "bucket": bucket,
+                "padded_bytes": padded, "ragged_bytes": ragged}
+
+    t_graph = time.perf_counter()
+    synth_big = dataset("synthD", max_vertices=262144)
+    synth = dataset("synthD", max_vertices=65536)
+    synth_merged = dataset("synthD", merge_duplicates=True,
+                           max_vertices=65536)
+    print(f"synthD graphs built in {time.perf_counter() - t_graph:.1f} s")
+    for name, (g, _, _, f, c) in (("synthD-262k", synth_big),
+                                  ("synthD-65k", synth),
+                                  ("synthD-65k merged", synth_merged)):
+        print(f"graph {name}: |V|={g.num_vertices} |E|={g.num_edges} "
+              f"F={f} classes={c}")
+    queue_table = {}
+    with torch.inference_mode():
+        g_big, _, _, f_syn, _ = synth_big
+        packed_big = pack_tile_store(build_tile_store(g_big, 256))
+        queue_table["synthD-262k"] = queue_sizes("synthD-262k", packed_big)
+        tq = queue_ops.build_tile_queue(packed_big, device=dev)
+        x_big = feats(g_big.num_vertices, f_syn)
+        a_big = csr(g_big)
+        q_bytes = nb(tq.tile_ptr, tq.tile_src, tq.entry_ptr, tq.rows,
+                     tq.cols, tq.vals, x_big, x_big)
+        for act in (None, "relu"):
+            kernel_case(
+                "chunk_queue_sum" + ("_relu" if act else ""),
+                "src/repro_torch/csrc/chunk_queue.cu",
+                "src/repro/kernels/chunk_queue/chunk_queue.py:132",
+                [(lambda act=act: queue_ops.tile_queue_aggregate(
+                      tq, x_big, activation=act),
+                  lambda act=act: queue_ops.tile_queue_plain(tq, x_big,
+                                                             act))],
+                exact=False, nbytes=q_bytes, ops=2 * tq.entries * f_syn,
+                library=(None if act else
+                         lambda: torch.sparse.mm(a_big, x_big)),
+                record=act is None)
+        del tq, x_big, a_big, packed_big
+
+        # rer_gather's tile-part form, on the first 32 column chunks
+        # (C=8) and the first 64 row tiles (C=1) of the 65,536-vertex
+        # graph's sweeps, at the widths the tiled runs stream
+        g_syn = synth[0]
+        store = build_tile_store(g_syn, 256)
+        packed = pack_tile_store(store)
+        queue_table["synthD-65k"] = queue_sizes("synthD-65k", packed)
+        col_chunks = []
+        for i in range(store.q):
+            col_chunks += chunk_tile_row(store.row_tiles(i), 8,
+                                         snake=i % 2 == 1)
+            if len(col_chunks) >= 32:
+                break
+        sample = ([(idx, 8) for idx in col_chunks[:32]]
+                  + [(np.array([k]), 1) for k in store.col_tiles(0)[:64]])
+        staged = []
+        for idx, width in sample:
+            arrs = packed.pack(idx, width, packed.bucket_of(idx))
+            real = int((packed.entry_ptr[idx + 1]
+                        - packed.entry_ptr[idx]).sum())
+            staged.append(tuple(torch.from_numpy(a).to(dev) for a in arrs)
+                          + (width, real))
+        print(f"tile-part sample: {len(col_chunks[:32])} column chunks "
+              f"(C=8) and {len(sample) - len(col_chunks[:32])} row tiles "
+              f"(C=1), {sum(r for *_, r in staged)} entries")
+
+        def part_csr(rows, cols, vals, width):
+            c_idx = torch.arange(width, device=dev)[:, None] * 256
+            idx = torch.stack([rows.long().reshape(-1),
+                               (c_idx + cols.long()).reshape(-1)])
+            keep = vals.reshape(-1) != 0
+            a = torch.sparse_coo_tensor(idx[:, keep], vals.reshape(-1)[keep],
+                                        (256, width * 256))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                return a.coalesce().to_sparse_csr()
+
+        for op, (d_col, d_row) in (("sum", (50, 16)), ("max", (64, 16))):
+            xs = [feats(width * 256, d_col if width == 8 else d_row
+                        ).reshape(width, 256, -1)
+                  for _, _, _, width, _ in staged]
+            calls = [(lambda r=r, c=c, v=v, x=x, op=op:
+                      gather_ops.packed_tile_part(r, c, v, x, op=op),
+                      lambda r=r, c=c, v=v, x=x, op=op:
+                      gather_ops.packed_tile_part_plain(r, c, v, x, op=op))
+                     for (r, c, v, _, _), x in zip(staged, xs)]
+            lib = None
+            if op == "sum":
+                mats = [part_csr(r, c, v, w) for r, c, v, w, _ in staged]
+                lib = (lambda mats=mats, xs=xs: [
+                    torch.sparse.mm(a, x.reshape(-1, x.shape[2]))
+                    for a, x in zip(mats, xs)])
+            kernel_case(
+                f"rer_gather_tile_part_{op}",
+                "src/repro_torch/csrc/rer_gather.cu",
+                "src/repro/kernels/rer_gather/rer_gather.py:103", calls,
+                exact=op == "max",
+                nbytes=sum(nb(r, c, v, x) + 256 * x.shape[2] * 4
+                           for (r, c, v, _, _), x in zip(staged, xs)),
+                ops=sum(2 * real * x.shape[2]
+                        for (*_, real), x in zip(staged, xs)),
+                library=lib)
+        del staged, xs, calls, store, packed
+
     # -- the main path, through the user's entry points ---------------------
     runs = [
         ("quickstart cora gcn fused", cora, "gcn",
@@ -311,11 +446,6 @@ def main() -> int:
                           grew))
     path_counts = K.launch_counts()
     print(f"main-path launches: {path_counts}")
-    for rec in records:
-        rec["launches"] = path_counts[rec["name"]]
-        if rec["launches"] <= 0:
-            raise AssertionError(f"{rec['name']} never ran on the main path")
-
     with torch.inference_mode():
         for label, g, x, perm, model, dims, layers, graph, y, grew in built:
             if y.shape != (g.num_vertices, dims[-1]):
@@ -348,6 +478,101 @@ def main() -> int:
                 print(f"  quickstart predictions of first 10 vertices: "
                       f"{pred[:10].tolist()}")
 
+    # -- the streamed tiled path -----------------------------------------------
+    # synthD at 65,536 vertices, full Table-5 width, T=256.  Layer 1
+    # (50 -> 64) is afu and streams in column order, layer 2 (64 -> 16)
+    # fau in row order.  GS-Pool runs on the graph with its multi-edges
+    # merged (the tiles merge them before a max sees them; segment does
+    # not).
+    dims_syn = [f_syn, 64, 16]
+    tiled_runs = [
+        ("synthD gcn tiled", synth, "gcn", "tiled", None,
+         ("chunk_queue_sum", "rer_gather_tile_part_sum")),
+        ("synthD gcn blocked 32 MB budget", synth, "gcn", "blocked",
+         32_000_000, ("rer_gather_tile_part_sum",)),
+        ("synthD gs_pool tiled", synth_merged, "gs_pool", "tiled", None,
+         ("rer_gather_tile_part_max",)),
+    ]
+    tiled_built = []
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        for label, data, model, backend, budget, kerns in tiled_runs:
+            g, x, _, _, _ = data
+            x = torch.from_numpy(x).to(dev)
+            layers = stack(model, dims_syn, backend)
+            for layer in layers:
+                layer.cfg.device_budget_bytes = budget
+            t = time.perf_counter()
+            graph = rt.prepare_graph(g, layers[0].cfg)
+            prep_s = time.perf_counter() - t
+            if graph.backend != "tiled":
+                raise AssertionError(f"{label}: plan landed on "
+                                     f"{graph.backend!r}, not 'tiled'")
+            if budget and graph.meta["queue_plan"] is not None:
+                raise AssertionError(f"{label}: a queue fits the budget")
+            ex = graph.carrier["tiled_exec"]
+            before = K.launch_counts()
+            y = rt.apply_stack(layers, graph, x)
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in K.launch_counts().items()
+                    if v > before[k]}
+            for kern in kerns:
+                if grew.get(kern, 0) <= 0:
+                    raise AssertionError(f"{label}: {kern} was not launched")
+            if budget and grew.get("chunk_queue_sum"):
+                raise AssertionError(f"{label}: the queue ran over budget")
+            stats = dataclasses.asdict(ex.stats)
+            tiled_built.append((label, g, x, model, layers, graph, y, grew,
+                                stats, prep_s))
+    tiled_counts = K.launch_counts()
+    print(f"tiled-path launches: {tiled_counts}")
+
+    with torch.inference_mode():
+        for (label, g, x, model, layers, graph, y, grew, stats,
+             prep_s) in tiled_built:
+            if y.shape != (g.num_vertices, dims_syn[-1]):
+                raise AssertionError(f"{label}: output shape {tuple(y.shape)}")
+            if y.device.type != "cpu" or y.dtype != torch.float32:
+                raise AssertionError(f"{label}: a tiled layer returns a CPU "
+                                     f"float32 tensor, got {y.dtype} on "
+                                     f"{y.device}")
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{label}: non-finite output")
+            ref_layers = stack(model, dims_syn, "segment")
+            for a, b in zip(ref_layers, layers):
+                a.load_state_dict(b.state_dict())
+            y_ref = rt.apply_stack(ref_layers,
+                                   rt.prepare_graph(g, ref_layers[0].cfg),
+                                   x).cpu()
+            err = float((y - y_ref).abs().max())
+            if not torch.allclose(y, y_ref, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"{label}: differs from the segment "
+                                     f"backend (max abs err {err})")
+            del ref_layers, y_ref
+            times = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                t = time.perf_counter()
+                rt.apply_stack(layers, graph, x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"path {label}: backend {graph.backend}, streaming "
+                  f"{graph.streaming_mode}, tile {graph.meta['tile']}, chunk "
+                  f"{graph.meta['chunk']}, queue_plan "
+                  f"{graph.meta['queue_plan']}, prepare {prep_s:.2f} s")
+            print(f"  launches/forward {grew}, max abs err vs segment "
+                  f"{err:.3g}, forward {statistics.median(times):.1f} ms "
+                  f"(median of 3, host clock: {[round(v, 1) for v in times]})"
+                  f", peak {peak / 2**20:.1f} MiB")
+            print(f"  TiledStats/forward {json.dumps(stats)}")
+
+    for rec in records:
+        rec["launches"] = path_counts[rec["name"]] + tiled_counts[rec["name"]]
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{rec['name']} never ran on a path")
+    print(f"queue layouts: {json.dumps(queue_table)}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

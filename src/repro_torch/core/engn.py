@@ -13,13 +13,19 @@ order decision (S5.2) and the aggregation backend:
     `scatter_reduce`);
   * "blocked": dense T x T tiles through the `rer_spmm` kernel, or packed
     tiles through the `rer_gather` kernel once per pow2 nnz-bucket group;
-  * "fused":   extraction fused into the aggregate sweep (`fused_engn`).
+  * "fused":   extraction fused into the aggregate sweep (`fused_engn`);
+  * "tiled":   the streamed out-of-core executor (`core/tiled.py`): the
+    tile store stays in host memory and streams to the device, so a
+    tiled layer takes host or device features and returns a CPU float32
+    tensor, while every reduce and stage function runs on the device.
 
 `prepare_graph` builds the carrier on the plan's device: on `cuda` the
-kernels' carriers, on the CPU (only when asked) the plain versions'.
-The streamed "tiled" and sharded "ring" backends and the typed/gated
-stage contracts are not ported yet and raise `NotImplementedError`
-naming their ROADMAP item; nothing falls back to another backend.
+kernels' carriers, on the CPU (only when asked) the plain versions'.  A
+graph over `device_budget_bytes` spills to "tiled" (`auto_spill=True`)
+or raises `DeviceBudgetExceeded`.  The sharded "ring" backend, the
+typed/gated stage contracts and training through "tiled" are not
+ported yet and raise `NotImplementedError` naming their ROADMAP item;
+nothing falls back to another backend.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.plan import PreparedPlan, plan_carrier, wrap_plan
-from repro_torch.core.tiled import DeviceBudgetExceeded, dense_footprint_bytes
+from repro_torch.core.tiled import (DeviceBudgetExceeded, TiledExecutor,
+                                    dense_footprint_bytes)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.partition import tile_schedule_order
@@ -40,9 +47,10 @@ from repro_torch.graphs.partition import tile_schedule_order
 AggregateOp = str  # "sum" | "max" | "mean"
 
 _NOT_PORTED = {
-    "tiled": "the streamed out-of-core 'tiled' backend is not ported yet "
-             "(ROADMAP A7)",
     "ring": "the sharded 'ring' backend is not ported yet (ROADMAP A8)",
+    "train_tiled": "training through the streamed 'tiled' backend is not "
+                   "ported yet (ROADMAP A5, A7); run inference under "
+                   "torch.no_grad() or torch.inference_mode()",
     "staged": "the typed/gated stage contracts (R-GCN, Gated-GCN) are not "
               "ported yet (ROADMAP A3)",
     "int8": "int8 tile values are not ported yet (ROADMAP A7)",
@@ -166,10 +174,13 @@ class EnGNLayer(nn.Module):
     # -- forward ----------------------------------------------------------
     def forward(self, graph, x) -> torch.Tensor:
         """graph: a `PreparedPlan` from `prepare_graph`, or its carrier
-        dict; x: (N, F) features (moved to the layer's device)."""
+        dict; x: (N, F) features (moved to the layer's device; a tiled
+        plan keeps them on the host and returns a CPU tensor)."""
         graph = plan_carrier(graph)
         backend = graph.get("backend", self.cfg.backend)
-        if backend in ("tiled", "ring"):
+        if backend == "tiled":
+            return self._apply_tiled(graph, x)
+        if backend == "ring":
             raise NotImplementedError(_NOT_PORTED[backend])
         x = torch.as_tensor(x, dtype=self.cfg.dtype, device=self.device)
         agg = partial(self._aggregate, graph)
@@ -188,6 +199,38 @@ class EnGNLayer(nn.Module):
             return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
         return self.update(x, agg(self.feature_extraction(x)))      # A(XW)
 
+    # -- streamed out-of-core path (core/tiled.py) -------------------------
+    def _apply_tiled(self, graph, x) -> torch.Tensor:
+        """The layer through the streamed executor: extraction runs on
+        each source interval as it is loaded, aggregation follows the
+        adaptive tile schedule, and the update streams per destination
+        interval.  Takes host or device x and returns a CPU float32
+        tensor: the graph and the features stay on the host by design,
+        every reduce and stage function runs on the executor's device."""
+        cfg = self.cfg
+        ex: TiledExecutor = graph["tiled_exec"]
+        if ex.device != self.device:
+            raise ValueError(f"the tiled plan streams to {ex.device}, the "
+                             f"layer's parameters are on {self.device}")
+        if torch.is_grad_enabled() and (
+                any(p.requires_grad for p in self.parameters())
+                or (isinstance(x, torch.Tensor) and x.requires_grad)):
+            raise NotImplementedError(_NOT_PORTED["train_tiled"])
+        order = tile_schedule_order(cfg.in_dim, cfg.out_dim)
+        linear_sum = (cfg.aggregate_op == "sum"
+                      and type(self).feature_extraction
+                      is EnGNLayer.feature_extraction)
+        if linear_sum and self.dasr_order() == "afu":
+            ax = ex.aggregate(x, "sum", order=order,
+                              out_dim_hint=cfg.out_dim)       # (AX)
+            return ex.stream_map(
+                lambda xb, ab: self.update(xb, self.feature_extraction(ab)),
+                x, ax)
+        agg = ex.aggregate(x, cfg.aggregate_op, order=order,
+                           extract_fn=self.feature_extraction,
+                           extract_dim=cfg.out_dim, out_dim_hint=cfg.out_dim)
+        return ex.stream_map(self.update, x, agg)
+
     # -- aggregation backends ---------------------------------------------
     def _aggregate(self, graph, feat: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -199,7 +242,10 @@ class EnGNLayer(nn.Module):
                 ev = ev * graph["val"][:, None]
             return segment_aggregate(ev, graph["dst"], graph["n"],
                                      cfg.aggregate_op)
-        if backend in ("tiled", "ring"):
+        if backend == "tiled":
+            raise RuntimeError("the streamed tiled backend runs through "
+                               "EnGNLayer._apply_tiled, not _aggregate")
+        if backend == "ring":
             raise NotImplementedError(_NOT_PORTED[backend])
         if backend not in ("blocked", "fused"):
             raise ValueError(backend)
@@ -263,7 +309,9 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
                   device: DeviceLike = None) -> PreparedPlan:
     """Host-side 'format converter': build the `PreparedPlan` (typed
     attributes + the carrier dict of device tensors) for the configured
-    backend, on `device` (`cuda` unless the caller passes "cpu")."""
+    backend, on `device` (`cuda` unless the caller passes "cpu"),
+    spilling to the streamed "tiled" backend when the graph exceeds
+    `cfg.device_budget_bytes` (or raising, without `auto_spill`)."""
     dev = resolve_device(device)
     backend = cfg.backend
     h = out_dim if out_dim is not None else cfg.out_dim
@@ -278,8 +326,16 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
                                      training=cfg.training,
                                      value_dtype=cfg.tile_value_dtype)
         if need > cfg.device_budget_bytes:
-            _over_budget(backend, need, cfg)
-    if backend in ("tiled", "ring"):
+            if not cfg.auto_spill:
+                raise DeviceBudgetExceeded(
+                    f"backend {backend!r} needs ~{need} device bytes, "
+                    f"budget is {cfg.device_budget_bytes} (set "
+                    f"auto_spill=True or backend='tiled' to stream "
+                    f"tiles out-of-core)")
+            backend = "tiled"
+    if backend == "tiled":
+        return prepare_tiled(g, cfg, out_dim, device=dev)
+    if backend == "ring":
         raise NotImplementedError(_NOT_PORTED[backend])
     d: Dict[str, Any] = {"n": g.num_vertices, "backend": backend,
                          "device": dev}
@@ -329,15 +385,51 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
     return wrap_plan(d)
 
 
-def _over_budget(backend: str, need: int, cfg: EnGNConfig) -> None:
-    if not cfg.auto_spill:
-        raise DeviceBudgetExceeded(
-            f"backend {backend!r} needs ~{need} device bytes, budget is "
-            f"{cfg.device_budget_bytes}")
-    raise NotImplementedError(
-        f"backend {backend!r} needs ~{need} device bytes, over the "
-        f"budget of {cfg.device_budget_bytes}; spilling to the streamed "
-        f"'tiled' backend is not ported yet (ROADMAP A7)")
+def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
+                  out_dim: Optional[int] = None,
+                  impl: Optional[str] = None,
+                  device: DeviceLike = None) -> PreparedPlan:
+    """The `PreparedPlan` of the streamed out-of-core backend: the Q x Q
+    tile store stays in host memory, tile and chunk fitted to the
+    device budget at the layer's wider feature width, streaming to
+    `device` (`cuda` unless the caller passes "cpu")."""
+    dev = resolve_device(device)
+    h = out_dim if out_dim is not None else cfg.out_dim
+    if cfg.stage_contract is not None or cfg.rel_normalize:
+        raise NotImplementedError(_NOT_PORTED["staged"])
+    dim_hint = max(cfg.in_dim, h) * (2 if cfg.training else 1)
+    value_dtype = (cfg.tile_value_dtype if cfg.tile_format != "dense"
+                   else "fp32")
+    if value_dtype == "int8":
+        raise NotImplementedError(_NOT_PORTED["int8"])
+    ex = TiledExecutor(g, tile=cfg.tile, chunk=cfg.tiled_chunk,
+                       budget_bytes=cfg.device_budget_bytes, impl=impl,
+                       dim_hint=dim_hint, tile_format=cfg.tile_format,
+                       bucket_floor=cfg.packed_bucket_floor,
+                       streaming_mode=cfg.streaming_mode,
+                       value_dtype=value_dtype, device=dev)
+    # which streaming regime this config and graph land in (the plan is
+    # per feature width; the layer's wider width is priced)
+    qplan = ex.queue_plan(max(cfg.in_dim, h), "sum")
+    return wrap_plan(
+        {"n": g.num_vertices, "backend": "tiled", "device": dev,
+         "tiled_exec": ex,
+         "tiled_meta": {"q": ex.store.q, "tile": ex.store.tile,
+                        "chunk": ex.chunk,
+                        "order": tile_schedule_order(cfg.in_dim, h),
+                        "host_bytes": ex.store.nbytes(),
+                        "tile_format": ex.tile_format,
+                        "format_choice": ex.format_choice,
+                        "streaming_mode": ex.streaming_mode,
+                        "value_dtype": ex.value_dtype,
+                        "queue_plan": (dataclasses.asdict(qplan)
+                                       if qplan else None),
+                        # the streamed backward is not ported yet (A5)
+                        "trainable": False,
+                        "training": cfg.training,
+                        "resident_feature_bytes":
+                            (2 if cfg.training else 1) * 4
+                            * g.num_vertices * (cfg.in_dim + h)}})
 
 
 def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
@@ -365,7 +457,12 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
     act = 2 if cfg.training else 1
     need = tile_bytes + act * 4 * g.num_vertices * (cfg.in_dim + h)
     if cfg.device_budget_bytes and need > cfg.device_budget_bytes:
-        _over_budget("blocked", need, cfg)
+        if not cfg.auto_spill:
+            raise DeviceBudgetExceeded(
+                f"packed blocked plan needs ~{need} device bytes, budget "
+                f"is {cfg.device_budget_bytes} (auto_spill=True streams "
+                f"tiles out-of-core instead)")
+        return prepare_tiled(g, cfg, h, device=dev)
     d["blocks_meta"] = {
         "q": store.q, "padded": store.padded_vertices,
         "order": order, "tile": store.tile,

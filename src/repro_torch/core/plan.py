@@ -2,8 +2,9 @@
 
 The carrier dict differs per backend by design (each backend carries its
 own device tensors); the plan answers the questions every caller asks as
-typed attributes: which backend it landed on, which tile format, how
-many device bytes it claims, and what the autotuner decided.
+typed attributes: which backend it landed on, which tile format, which
+streaming regime, how many bytes it claims, and what the autotuner
+decided.
 `plan_carrier` unwraps either a plan or a raw carrier dict.
 """
 from __future__ import annotations
@@ -14,13 +15,17 @@ from typing import Any, Dict, Optional
 
 @dataclasses.dataclass(eq=False)
 class PreparedPlan:
-    """backend:         the backend the plan targets.
+    """backend:         the backend the plan targets — after any budget
+                     spill, so "tiled" where the config asked for
+                     "blocked" and it did not fit.
     tile_format:     "dense" | "packed" for the tile backends, None for
                      segment.
-    streaming_mode:  always None here (the streamed backend is not
-                     ported yet); kept for the reference's shape.
-    footprint_bytes: device bytes the plan claims (0 when the backend
-                     records no estimate).
+    streaming_mode:  the tiled backend's landed regime ("chunk_queue" |
+                     "callback"), None for device-resident backends.
+    footprint_bytes: device bytes the plan claims for resident backends;
+                     host store bytes + resident feature bytes for the
+                     streamed tiled backend (0 when the backend records
+                     no estimate).
     autotune:        the `TileFormatChoice` when the format was chosen
                      by the autotuner, else None.
     carrier:         the backend-specific tensor dict."""
@@ -38,7 +43,9 @@ class PreparedPlan:
 
     @property
     def meta(self) -> Dict[str, Any]:
-        return self.carrier.get("blocks_meta") or {}
+        """`blocks_meta` or `tiled_meta`, or {} (segment carries none)."""
+        return (self.carrier.get("blocks_meta")
+                or self.carrier.get("tiled_meta") or {})
 
     @property
     def device(self):
@@ -48,6 +55,7 @@ class PreparedPlan:
     def __repr__(self) -> str:
         return (f"PreparedPlan(backend={self.backend!r}, n={self.n}, "
                 f"tile_format={self.tile_format!r}, "
+                f"streaming_mode={self.streaming_mode!r}, "
                 f"footprint_bytes={self.footprint_bytes}, "
                 f"keys={sorted(self.carrier)})")
 
@@ -62,18 +70,25 @@ def wrap_plan(carrier: Dict[str, Any]) -> PreparedPlan:
     if isinstance(carrier, PreparedPlan):
         return carrier
     backend = carrier.get("backend", "segment")
-    meta = carrier.get("blocks_meta") or {}
+    meta = carrier.get("blocks_meta") or carrier.get("tiled_meta") or {}
     footprint = int(meta.get("device_bytes") or 0)
     if not footprint and backend in ("blocked", "fused"):
         # dense block carriers price their uploaded operands directly
         footprint = sum(int(getattr(v, "nbytes", 0))
                         for v in carrier.values())
+    mode = None
+    if backend == "tiled":
+        footprint = int(meta.get("host_bytes", 0)
+                        + meta.get("resident_feature_bytes", 0))
+        mode = meta.get("streaming_mode")
+        if mode == "auto":        # report the landed regime, not the ask
+            mode = "chunk_queue" if meta.get("queue_plan") else "callback"
     return PreparedPlan(
         backend=backend,
         n=int(carrier.get("n", 0)),
         carrier=carrier,
         tile_format=meta.get("tile_format"),
-        streaming_mode=None,
+        streaming_mode=mode,
         footprint_bytes=footprint,
         autotune=meta.get("format_choice"),
     )

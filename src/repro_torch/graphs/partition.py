@@ -2,13 +2,15 @@
 
 What the inference path needs from `repro.graphs.partition`: the
 adaptive schedule order and its I/O cost, the host-side `EdgeTileStore`
-and its packed (CSR-within-tile) form, and the pow2 nnz buckets the
-packed groups pad to.  Field for field the same arrays as the reference.
+(with the row / column tile indexes and `densify` the streamed executor
+walks) and its packed (CSR-within-tile) form, the pow2 nnz buckets the
+packed groups pad to, and `chunk_tile_row`, the S-shape chunking of one
+interval's tiles.  Field for field the same arrays as the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -72,6 +74,30 @@ class EdgeTileStore:
     def padded_vertices(self) -> int:
         return self.q * self.tile
 
+    def nbytes(self) -> int:
+        rel = self.block_rel.nbytes if self.block_rel is not None else 0
+        return int(self.edge_li.nbytes + self.edge_lj.nbytes
+                   + self.edge_w.nbytes + self.edge_ptr.nbytes
+                   + self.block_row.nbytes + self.block_col.nbytes + rel)
+
+    def row_tiles(self, i: int) -> np.ndarray:
+        """The tiles of destination interval i, by source interval."""
+        return self._row_order[self._row_ptr[i]:self._row_ptr[i + 1]]
+
+    def col_tiles(self, j: int) -> np.ndarray:
+        """The tiles of source interval j, by destination interval."""
+        return self._col_order[self._col_ptr[j]:self._col_ptr[j + 1]]
+
+    def densify(self, tiles, out: np.ndarray) -> np.ndarray:
+        """Scatter the given tiles' edge lists into `out` (k, T, T), one
+        dense tile each (zeroed here; multi-edges add up)."""
+        out[:len(tiles)] = 0.0
+        for c, k in enumerate(tiles):
+            lo, hi = self.edge_ptr[k], self.edge_ptr[k + 1]
+            np.add.at(out[c], (self.edge_li[lo:hi], self.edge_lj[lo:hi]),
+                      self.edge_w[lo:hi])
+        return out
+
 
 @dataclasses.dataclass(frozen=True)
 class PackedTileStore:
@@ -107,6 +133,14 @@ class PackedTileStore:
     def tile_nnz(self) -> np.ndarray:
         return np.diff(self.entry_ptr)
 
+    def bucket_of(self, tiles, floor: int = 8) -> int:
+        """The pow2 nnz bucket a staged group of tiles pads to."""
+        tiles = np.asarray(tiles, np.int64)
+        if tiles.size == 0:
+            return pow2_bucket(0, floor)
+        nnz = (self.entry_ptr[tiles + 1] - self.entry_ptr[tiles])
+        return pow2_bucket(int(nnz.max()), floor)
+
     def packed_slots(self, floor: int = 8) -> int:
         """Total padded entry slots if every tile is staged at its own
         pow2 bucket — the denominator of `fill_factor`."""
@@ -125,6 +159,12 @@ class PackedTileStore:
         if self.nnzb == 0:
             return 1.0
         return float(self.nnz) / (self.nnzb * self.tile * self.tile)
+
+    def nbytes(self) -> int:
+        rel = self.block_rel.nbytes if self.block_rel is not None else 0
+        return int(self.row_local.nbytes + self.col_local.nbytes
+                   + self.val.nbytes + self.entry_ptr.nbytes
+                   + self.block_row.nbytes + self.block_col.nbytes + rel)
 
     def pack(self, tiles, width: int, bucket: int
              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -223,3 +263,17 @@ def build_tile_store(g: COOGraph, tile: int) -> EdgeTileStore:
         g.weights()[order].astype(np.float32),
         counts, row_ptr, row_order, col_ptr, col_order,
         block_rel=block_rel, num_relations=r)
+
+
+def chunk_tile_row(tiles: Sequence[int], chunk: int,
+                   snake: bool = False) -> List[np.ndarray]:
+    """Split one interval's tile list into chunks of `chunk` tiles,
+    reversed first when `snake` (the S-shape walk of Fig. 8: the next
+    interval's sweep starts where this one ended, so the boundary source
+    interval is still resident)."""
+    tiles = np.asarray(tiles, np.int64)
+    if snake:
+        tiles = tiles[::-1]
+    if tiles.size == 0:
+        return []
+    return [tiles[k:k + chunk] for k in range(0, tiles.size, chunk)]

@@ -8,11 +8,12 @@ from typing import Dict
 
 
 def _modules():
+    from repro_torch.kernels.chunk_queue import ops as queue_ops
     from repro_torch.kernels.fused_engn import ops as fused_ops
     from repro_torch.kernels.rer_gather import ops as gather_ops
     from repro_torch.kernels.rer_spmm import ops as spmm_ops
     return {"rer_spmm": spmm_ops, "rer_gather": gather_ops,
-            "fused_engn": fused_ops}
+            "fused_engn": fused_ops, "chunk_queue": queue_ops}
 
 
 def launch_counts() -> Dict[str, int]:

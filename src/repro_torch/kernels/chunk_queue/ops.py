@@ -1,0 +1,335 @@
+"""The device-resident chunk queue of the streamed executor.
+
+When the packed entries and the features both fit the device budget, the
+streamed `tiled` backend stages the whole stream once and sweeps it on
+the device with no per-chunk host round trip.  Two layouts of the same
+packed tiles:
+
+* `ChunkQueue` (`build_chunk_queue`): the merged entries as
+  `(steps, slab)` global-index slabs, padding routed to the sacrificial
+  row n; `queue_sweep_plain` sweeps it (one gather and one segment
+  reduce per slab, sum or max).  It is the counterpart of the
+  reference's `queue_sweep_xla` and the route on the CPU.
+* `TileQueue` (`build_tile_queue`): the tiles dst-sorted with each
+  destination interval's span, for the hand-written CUDA kernel
+  `csrc/chunk_queue.cu` (`tile_queue_aggregate`, sum with an optional
+  relu).  `tile_queue_plain` is its plain version.
+
+Divergence of layout (not of result) from the reference: its
+`TileQueue` pads every tile to one store-wide pow2 bucket, a `(K, S)`
+layout whose size the hub tile sets; here the entries stay ragged, with
+`entry_ptr` over the packed store's flat entries (12 B per real entry).
+`n`, `tile`, `q`, `bucket`, `tile_ptr` and `tile_src` are the
+reference's, exactly.
+
+Source note.  `tile_queue_aggregate` replaces `repro/kernels/chunk_queue/
+chunk_queue.py::chunk_queue_spmm` (`_queue_kernel`).  On the H100 it is
+bound by bytes: 12 B per entry plus one referenced feature row.  See the
+kernel source for its design.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.graphs.partition import PackedTileStore, pow2_bucket
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import (check_status, check_tensor,
+                                         refuse_grad, stream_handle)
+from repro_torch.kernels.rer_gather.ops import flat_entries
+
+# kernel launches, counted where the kernel is launched: the plain sum
+# sweep, and the sweep with relu folded into its flush
+LAUNCHES = {"sum": 0, "sum_relu": 0}
+
+# most entries one CTA of the walker reduces: a longer interval span
+# (the hub's, after the degree sort) is split across CTAs
+SEGMENT = 4096
+
+_INT8 = ("int8 queue values are not ported yet (ROADMAP A7)")
+
+
+# -- the flat slab queue -------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChunkQueue:
+    """The packed store's merged entries as `(steps, slab)` global-index
+    slabs on one device, padding routed to the sacrificial row n."""
+    n: int                     # real vertices (output rows)
+    entries: int               # real merged entries (pre-padding)
+    steps: int
+    slab: int
+    gsrc: torch.Tensor         # (steps, slab) int32 global src vertex
+    gdst: torch.Tensor         # (steps, slab) int32 global dst vertex
+    vals: torch.Tensor         # (steps, slab) float32
+    scales: torch.Tensor       # (steps,) float32, all ones
+    value_dtype: str           # "fp32"
+
+    def device_bytes(self) -> int:
+        """Resident device bytes of the queue itself."""
+        return int(sum(a.numel() * a.element_size()
+                       for a in (self.gsrc, self.gdst, self.vals,
+                                 self.scales)))
+
+    def raw_value_bytes(self) -> int:
+        """What the value plane costs unquantised (f32)."""
+        return int(4 * self.steps * self.slab)
+
+
+def queue_bytes(entries: int, slab: int, value_dtype: str = "fp32") -> int:
+    """Closed-form device bytes of a queue before building it — the
+    budget gate's pricing twin of `ChunkQueue.device_bytes`."""
+    slab = max(int(slab), 1)
+    steps = max(-(-int(entries) // slab), 1)
+    vb = 1 if value_dtype == "int8" else 4
+    return steps * slab * (8 + vb) + 4 * steps
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def build_chunk_queue(packed: PackedTileStore, *, slab: Optional[int] = None,
+                      value_dtype: str = "fp32",
+                      device="cpu") -> ChunkQueue:
+    """Stage a packed store's merged entries as a slab queue on
+    `device`.  `slab=None` takes the whole stream as one slab; otherwise
+    entries pad up to `steps * slab`."""
+    if value_dtype != "fp32":
+        raise NotImplementedError(_INT8)
+    device = torch.device(device)
+    n = packed.num_vertices
+    gsrc, gdst, gval = flat_entries(packed)
+    m = int(gsrc.size)
+    if slab is None or slab >= max(m, 1):
+        slab = max(m, 1)
+    slab = int(slab)
+    steps = max(-(-m // slab), 1)
+    pad = steps * slab - m
+    if pad:
+        gsrc = np.concatenate([gsrc, np.zeros(pad, np.int32)])
+        # padding targets the sacrificial row n: exact for sum and max
+        gdst = np.concatenate([gdst, np.full(pad, n, np.int32)])
+        gval = np.concatenate([gval, np.zeros(pad, np.float32)])
+    return ChunkQueue(n, m, steps, slab,
+                      _upload(gsrc.reshape(steps, slab), device),
+                      _upload(gdst.reshape(steps, slab), device),
+                      _upload(gval.reshape(steps, slab), device),
+                      torch.ones(steps, dtype=torch.float32, device=device),
+                      value_dtype)
+
+
+def queue_sweep_plain(gsrc: torch.Tensor, gdst: torch.Tensor,
+                      vals: torch.Tensor, scales: torch.Tensor,
+                      x: torch.Tensor, *, n: int,
+                      op: str = "sum") -> torch.Tensor:
+    """One gather and one segment reduce per slab, accumulated into the
+    (n+1, d) destination buffer (row n swallows padding; the result is
+    sliced to n rows).  An empty max row is 0."""
+    if op not in ("sum", "max"):
+        raise ValueError(op)
+    rows, d = n + 1, x.shape[1]
+    fill = 0.0 if op == "sum" else -torch.inf
+    y = torch.full((rows, d), fill, dtype=torch.float32, device=x.device)
+    for s in range(gsrc.shape[0]):
+        src, dst = gsrc[s].long(), gdst[s].long()
+        v = vals[s].to(torch.float32) * scales[s]
+        gathered = x[src]
+        if op == "sum":
+            y.index_add_(0, dst, v[:, None] * gathered)
+        else:
+            scaled = torch.where((v != 0.0)[:, None], v[:, None] * gathered,
+                                 -torch.inf)
+            y.scatter_reduce_(0, dst[:, None].expand(-1, d), scaled, "amax",
+                              include_self=True)
+    if op == "max":
+        y = torch.where(torch.isneginf(y), 0.0, y)
+    return y[:n]
+
+
+def chunk_queue_aggregate(queue: ChunkQueue, x: torch.Tensor, *,
+                          op: str = "sum", impl: Optional[str] = None,
+                          tile_queue: Optional["TileQueue"] = None
+                          ) -> torch.Tensor:
+    """The staged-queue aggregate: the CUDA walker over `tile_queue` for
+    a sum when one is given (and `impl` is not "plain"), else the plain
+    slab sweep.  x lies on the queue's device."""
+    if impl not in (None, "plain", "cuda"):
+        raise ValueError(impl)
+    if impl != "plain" and tile_queue is not None and op == "sum":
+        return tile_queue_aggregate(tile_queue, x)
+    if x.device.type == "cuda" and impl != "plain":
+        raise ValueError(
+            f"the chunk-queue kernel sweeps sums over a TileQueue; op={op!r}"
+            f" without one has no kernel on {x.device} (impl='plain' asks "
+            f"for the plain sweep)")
+    return queue_sweep_plain(queue.gsrc, queue.gdst, queue.vals,
+                             queue.scales, x, n=queue.n, op=op)
+
+
+# -- the per-interval tile queue (the CUDA walker's layout) ---------------
+
+@dataclasses.dataclass(frozen=True)
+class TileQueue:
+    """The packed tiles dst-sorted, with each destination interval's
+    span of tiles and each tile's span of ragged entries."""
+    n: int
+    tile: int
+    q: int
+    bucket: int                # the reference's uniform pad; unused here
+    tile_ptr: torch.Tensor     # (q+1,) int32 tiles of interval i
+    tile_src: torch.Tensor     # (max(K, 1),) int32 source interval
+    entry_ptr: torch.Tensor    # (K+1,) int32 entries of tile k
+    rows: torch.Tensor         # (M,) int32 row_local, dst-sorted tiles
+    cols: torch.Tensor         # (M,) int32 col_local
+    vals: torch.Tensor         # (M,) float32
+    # the walker's work split: per CTA (interval, first entry, end entry,
+    # whether the interval has more than one segment)
+    segments: torch.Tensor     # (G, 4) int32
+    any_split: bool
+
+    @property
+    def entries(self) -> int:
+        return int(self.rows.numel())
+
+    def device_bytes(self) -> int:
+        return int(sum(a.numel() * a.element_size()
+                       for a in (self.tile_ptr, self.tile_src,
+                                 self.entry_ptr, self.rows, self.cols,
+                                 self.vals, self.segments)))
+
+
+def queue_segments(tile_ptr: np.ndarray, entry_ptr: np.ndarray,
+                   segment: int = SEGMENT) -> np.ndarray:
+    """(G, 4) int32 rows (interval, lo, hi, split): each interval's entry
+    span [entry_ptr[tile_ptr[i]], entry_ptr[tile_ptr[i+1]]) cut into
+    pieces of at most `segment` entries; an empty interval keeps one
+    empty piece, so its output block is still written."""
+    bounds = entry_ptr[tile_ptr].astype(np.int64)          # (q+1,)
+    lens = np.diff(bounds)
+    pieces = np.maximum(1, -(-lens // segment))
+    interval = np.repeat(np.arange(lens.size, dtype=np.int64), pieces)
+    first = np.cumsum(pieces) - pieces
+    k = np.arange(interval.size, dtype=np.int64) - first[interval]
+    lo = bounds[:-1][interval] + k * segment
+    hi = np.minimum(lo + segment, bounds[1:][interval])
+    split = pieces[interval] > 1
+    return np.ascontiguousarray(
+        np.stack([interval, lo, hi, split], axis=1).astype(np.int32))
+
+
+def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
+                     device="cpu") -> TileQueue:
+    """Host-side layout for the walker, uploaded to `device`: dst-sort
+    the store's tiles, record each destination interval's span and each
+    tile's span of entries.  Index ranges are checked here, on the host,
+    once: the kernel reads out of bounds otherwise."""
+    device = torch.device(device)
+    q, t = packed.q, packed.tile
+    nnz = packed.tile_nnz()
+    bucket = pow2_bucket(int(nnz.max()) if nnz.size else 0, bucket_floor)
+    order = np.argsort(packed.block_row, kind="stable").astype(np.int64)
+    brow = packed.block_row[order]
+    tile_ptr = np.searchsorted(brow, np.arange(q + 1)).astype(np.int32)
+    tile_src = np.zeros(max(order.size, 1), np.int32)
+    tile_src[:order.size] = packed.block_col[order]
+    counts = nnz[order]
+    entry_ptr = np.zeros(order.size + 1, np.int64)
+    np.cumsum(counts, out=entry_ptr[1:])
+    m = int(entry_ptr[-1])
+    if m >= 2 ** 31:
+        raise ValueError(f"{m} entries exceed the kernel's int32 offsets")
+    # entry e of queue tile c sits at store offset start[order[c]] + (e -
+    # entry_ptr[c]): one vectorised gather, no Python loop over tiles
+    take = (np.repeat(packed.entry_ptr[:-1][order] - entry_ptr[:-1], counts)
+            + np.arange(m, dtype=np.int64))
+    rows, cols = packed.row_local[take], packed.col_local[take]
+    for name, a, hi in (("rows", rows, t), ("cols", cols, t),
+                        ("tile_src", tile_src, max(q, 1))):
+        if a.size and (int(a.min()) < 0 or int(a.max()) >= hi):
+            raise ValueError(f"{name} holds values outside [0, {hi})")
+    segments = queue_segments(tile_ptr, entry_ptr)
+    return TileQueue(packed.num_vertices, t, q, bucket,
+                     _upload(tile_ptr, device), _upload(tile_src, device),
+                     _upload(entry_ptr.astype(np.int32), device),
+                     _upload(rows, device), _upload(cols, device),
+                     _upload(packed.val[take], device),
+                     _upload(segments, device),
+                     bool(segments[:, 3].any()))
+
+
+def tile_queue_plain(tq: TileQueue, x: torch.Tensor,
+                     activation: Optional[str] = None) -> torch.Tensor:
+    """The walker's function in plain PyTorch: each entry's global
+    (dst, src) from its tile, one gather, one index_add_, then the
+    activation.  x (n, F) -> (n, F)."""
+    dev = x.device
+    t = tq.tile
+    k = tq.entry_ptr.numel() - 1
+    tile_dst = torch.repeat_interleave(
+        torch.arange(tq.q, device=dev), torch.diff(tq.tile_ptr.long()))
+    tile_of = torch.repeat_interleave(
+        torch.arange(k, device=dev), torch.diff(tq.entry_ptr.long()))
+    gsrc = tq.tile_src.long()[tile_of] * t + tq.cols.long()
+    gdst = tile_dst[tile_of] * t + tq.rows.long()
+    y = torch.zeros((tq.q * t, x.shape[1]), dtype=torch.float32, device=dev)
+    y.index_add_(0, gdst, tq.vals[:, None] * x[gsrc])
+    if activation == "relu":
+        y = torch.relu(y)
+    elif activation is not None:
+        raise ValueError(activation)
+    return y[:tq.n]
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("chunk_queue")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.chunk_queue_launch.argtypes = [p, p, p, p, p, p, p, i, i, p,
+                                           p, i, i, i, i, p]
+        lib.chunk_queue_launch.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def tile_queue_aggregate(tq: TileQueue, x: torch.Tensor, *,
+                         activation: Optional[str] = None) -> torch.Tensor:
+    """act(A x) over a built tile queue: x (n, F) -> (n, F).  CPU tensors
+    take the plain version; CUDA tensors the kernel."""
+    if activation not in (None, "relu"):
+        raise ValueError(activation)
+    if x.device.type == "cpu":
+        return tile_queue_plain(tq, x, activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"no chunk_queue kernel for device {x.device}")
+    refuse_grad("chunk_queue", x)
+    dev = x.device
+    check_tensor(x, "x", torch.float32, dev, 2)
+    for name in ("tile_ptr", "tile_src", "entry_ptr", "rows", "cols"):
+        check_tensor(getattr(tq, name), name, torch.int32, dev, 1)
+    check_tensor(tq.vals, "vals", torch.float32, dev, 1)
+    check_tensor(tq.segments, "segments", torch.int32, dev, 2)
+    if x.shape[0] != tq.n:
+        raise ValueError(f"x has {x.shape[0]} rows, the queue {tq.n}")
+    f = x.shape[1]
+    # split intervals add their pieces into zeros; the others store
+    y = (torch.zeros if tq.any_split else torch.empty)(
+        (tq.n, f), dtype=torch.float32, device=dev)
+    relu = activation == "relu"
+    status = _lib().chunk_queue_launch(
+        tq.tile_ptr.data_ptr(), tq.tile_src.data_ptr(),
+        tq.entry_ptr.data_ptr(), tq.rows.data_ptr(), tq.cols.data_ptr(),
+        tq.vals.data_ptr(), tq.segments.data_ptr(), tq.segments.shape[0],
+        int(tq.any_split), x.data_ptr(), y.data_ptr(), tq.n, tq.tile, f,
+        int(relu), stream_handle(dev))
+    check_status(status, "chunk_queue")
+    LAUNCHES["sum_relu" if relu else "sum"] += 1
+    return y

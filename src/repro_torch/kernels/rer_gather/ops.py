@@ -9,7 +9,11 @@ Device side: `packed_spmm` launches the hand-written CUDA kernel
 `csrc/rer_gather.cu` on one bucket group for CUDA tensors, and runs
 `packed_spmm_plain` (gather the referenced rows, scale, segment-reduce)
 for CPU tensors.  `packed_flat_plain` is the one-launch plain form the
-CPU path of `prepare_graph` carries.
+CPU path of `prepare_graph` carries.  `packed_tile_part` is the streamed
+executor's call form of the same kernel: one chunk of C packed tiles
+against the (C, T, F) stack of their source intervals, reduced into one
+destination interval's raw (T, F) partial; its plain version is
+`packed_tile_part_plain`.
 
 Source note.  Replaces `repro/kernels/rer_gather/rer_gather.py::
 rer_gather` (`_gather_kernel_sum`, `_gather_kernel_max`).  On the H100
@@ -35,8 +39,10 @@ from repro_torch.kernels._common import (check_range, check_status,
                                          check_tensor, refuse_grad,
                                          stream_handle, tile_ptr)
 
-# kernel launches by op, counted where the kernel is launched
-LAUNCHES = {"sum": 0, "max": 0}
+# kernel launches by op and call form, counted where the kernel is
+# launched: "sum"/"max" for bucket groups, "tile_part_*" for the
+# streamed executor's chunks
+LAUNCHES = {"sum": 0, "max": 0, "tile_part_sum": 0, "tile_part_max": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +143,19 @@ def packed_spmm_plain(rows: torch.Tensor, cols: torch.Tensor,
                            finish)
 
 
+def packed_tile_part_plain(rows: torch.Tensor, cols: torch.Tensor,
+                           vals: torch.Tensor, xs: torch.Tensor, *,
+                           op: str = "sum") -> torch.Tensor:
+    """One streamed chunk in plain PyTorch: (C, S) entries against the
+    (C, T, F) source stack -> (T, F) raw partial (sum from zero; max
+    keeps -inf in uncovered rows)."""
+    c, t, f = xs.shape
+    gcols = (torch.arange(c, device=xs.device)[:, None] * t
+             + cols.long()).reshape(-1)
+    return _segment_reduce(vals.reshape(-1), xs.reshape(c * t, f)[gcols],
+                           rows.long().reshape(-1), t, op, finish=False)
+
+
 _LIB = None
 
 
@@ -195,4 +214,60 @@ def packed_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         q, s, t, f, int(op == "max"), int(finish), stream_handle(dev))
     check_status(status, "rer_gather")
     LAUNCHES[op] += 1
+    return y
+
+
+# (C, device) -> the q=1 span pointers [0, C] and source intervals
+# arange(C) of a tile-part launch: built once, so no launch synchronises
+_PART_INDEX = {}
+
+
+def _part_index(c: int, dev: torch.device):
+    key = (c, str(dev))
+    hit = _PART_INDEX.get(key)
+    if hit is None:
+        hit = (torch.tensor([0, c], dtype=torch.int32, device=dev),
+               torch.arange(c, dtype=torch.int32, device=dev))
+        _PART_INDEX[key] = hit
+    return hit
+
+
+def packed_tile_part(rows: torch.Tensor, cols: torch.Tensor,
+                     vals: torch.Tensor, xs: torch.Tensor, *,
+                     op: str = "sum", checked: bool = False) -> torch.Tensor:
+    """One streamed chunk: (C, S) packed entries against the (C, T, F)
+    stack of their source intervals -> (T, F) raw partial for a single
+    destination interval.  CPU tensors take the plain version; CUDA
+    tensors the kernel, as a one-interval launch (q=1) with T passed
+    explicitly.  `checked=True` is the caller's word that rows and cols
+    lie in [0, T) (the streamed executor checks its host store once);
+    otherwise they are checked here, which reads back to the host."""
+    if op not in ("sum", "max"):
+        raise ValueError(op)
+    if xs.device.type == "cpu":
+        return packed_tile_part_plain(rows, cols, vals, xs, op=op)
+    if xs.device.type != "cuda":
+        raise ValueError(f"no rer_gather for device {xs.device}")
+    refuse_grad("rer_gather", vals, xs)
+    dev = xs.device
+    check_tensor(rows, "rows", torch.int32, dev, 2)
+    check_tensor(cols, "cols", torch.int32, dev, 2)
+    check_tensor(vals, "vals", torch.float32, dev, 2)
+    check_tensor(xs, "xs", torch.float32, dev, 3)
+    c, t, f = xs.shape
+    s = rows.shape[1]
+    if rows.shape != (c, s) or cols.shape != (c, s) or vals.shape != (c, s):
+        raise ValueError(f"entries {tuple(rows.shape)} / {tuple(cols.shape)}"
+                         f" / {tuple(vals.shape)} do not match {c} tiles")
+    if not checked:
+        check_range(rows, t, "rows")
+        check_range(cols, t, "cols")
+    ptr, block_col = _part_index(c, dev)
+    y = torch.empty((t, f), dtype=torch.float32, device=dev)
+    status = _lib().rer_gather_launch(
+        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+        block_col.data_ptr(), ptr.data_ptr(), xs.data_ptr(), y.data_ptr(),
+        1, s, t, f, int(op == "max"), 0, stream_handle(dev))
+    check_status(status, "rer_gather")
+    LAUNCHES["tile_part_" + op] += 1
     return y

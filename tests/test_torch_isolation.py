@@ -1,7 +1,8 @@
-"""The port stands alone: `src/repro_torch/**` and `chip_smoke.py` import
-neither JAX nor the reference package, importing the port loads
-neither, no kernel is built at import time, and the CUDA sources use a
-plain C interface (no PyTorch headers)."""
+"""The port stands alone: `src/repro_torch/**`, `chip_smoke.py` and the
+port's timing scripts (`benchmarks/torch/`) import neither JAX nor the
+reference package, importing the port loads neither, no kernel is built
+at import time, and the CUDA sources use a plain C interface (no PyTorch
+headers)."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "benchmarks" / "torch").glob("*.py")))
 
 
 def _imported_modules(path: Path):
@@ -87,3 +89,18 @@ def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
                          env=dict(os.environ, PYTHONPATH=""))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_every_cuda_source_is_built_and_counted():
+    """Each `csrc/*.cu` is in the build list, and its wrapper module is
+    registered for the launch counters the smoke reads (the streamed
+    executor's chunk_queue kernel and the tile-part call form too)."""
+    from repro_torch.kernels import _build, _modules, launch_counts
+    sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert sorted(_build.KERNELS) == sources
+    assert set(_modules()) == set(sources)
+    counts = launch_counts()
+    for key in ("chunk_queue_sum", "chunk_queue_sum_relu",
+                "rer_gather_tile_part_sum", "rer_gather_tile_part_max",
+                "rer_spmm_sum", "rer_gather_sum", "fused_engn_sum"):
+        assert key in counts, key
