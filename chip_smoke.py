@@ -8,7 +8,7 @@ prints no result.  Phases, each of which fails the run if it fails:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit (every time below stands beside them);
-2. build: the four CUDA kernels, from `src/repro_torch/csrc/`, one
+2. build: the seven CUDA kernels, from `src/repro_torch/csrc/`, one
    `nvcc` each, in parallel, into `build/repro_torch/`;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the calls one forward of its main-path run makes (max variants
@@ -27,18 +27,42 @@ prints no result.  Phases, each of which fails the run if it fails:
    the streamed executor: GCN on "tiled" (layer 1 on the chunk queue,
    layer 2 streamed in row order), GCN on "blocked" under a 32 MB budget
    (spills to "tiled"; no queue fits), GS-Pool on "tiled" (streamed
-   max).
-Launch counters are zeroed just before each of the two path phases and
-read just after; each run must have launched its kernels and must match
-the "segment" backend on the card (`allclose(rtol=1e-4, atol=1e-5)`).
+   max);
+6. backward and B4 kernels: at the training path's shapes (uncut pubmed
+   as `build_gnn` makes it, F capped at 128, hidden 64, T=256), the sum
+   backwards over the transposed carriers (`rer_spmm_sum_t`,
+   `rer_gather_sum_t`; the fused backward, `rer_spmm_sum_t` plus two
+   matrix products, is checked and timed on a line of its own, outside
+   the kernels' record) and both max backwards
+   (`rer_spmm_bwd_max`, `rer_gather_bwd_count` / `_max`), each against
+   its plain version (integer counts `torch.equal`, sums within 1e-5 of
+   the output's largest magnitude); B4 (`fused_linear_act`) through its
+   entry point at the three stages whose function it computes on uncut
+   pubmed (GS-Pool extraction 500 x 64, GS-Pool update 564 x 64, GCN afu
+   500 x 64), against the layers' own stage output and its plain
+   version, timed beside `torch.addmm` + relu;
+7. training path: `build_gnn` on uncut pubmed, 20 steps each, GCN on
+   "blocked" dense / packed and "fused", GS-Pool on "blocked" dense /
+   packed (multi-edges merged), each trajectory against the same run on
+   "segment" (`allclose(rtol=1e-3, atol=1e-4)`) and one step's
+   gradients against the plain versions' own autograd; then `run_gnn`
+   through `FaultTolerantRunner` and `CheckpointManager`, and again from
+   its checkpoint.
+Launch counters are zeroed just before each path phase (4, 5, the B4
+calls of 6, 7) and read just after; each run must have launched its
+kernels, and each inference run must match the "segment" backend on the
+card (`allclose(rtol=1e-4, atol=1e-5)`).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,6 +71,9 @@ import warnings
 from pathlib import Path
 
 RTOL, ATOL = 1e-4, 1e-5           # sum variants and layer outputs
+NEW_RTOL = 1e-5                   # the backward and B4 kernels' sums
+TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
+TRAIN_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
 
@@ -167,16 +194,24 @@ def main() -> int:
     records = []
 
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
-                    library=None, record=True):
+                    library=None, record=True, rel=None):
         """calls: (kernel thunk, plain thunk) for one forward's calls;
         `record=False` checks and times a variant no path launches,
-        printed on its own line and kept out of the record."""
+        printed on its own line and kept out of the record (as is a call
+        form whose launches another record counts).  `rel` holds
+        a sum to within rel x the plain output's largest magnitude (and
+        rtol rel) instead of RTOL/ATOL."""
         err = 0.0
         for kern, plain in calls:
             yk, yp = kern(), plain()
             torch.cuda.synchronize()
-            same = (torch.equal(yk, yp) if exact else
-                    torch.allclose(yk, yp, rtol=RTOL, atol=ATOL))
+            if exact:
+                same = torch.equal(yk, yp)
+            elif rel is not None:
+                scale = max(1.0, float(yp.abs().max()) if yp.numel() else 0)
+                same = torch.allclose(yk, yp, rtol=rel, atol=rel * scale)
+            else:
+                same = torch.allclose(yk, yp, rtol=RTOL, atol=ATOL)
             both_inf = torch.isneginf(yk) & torch.isneginf(yp)
             diff = torch.where(both_inf, 0.0, (yk - yp).abs())
             err = max(err, float(diff.max()) if diff.numel() else 0.0)
@@ -221,7 +256,7 @@ def main() -> int:
         for op in ("sum", "max"):
             calls = [(lambda x=x, op=op: spmm_ops.blocked_spmm(
                           cd["blocks"], cd["block_row"], cd["block_col"],
-                          x, q=q, op=op),
+                          x, q=q, op=op, transposed=None),
                       lambda x=x, op=op: spmm_ops.blocked_spmm_plain(
                           cd["blocks"], cd["block_row"], cd["block_col"],
                           x, q=q, op=op)) for x in xs]
@@ -259,9 +294,8 @@ def main() -> int:
                 f"rer_gather_{op}", "src/repro_torch/csrc/rer_gather.cu",
                 "src/repro/kernels/rer_gather/rer_gather.py:103", calls,
                 exact=op == "max",
-                nbytes=sum(nb(gr["rows"], gr["cols"], gr["vals"],
-                              gr["block_row"], gr["block_col"], x, x)
-                           for x in xs for gr in groups),
+                nbytes=sum(nb(*gr.values()) for gr in groups) * len(xs)
+                + sum(nb(x, x) for x in xs),
                 ops=sum(2 * nnz_entries * x.shape[1] for x in xs),
                 library=(None if op == "max" else
                          lambda: [torch.sparse.mm(a_pub, x[:g_pub.num_vertices])
@@ -283,7 +317,8 @@ def main() -> int:
             "fused_engn_sum", "src/repro_torch/csrc/fused_engn.cu",
             "src/repro/kernels/fused_engn/fused_engn.py:60",
             [(lambda x=x, w=w: fused_ops.fused_engn_layer(
-                  cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q),
+                  cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q,
+                  transposed=None),
               lambda x=x, w=w: fused_ops.fused_engn_plain(
                   cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q))
              for x, w in pairs],
@@ -568,8 +603,378 @@ def main() -> int:
                   f", peak {peak / 2**20:.1f} MiB")
             print(f"  TiledStats/forward {json.dumps(stats)}")
 
+    # -- the backward kernels and B4 ------------------------------------------
+    from repro_torch.core import engn as engn_mod
+    from repro_torch.kernels.feature_update import ops as update_ops
+    from repro_torch.kernels.rer_gather_bwd import ops as gather_bwd_ops
+    from repro_torch.kernels.rer_spmm_bwd import ops as spmm_bwd_ops
+    from repro_torch.launch import train as train_mod
+
+    def merged(g):
+        """Multi-edges merged by summation (GS-Pool's max on tiles)."""
+        n = g.num_vertices
+        key, val = merge_by_key(g.dst.astype(np.int64) * n + g.src,
+                                g.weights())
+        return COOGraph(n, (key % n).astype(np.int32),
+                        (key // n).astype(np.int32), val)
+
+    # the training path's graph: build_gnn's uncut pubmed, GCN-normalised
+    # (the tile carriers of the merged and unmerged graphs are equal)
+    g_tr, f_tr, c_tr = make_dataset("pubmed")
+    f_tr = min(f_tr, 128)
+    g_tr = merged(g_tr.gcn_normalized())
+    n_tr = g_tr.num_vertices
+    print(f"training graph pubmed: |V|={n_tr} |E|={g_tr.num_edges} (merged) "
+          f"F={f_tr} classes={c_tr}")
+    widths_tr = [64, c_tr]                # aggregate widths, 2 layers
+    a_tr_t = csr(COOGraph(n_tr, g_tr.dst, g_tr.src, g_tr.weights()))
+    with torch.inference_mode():
+        cfg_tr = rt.EnGNConfig(f_tr, 64, backend="blocked", tile=256,
+                               tile_format="dense")
+        plan_d = rt.prepare_graph(g_tr, cfg_tr)
+        cd = plan_d.carrier
+        q, npad = cd["blocks_meta"]["q"], cd["blocks_meta"]["padded"]
+        bt = engn_mod.transposed_blocks(cd)
+        nnz_tr = int(torch.count_nonzero(cd["blocks"]))
+        print(f"training dense carrier: {cd['blocks'].shape[0]} tiles, "
+              f"{plan_d.footprint_bytes / 1e9:.3f} GB; transposed "
+              f"{bt.nbytes() / 1e9:.3f} GB")
+
+        def rows_n(t):
+            t[n_tr:] = 0
+            return t
+        gs = [rows_n(feats(npad, w)) for w in widths_tr]
+        # max inputs like GS-Pool's relu extraction: half zeros, ties
+        xs_max = [rows_n(torch.relu(feats(npad, w))) for w in widths_tr]
+        ys_max = [spmm_ops.blocked_spmm(cd["blocks"], cd["block_row"],
+                                        cd["block_col"], x, q=q, op="max",
+                                        transposed=None)
+                  for x in xs_max]
+        kernel_case(
+            "rer_spmm_sum_t", "src/repro_torch/csrc/rer_spmm.cu",
+            "src/repro/kernels/rer_spmm/rer_spmm.py:74",
+            [(lambda g=g: spmm_ops.blocked_spmm_t(bt, g, q=q),
+              lambda g=g: spmm_ops.blocked_spmm_plain(
+                  bt.blocks, bt.block_row, bt.block_col, g, q=q))
+             for g in gs],
+            exact=False, rel=NEW_RTOL,
+            nbytes=sum(nb(bt.blocks, bt.block_row, bt.block_col, g, g)
+                       for g in gs),
+            ops=sum(2 * nnz_tr * g.shape[1] for g in gs),
+            library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
+        kernel_case(
+            "rer_spmm_bwd_max", "src/repro_torch/csrc/rer_spmm_bwd.cu",
+            "src/repro/kernels/rer_spmm/rer_spmm.py:74",
+            [(lambda x=x, y=y, g=g: spmm_bwd_ops.blocked_spmm_max_bwd(
+                  cd["blocks"], cd["block_row"], cd["block_col"], bt, x, y, g,
+                  q=q),
+              lambda x=x, y=y, g=g: spmm_bwd_ops.blocked_spmm_max_bwd_plain(
+                  cd["blocks"], cd["block_row"], cd["block_col"], bt, x, y, g,
+                  q=q))
+             for x, y, g in zip(xs_max, ys_max, gs)],
+            exact=False, rel=NEW_RTOL,
+            nbytes=sum(nb(cd["blocks"], cd["block_row"], cd["block_col"],
+                          x, y, g, x)
+                       for x, y, g in zip(xs_max, ys_max, gs)),
+            ops=sum(4 * nnz_tr * x.shape[1] for x in xs_max))
+        # the fused backward at both layers' shapes: [128 -> 64], [64 -> 3]
+        fused_in = [(rows_n(feats(npad, f_tr)), feats(f_tr, 64), gs[0]),
+                    (rows_n(feats(npad, 64)), feats(64, c_tr), gs[1])]
+
+        def flat_bwd(fn, x, w, g):
+            dx, dw = fn(bt, x, w, g, q=q)
+            return torch.cat([dx.reshape(-1), dw.reshape(-1)])
+        kernel_case(
+            "fused_engn_bwd", "src/repro_torch/csrc/rer_spmm.cu",
+            "src/repro/kernels/fused_engn/fused_engn.py:60",
+            [(lambda x=x, w=w, g=g: flat_bwd(fused_ops.fused_engn_bwd,
+                                              x, w, g),
+              lambda x=x, w=w, g=g: flat_bwd(fused_ops.fused_engn_bwd_plain,
+                                              x, w, g))
+             for x, w, g in fused_in],
+            exact=False, rel=NEW_RTOL, record=False,
+            nbytes=sum(nb(bt.blocks, bt.block_row, bt.block_col, x, w, g, x,
+                          w) for x, w, g in fused_in),
+            ops=sum(2 * nnz_tr * w.shape[1] + 4 * npad * w.shape[0]
+                    * w.shape[1] for x, w, g in fused_in))
+        del plan_d, cd, bt, xs_max, ys_max, fused_in
+
+        plan_p = rt.prepare_graph(g_tr, dataclasses.replace(
+            cfg_tr, tile_format="packed"))
+        cp = plan_p.carrier
+        groups = cp["packed_groups"]
+        groups_t = engn_mod.transposed_groups(cp, cfg_tr.packed_bucket_floor)
+        nnz_p = sum(int(torch.count_nonzero(gr["vals"])) for gr in groups)
+        print(f"training packed carrier: {len(groups)} groups, "
+              f"{plan_p.footprint_bytes / 1e6:.3f} MB; transposed "
+              f"{len(groups_t)} groups, "
+              f"{engn_mod.transposed_bytes(plan_p) / 1e6:.3f} MB")
+        kernel_case(
+            "rer_gather_sum_t", "src/repro_torch/csrc/rer_gather.cu",
+            "src/repro/kernels/rer_gather/rer_gather.py:103",
+            [(lambda gt=gt, g=g: gather_ops.packed_spmm_t(gt, g, q=q),
+              lambda gt=gt, g=g: gather_ops.packed_spmm_plain(
+                  gt["rows"], gt["cols"], gt["vals"], gt["block_row"],
+                  gt["block_col"], g, q=q))
+             for g in gs for gt in groups_t],
+            exact=False, rel=NEW_RTOL,
+            nbytes=sum(nb(*gt.values()) for gt in groups_t) * len(gs)
+            + sum(nb(g, g) for g in gs),
+            ops=sum(2 * nnz_p * g.shape[1] for g in gs),
+            library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
+        xs_max = [rows_n(torch.relu(feats(npad, w))) for w in widths_tr]
+        ys_max = [gather_ops.packed_groups_spmm(groups, x, q=q, op="max",
+                                                transposed=None)
+                  for x in xs_max]
+
+        def counted(fn, x, y):
+            cnt = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+            for gr in groups:
+                fn(gr, x, y, cnt, q=q)
+            return cnt
+        kernel_case(
+            "rer_gather_bwd_count", "src/repro_torch/csrc/rer_gather_bwd.cu",
+            "src/repro/kernels/rer_gather/rer_gather.py:103",
+            [(lambda x=x, y=y: counted(gather_bwd_ops.packed_max_count, x, y),
+              lambda x=x, y=y: counted(gather_bwd_ops.packed_max_count_plain,
+                                       x, y))
+             for x, y in zip(xs_max, ys_max)],
+            exact=True,
+            nbytes=sum(nb(*gr.values()) for gr in groups) * len(xs_max)
+            + sum(nb(x, y, x) for x, y in zip(xs_max, ys_max)),
+            ops=sum(2 * nnz_p * x.shape[1] for x in xs_max))
+        cnts = [counted(gather_bwd_ops.packed_max_count_plain, x, y)
+                for x, y in zip(xs_max, ys_max)]
+        kernel_case(
+            "rer_gather_bwd_max", "src/repro_torch/csrc/rer_gather_bwd.cu",
+            "src/repro/kernels/rer_gather/rer_gather.py:103",
+            [(lambda gt=gt, x=x, y=y, g=g, c=c: gather_bwd_ops.packed_max_grad(
+                  gt, x, y, g, c, q=q),
+              lambda gt=gt, x=x, y=y, g=g, c=c:
+              gather_bwd_ops.packed_max_grad_plain(gt, x, y, g, c, q=q))
+             for x, y, g, c in zip(xs_max, ys_max, gs, cnts)
+             for gt in groups_t],
+            exact=False, rel=NEW_RTOL,
+            nbytes=sum(nb(*gt.values()) for gt in groups_t) * len(xs_max)
+            + sum(nb(x, y, g, c, x) for x, y, g, c in
+                  zip(xs_max, ys_max, gs, cnts)),
+            ops=sum(4 * nnz_p * x.shape[1] for x in xs_max))
+        del plan_p, cp, groups, groups_t, xs_max, ys_max, cnts, gs
+
+    # B4 through its entry point, at the stages whose function it computes
+    # on uncut pubmed: the layers' own weights, the layers' own stage
+    # outputs to agree with
+    g_pub, x_pub_np, _, f_pub, c_pub = pubmed
+    with torch.inference_mode():
+        x_pub = torch.from_numpy(x_pub_np).to(dev)
+        pool = stack("gs_pool", [f_pub, 64, c_pub], "segment")[0]
+        gcn_afu = rt.make_gnn("gcn", f_pub, 64, stage_order="afu")
+        plan_seg = rt.prepare_graph(g_pub, pool.cfg)
+        agg = pool._aggregate(plan_seg, pool.feature_extraction(x_pub))
+        ax = gcn_afu._aggregate(rt.prepare_graph(g_pub, gcn_afu.cfg), x_pub)
+        stages = [
+            ("feature_update_relu_gs_pool_extract", x_pub, pool.w_pool,
+             pool.b_pool, pool.feature_extraction(x_pub)),
+            ("feature_update_relu_gs_pool_update",
+             torch.cat([agg, x_pub], dim=-1), pool.w, None,
+             pool.update(x_pub, agg)),
+            ("feature_update_relu_gcn_afu", ax, gcn_afu.w, None,
+             gcn_afu.update(x_pub, gcn_afu.feature_extraction(ax)))]
+        K.reset_launch_counts()
+        b4_launches = {}
+        for name, xin, w, b, want in stages:
+            before = K.launch_counts()["feature_update_relu"]
+            y = update_ops.fused_linear_act(xin, w, b, act="relu")
+            torch.cuda.synchronize()
+            b4_launches[name] = K.launch_counts()["feature_update_relu"] \
+                - before
+            err = float((y - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            if not torch.allclose(y, want, rtol=NEW_RTOL,
+                                  atol=NEW_RTOL * scale):
+                raise AssertionError(f"{name}: differs from the layer's own "
+                                     f"stage (max abs err {err})")
+            print(f"path {name}: {tuple(xin.shape)} @ {tuple(w.shape)}, "
+                  f"{b4_launches[name]} launch, max abs err vs the layer "
+                  f"{err:.3g}")
+        b4_counts = K.launch_counts()
+        for name, xin, w, b, _ in stages:
+            bias = b if b is not None else torch.zeros(w.shape[1],
+                                                       device=dev)
+            kernel_case(
+                name, "src/repro_torch/csrc/feature_update.cu",
+                "src/repro/kernels/feature_update/feature_update.py:48",
+                [(lambda xin=xin, w=w, b=bias: update_ops.fused_linear_act(
+                      xin, w, b, act="relu"),
+                  lambda xin=xin, w=w, b=bias:
+                  update_ops.fused_linear_act_plain(xin, w, b, act="relu"))],
+                exact=False, rel=NEW_RTOL,
+                nbytes=nb(xin, w, bias) + xin.shape[0] * w.shape[1] * 4,
+                ops=2 * xin.shape[0] * w.shape[0] * w.shape[1],
+                library=lambda xin=xin, w=w, b=bias: torch.relu(
+                    torch.addmm(b, xin, w)))
+        del stages, agg, ax, x_pub, plan_seg
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the training path ----------------------------------------------------
+    def build_run(model, backend, fmt):
+        step, state, data, _, aux = train_mod.build_gnn(
+            model=model, dataset="pubmed", backend=backend,
+            steps=TRAIN_STEPS, hidden=64, batch=256, max_vertices=None,
+            max_edges=None)
+        tr = aux["trainer"]
+        if model == "gs_pool":
+            tr.graph = merged(tr.graph)
+        for layer in tr.layers:
+            layer.cfg.tile_format = fmt
+        tr.rebuild()
+        return tr, state, data
+
+    def grads_of(tr, params, batch, plan=None):
+        leaves = [{k: v.detach().clone().requires_grad_(True)
+                   for k, v in p.items()} for p in params]
+        tr.loss(leaves, batch, plan=plan).backward()
+        return [leaf.grad for p in leaves for _, leaf in sorted(p.items())]
+
+    def plain_twin(tr):
+        """The trainer's plan as flat entries on the card: `_aggregate`
+        takes `packed_flat_plain` for it, whose own autograd is the
+        reference's flat convention (a tie at a relu zero passes no
+        gradient, so it agrees with the tiles' two-level split)."""
+        store = build_tile_store(tr.graph, 256)
+        flat = gather_ops.flat_entries(pack_tile_store(store))
+        meta = tr.plan.meta
+        return rt.PreparedPlan(
+            backend="blocked", n=tr.plan.n,
+            carrier={"n": tr.plan.n, "backend": "blocked", "device": dev,
+                     "packed_flat": tuple(torch.from_numpy(a).to(dev)
+                                          for a in flat),
+                     "blocks_meta": {"q": meta["q"],
+                                     "padded": meta["padded"]}})
+
+    bwd_keys = ("rer_spmm_sum_t", "rer_gather_sum_t", "rer_spmm_bwd_max",
+                "rer_gather_bwd_count", "rer_gather_bwd_max")
+    train_runs = [
+        ("pubmed gcn segment", "gcn", "segment", "auto", None),
+        ("pubmed gcn blocked dense", "gcn", "blocked", "dense",
+         ("rer_spmm_sum", "rer_spmm_sum_t")),
+        ("pubmed gcn blocked packed", "gcn", "blocked", "packed",
+         ("rer_gather_sum", "rer_gather_sum_t")),
+        ("pubmed gcn fused", "gcn", "fused", "auto",
+         ("fused_engn_sum", "rer_spmm_sum_t")),
+        ("pubmed gs_pool segment", "gs_pool", "segment", "auto", None),
+        ("pubmed gs_pool blocked dense", "gs_pool", "blocked", "dense",
+         ("rer_spmm_max", "rer_spmm_bwd_max")),
+        ("pubmed gs_pool blocked packed", "gs_pool", "blocked", "packed",
+         ("rer_gather_max", "rer_gather_bwd_count", "rer_gather_bwd_max")),
+    ]
+    seg_losses, train_table = {}, []
+    K.reset_launch_counts()
+    for label, model, backend, fmt, kerns in train_runs:
+        mem0 = torch.cuda.memory_allocated()
+        tr, state, data = build_run(model, backend, fmt)
+        if backend != "segment":
+            batch0 = next(data)
+            data.seek(0)
+            got = grads_of(tr, state["params"], batch0)
+            want = grads_of(tr, state["params"], batch0, plan=plain_twin(tr))
+            gerr = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            for a, b in zip(got, want):
+                scale = max(1e-30, float(b.abs().max()))
+                if not torch.allclose(a, b, rtol=RTOL, atol=RTOL * scale):
+                    raise AssertionError(f"{label}: one step's gradients "
+                                         f"differ from the plain versions' "
+                                         f"autograd (max abs err {gerr})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = K.launch_counts()
+        ps, opt, losses, times = state["params"], state["opt"], [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            ps, opt, m = tr.step(ps, opt, next(data))
+            losses.append(float(m["loss"]))      # waits for the step
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - mem0
+        grew = {k: v - before[k] for k, v in K.launch_counts().items()
+                if v > before[k]}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        for kern in kerns or ():
+            if grew.get(kern, 0) <= 0:
+                raise AssertionError(f"{label}: {kern} was not launched")
+        if backend == "segment":
+            seg_losses[model] = losses
+            lerr = 0.0
+        else:
+            ref = np.asarray(seg_losses[model])
+            lerr = float(np.abs(np.asarray(losses) - ref).max())
+            if not np.allclose(losses, ref, rtol=TRAIN_RTOL,
+                               atol=TRAIN_ATOL):
+                raise AssertionError(f"{label}: loss trajectory {losses} "
+                                     f"differs from segment {ref.tolist()}")
+        per_step = {k: v / TRAIN_STEPS for k, v in grew.items()}
+        bwd = sum(v for k, v in per_step.items() if k in bwd_keys)
+        row = {"run": label, "plan": f"{tr.plan.backend}/"
+               f"{tr.plan.tile_format}",
+               "ms_per_step": statistics.median(times[1:]),
+               "first_step_ms": times[0], "launches_per_step": per_step,
+               "bwd_launches_per_step": bwd,
+               "plan_and_state_mib": (base - mem0) / 2**20,
+               "peak_mib": peak / 2**20,
+               "footprint_bytes": tr.plan.footprint_bytes,
+               "transposed_bytes": engn_mod.transposed_bytes(tr.plan),
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "max_loss_err_vs_segment": lerr}
+        if backend != "segment":
+            row["max_grad_err_vs_plain"] = gerr
+        train_table.append(row)
+        print(f"train {label}: plan {row['plan']}, median "
+              f"{row['ms_per_step']:.3f} ms/step (host clock, steps 2-"
+              f"{TRAIN_STEPS}; first {times[0]:.1f} ms), "
+              f"{bwd:g} backward launches/step, launches/step {per_step}, "
+              f"plan + state {row['plan_and_state_mib']:.1f} MiB, peak "
+              f"{row['peak_mib']:.1f} MiB (both over what the run found "
+              f"allocated), footprint "
+              f"{row['footprint_bytes']} B + transposed "
+              f"{row['transposed_bytes']} B, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, max loss err vs segment {lerr:.3g}"
+              + (f", max grad err vs plain {gerr:.3g}"
+                 if backend != "segment" else ""))
+        del tr, state, data, ps, opt
+        gc.collect()                  # the trainer and its step form a cycle
+        torch.cuda.empty_cache()
+    train_counts = K.launch_counts()
+    print(f"training-path launches: {train_counts}")
+    print(f"training runs: {json.dumps(train_table)}")
+
+    # run_gnn: FaultTolerantRunner + CheckpointManager, then a restore
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gnn_args = dict(gnn="gcn", gnn_backend="blocked", gnn_shards=None,
+                    gnn_hidden=64, dataset="pubmed", device_budget=0,
+                    batch=256, ckpt_dir=str(ckpt_dir), ckpt_every=2,
+                    chaos_seed=None, device=None)
+    first = train_mod.run_gnn(argparse.Namespace(**gnn_args, steps=2))
+    second = train_mod.run_gnn(argparse.Namespace(**gnn_args, steps=4))
+    if (first["start"], first["steps"], first["saves"]) != (0, 2, 1) or (
+            second["start"], second["steps"]) != (2, 4):
+        raise AssertionError(f"run_gnn did not checkpoint and resume: "
+                             f"{first} / {second}")
+    print(f"run_gnn: 2 steps, saved; resumed at step {second['start']} to "
+          f"{second['steps']}, losses {first['losses']} + "
+          f"{second['losses']}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    phases = (path_counts, tiled_counts, b4_counts, train_counts)
     for rec in records:
-        rec["launches"] = path_counts[rec["name"]] + tiled_counts[rec["name"]]
+        # a B4 record's launches are its own stage's; every other record
+        # is named by its launch counter
+        rec["launches"] = (b4_launches[rec["name"]]
+                           if rec["name"] in b4_launches
+                           else sum(c[rec["name"]] for c in phases))
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} never ran on a path")
     print(f"queue layouts: {json.dumps(queue_table)}")

@@ -22,10 +22,20 @@ order decision (S5.2) and the aggregation backend:
 `prepare_graph` builds the carrier on the plan's device: on `cuda` the
 kernels' carriers, on the CPU (only when asked) the plain versions'.  A
 graph over `device_budget_bytes` spills to "tiled" (`auto_spill=True`)
-or raises `DeviceBudgetExceeded`.  The sharded "ring" backend, the
-typed/gated stage contracts and training through "tiled" are not
-ported yet and raise `NotImplementedError` naming their ROADMAP item;
-nothing falls back to another backend.
+or raises `DeviceBudgetExceeded`.
+
+The resident backends train: their aggregates are autograd Functions
+whose backward runs over the carrier of A^T (the dense tiles
+transposed, or the packed groups of `transpose_packed_store`), built
+once per plan on the plan's device at its first backward and cached in
+the carrier under "transposed" (`transposed_bytes` reports its size).
+The budget gate prices training as the reference does
+(`cfg.training=True` doubles the activations) and does not count it.
+
+The sharded "ring" backend, the typed/gated stage contracts and
+training through "tiled" are not ported yet and raise
+`NotImplementedError` naming their ROADMAP item; nothing falls back to
+another backend.
 """
 from __future__ import annotations
 
@@ -193,7 +203,9 @@ class EnGNLayer(nn.Module):
             from repro_torch.kernels.fused_engn import fused_engn_layer
             y = fused_engn_layer(graph["blocks"], graph["block_row"],
                                  graph["block_col"], _pad_rows(graph, x),
-                                 self.w, q=graph["blocks_meta"]["q"])
+                                 self.w, q=graph["blocks_meta"]["q"],
+                                 transposed=partial(transposed_blocks,
+                                                    graph))
             return self.update(x, y[:graph["n"]])
         if linear_sum and self.dasr_order() == "afu":
             return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
@@ -268,26 +280,18 @@ class EnGNLayer(nn.Module):
         if "packed_groups" in graph:
             # CUDA plans: one rer_gather launch per pow2 nnz-bucket
             # group; raw partials merge by + / maximum, -inf finished once
-            from repro_torch.kernels.rer_gather import packed_spmm
-            q = graph["blocks_meta"]["q"]
-            y = None
-            for gr in graph["packed_groups"]:
-                part = packed_spmm(gr["rows"], gr["cols"], gr["vals"],
-                                   gr["block_row"], gr["block_col"], xf,
-                                   q=q, op=base_op, finish=False)
-                if y is None:
-                    y = part
-                elif base_op == "sum":
-                    y = y.add_(part)
-                else:
-                    y = torch.maximum(y, part, out=y)
-            if base_op == "max":
-                y = torch.where(torch.isneginf(y), 0.0, y)
+            from repro_torch.kernels.rer_gather import packed_groups_spmm
+            y = packed_groups_spmm(
+                graph["packed_groups"], xf, q=graph["blocks_meta"]["q"],
+                op=base_op,
+                transposed=partial(transposed_groups, graph,
+                                   cfg.packed_bucket_floor))
             return _finish(y)
         from repro_torch.kernels.rer_spmm import blocked_spmm
         y = blocked_spmm(graph["blocks"], graph["block_row"],
                          graph["block_col"], xf,
-                         q=graph["blocks_meta"]["q"], op=base_op)
+                         q=graph["blocks_meta"]["q"], op=base_op,
+                         transposed=partial(transposed_blocks, graph))
         return _finish(y)
 
 
@@ -302,6 +306,52 @@ def _pad_rows(graph: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def upload_groups(groups, dev: torch.device):
+    return [{"rows": _upload(gr.rows, dev), "cols": _upload(gr.cols, dev),
+             "vals": _upload(gr.vals, dev),
+             "block_row": _upload(gr.block_row, dev),
+             "block_col": _upload(gr.block_col, dev)} for gr in groups]
+
+
+def transposed_blocks(graph: Dict[str, Any]):
+    """The plan's dense carrier of A^T (`rer_spmm.TransposedBlocks`),
+    built on the plan's device at the first backward, then cached."""
+    cache = graph.setdefault("transposed", {})
+    if "blocks" not in cache:
+        from repro_torch.kernels.rer_spmm import transpose_blocks_on
+        cache["blocks"] = transpose_blocks_on(
+            graph["blocks"], graph["block_row"], graph["block_col"],
+            graph["blocks_meta"]["q"])
+    return cache["blocks"]
+
+
+def transposed_groups(graph: Dict[str, Any], bucket_floor: int):
+    """The plan's packed bucket groups of A^T (`transpose_packed_store`
+    grouped as `prepare_packed_groups` groups A), uploaded to the plan's
+    device at the first backward, then cached."""
+    cache = graph.setdefault("transposed", {})
+    if "packed_groups" not in cache:
+        from repro_torch.graphs.partition import transpose_packed_store
+        from repro_torch.kernels.rer_gather import prepare_packed_groups
+        groups = prepare_packed_groups(
+            transpose_packed_store(graph["packed_store"]), bucket_floor)
+        cache["packed_groups"] = upload_groups(groups, graph["device"])
+    return cache["packed_groups"]
+
+
+def transposed_bytes(graph) -> int:
+    """Device bytes of the A^T carriers a plan has built for its
+    backward so far (0 before the first backward); the plan's
+    `footprint_bytes`, as the reference's, does not count them."""
+    cache = plan_carrier(graph).get("transposed", {})
+    total = 0
+    if "blocks" in cache:
+        total += cache["blocks"].nbytes()
+    for gr in cache.get("packed_groups", ()):
+        total += sum(t.numel() * t.element_size() for t in gr.values())
+    return total
 
 
 def prepare_graph(g: COOGraph, cfg: EnGNConfig,
@@ -446,12 +496,9 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
     else:
         groups = rer_gather.prepare_packed_groups(packed,
                                                   cfg.packed_bucket_floor)
-        d["packed_groups"] = [
-            {"rows": _upload(gr.rows, dev), "cols": _upload(gr.cols, dev),
-             "vals": _upload(gr.vals, dev),
-             "block_row": _upload(gr.block_row, dev),
-             "block_col": _upload(gr.block_col, dev)}
-            for gr in groups]
+        d["packed_groups"] = upload_groups(groups, dev)
+        # the host store, for the transposed groups of the backward
+        d["packed_store"] = packed
         tile_bytes = sum(gr.nbytes() for gr in groups)
     # re-check the plan as built (the closed-form gate prices nnz bounds)
     act = 2 if cfg.training else 1

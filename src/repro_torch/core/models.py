@@ -122,7 +122,20 @@ def init_stack(layers, generator: Union[int, torch.Generator]) -> None:
         layer.reset_parameters(generator)
 
 
-def apply_stack(layers, graph, x) -> torch.Tensor:
-    for layer in layers:
-        x = layer(graph, x)
+def apply_stack(layers, graph, x, params=None) -> torch.Tensor:
+    """The stack's forward.  `params`, a list of per-layer dicts of
+    tensors keyed like each layer's parameters (what `stack_params`
+    returns, or the reference's `init_stack`), runs the layers on those
+    tensors instead of their own (`torch.func.functional_call`): the
+    functional form the train step differentiates."""
+    for i, layer in enumerate(layers):
+        x = (layer(graph, x) if params is None
+             else torch.func.functional_call(layer, params[i], (graph, x)))
     return x
+
+
+def stack_params(layers):
+    """The layers' parameters as a list of per-layer dicts of detached
+    tensors, the reference's parameter layout."""
+    return [{k: v.detach() for k, v in layer.named_parameters()}
+            for layer in layers]

@@ -187,9 +187,13 @@ def _chunk_step_kernel(acc, blocks, xs, *, op: str, impl: str, q: int):
     from repro_torch.kernels.rer_spmm import ops as spmm_ops
     t, d = blocks.shape[1], xs.shape[-1]
     rows, cols = _chunk_index(q, xs.device)
-    fn = spmm_ops.blocked_spmm if impl == "cuda" else \
-        spmm_ops.blocked_spmm_plain
-    y = fn(blocks, rows, cols, xs.reshape(q * t, d), q=q, op=op)[:t]
+    x2 = xs.reshape(q * t, d)
+    if impl == "cuda":     # forward only: the streamed backward is not ported
+        y = spmm_ops.blocked_spmm(blocks, rows, cols, x2, q=q, op=op,
+                                  transposed=None)
+    else:
+        y = spmm_ops.blocked_spmm_plain(blocks, rows, cols, x2, q=q, op=op)
+    y = y[:t]
     if op == "sum":
         return acc.add_(y)
     covered = (blocks != 0.0).any(dim=0).any(dim=1)

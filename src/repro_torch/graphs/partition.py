@@ -1,11 +1,14 @@
 """Grid partitioning and tile stores (paper S5.3, Table 3, Eq. 8).
 
-What the inference path needs from `repro.graphs.partition`: the
-adaptive schedule order and its I/O cost, the host-side `EdgeTileStore`
-(with the row / column tile indexes and `densify` the streamed executor
-walks) and its packed (CSR-within-tile) form, the pow2 nnz buckets the
-packed groups pad to, and `chunk_tile_row`, the S-shape chunking of one
-interval's tiles.  Field for field the same arrays as the reference.
+What the port needs from `repro.graphs.partition`: the adaptive
+schedule order and its I/O cost, the host-side `EdgeTileStore` (with the
+row / column tile indexes and `densify` the streamed executor walks) and
+its packed (CSR-within-tile) form, their A^T views (`transpose_*`, the
+backward's carriers), the pow2 nnz buckets the packed groups pad to, and
+`chunk_tile_row`, the S-shape chunking of one interval's tiles.  Field
+for field the same arrays as the reference.  `transpose_blocks` has no
+counterpart there: it lays out the dense blocked carrier of A^T as
+`prepare_blocks` lays out A's.
 """
 from __future__ import annotations
 
@@ -220,6 +223,82 @@ def pack_tile_store(store: EdgeTileStore) -> PackedTileStore:
         val,
         store.in_counts,
         block_rel=store.block_rel, num_relations=store.num_relations)
+
+
+def _out_counts(num_vertices: int, tile: int, block_col: np.ndarray,
+                entry_ptr: np.ndarray, col_local: np.ndarray) -> np.ndarray:
+    """Per-vertex out-degree recovered from a store's per-tile entry
+    lists (the transposed store's `in_counts`)."""
+    counts = np.diff(entry_ptr)
+    tile_of = np.repeat(np.arange(block_col.shape[0], dtype=np.int64),
+                        counts)
+    gsrc = block_col[tile_of].astype(np.int64) * tile + col_local
+    return np.bincount(gsrc[gsrc < num_vertices],
+                       minlength=num_vertices).astype(np.float32)
+
+
+def transpose_tile_store(store: EdgeTileStore) -> EdgeTileStore:
+    """The A^T view of a tile store, sharing every edge array: source
+    and destination swap (`block_row` <-> `block_col`, `edge_li` <->
+    `edge_lj`, the row and column tile indexes with them); only
+    `in_counts` is recomputed, as the out-degree."""
+    return EdgeTileStore(
+        store.num_vertices, store.tile, store.q,
+        store.block_col, store.block_row, store.edge_ptr,
+        store.edge_lj, store.edge_li, store.edge_w,
+        _out_counts(store.num_vertices, store.tile, store.block_col,
+                    store.edge_ptr, store.edge_lj),
+        store._col_ptr, store._col_order, store._row_ptr,
+        store._row_order,
+        block_rel=store.block_rel, num_relations=store.num_relations)
+
+
+def transpose_packed_store(ps: PackedTileStore) -> PackedTileStore:
+    """The A^T view of a packed store, sharing every entry array: tiles
+    keep their indexing, `row_local` <-> `col_local` swap, so the
+    entries of a tile come in (col, row) order."""
+    return PackedTileStore(
+        ps.num_vertices, ps.tile, ps.q,
+        ps.block_col, ps.block_row, ps.entry_ptr,
+        ps.col_local, ps.row_local, ps.val,
+        _out_counts(ps.num_vertices, ps.tile, ps.block_col,
+                    ps.entry_ptr, ps.col_local),
+        block_rel=ps.block_rel, num_relations=ps.num_relations)
+
+
+def transpose_block_index(block_row: np.ndarray, block_col: np.ndarray,
+                          q: int) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]:
+    """The tile order of the transposed dense carrier, as
+    `prepare_blocks` lays it out for A^T: the tiles' roles swap, a pad
+    tile (i, i) is appended for every interval that is no tile's source,
+    and one stable argsort orders them by their new destination.
+    Returns (`tile_of`, new `block_row`, new `block_col`): `tile_of[k]`
+    is the forward tile that transposed tile k comes from, -1 for a pad."""
+    present = np.zeros(q, bool)
+    present[block_col] = True
+    missing = np.nonzero(~present)[0].astype(np.int32)
+    tile_of = np.concatenate([np.arange(block_row.size, dtype=np.int64),
+                              np.full(missing.size, -1, np.int64)])
+    new_row = np.concatenate([block_col, missing])
+    new_col = np.concatenate([block_row, missing])
+    order = np.argsort(new_row, kind="stable")
+    return (tile_of[order], new_row[order].astype(np.int32),
+            new_col[order].astype(np.int32))
+
+
+def transpose_blocks(blocks: np.ndarray, block_row: np.ndarray,
+                     block_col: np.ndarray, q: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+    """The dense blocked carrier of A^T: each tile becomes A_k^T, in the
+    order of `transpose_block_index` (pad tiles are zero).  Returns
+    (blocks, block_row, block_col, tile_of)."""
+    tile_of, brow, bcol = transpose_block_index(block_row, block_col, q)
+    out = np.zeros((tile_of.size,) + blocks.shape[1:], blocks.dtype)
+    real = tile_of >= 0
+    out[real] = blocks[tile_of[real]].transpose(0, 2, 1)
+    return out, brow, bcol, tile_of
 
 
 def _tile_index(keys: np.ndarray, q: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,7 +1,8 @@
-"""The port's aggregation kernels.  Each `<name>/ops.py` holds the
-wrapper (the hand-written CUDA kernel for CUDA tensors, the plain
-PyTorch version for CPU tensors), the plain version itself, and the
-wrapper's launch counter; the CUDA sources are `csrc/<name>.cu`."""
+"""The port's kernels: the aggregates, their backward kernels and the
+fused linear + activation.  Each `<name>/ops.py` holds the wrapper (the
+hand-written CUDA kernel for CUDA tensors, the plain PyTorch version for
+CPU tensors), the plain version itself, and the wrapper's launch
+counter; the CUDA sources are `csrc/<name>.cu`."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,11 +10,16 @@ from typing import Dict
 
 def _modules():
     from repro_torch.kernels.chunk_queue import ops as queue_ops
+    from repro_torch.kernels.feature_update import ops as update_ops
     from repro_torch.kernels.fused_engn import ops as fused_ops
     from repro_torch.kernels.rer_gather import ops as gather_ops
+    from repro_torch.kernels.rer_gather_bwd import ops as gather_bwd_ops
     from repro_torch.kernels.rer_spmm import ops as spmm_ops
+    from repro_torch.kernels.rer_spmm_bwd import ops as spmm_bwd_ops
     return {"rer_spmm": spmm_ops, "rer_gather": gather_ops,
-            "fused_engn": fused_ops, "chunk_queue": queue_ops}
+            "fused_engn": fused_ops, "chunk_queue": queue_ops,
+            "rer_spmm_bwd": spmm_bwd_ops, "rer_gather_bwd": gather_bwd_ops,
+            "feature_update": update_ops}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,6 @@
-"""What the three kernel wrappers share: argument checks, the tile-span
-pointers a CTA walks, and the launch-status check."""
+"""What the kernel wrappers share: argument checks, the tile-span
+pointers a CTA walks, the refusal of autograd where a kernel has no
+backward, and the launch-status check."""
 from __future__ import annotations
 
 import weakref
@@ -46,15 +47,16 @@ def _memo(t: torch.Tensor) -> Dict[tuple, Any]:
     return hit[2]
 
 
-def check_range(t: torch.Tensor, hi: int, name: str) -> None:
-    """Every value of the index tensor `t` lies in [0, hi): a kernel
+def check_range(t: torch.Tensor, hi: int, name: str, lo: int = 0) -> None:
+    """Every value of the index tensor `t` lies in [lo, hi): a kernel
     would read out of bounds otherwise."""
     memo = _memo(t)
-    if ("range", hi) in memo:
+    key = ("range", hi) if lo == 0 else ("range", lo, hi)
+    if key in memo:
         return
-    if t.numel() and bool((t.min() < 0) | (t.max() >= hi)):
-        raise ValueError(f"{name} holds values outside [0, {hi})")
-    memo[("range", hi)] = True
+    if t.numel() and bool((t.min() < lo) | (t.max() >= hi)):
+        raise ValueError(f"{name} holds values outside [{lo}, {hi})")
+    memo[key] = True
 
 
 def tile_ptr(block_row: torch.Tensor, q: int) -> torch.Tensor:
@@ -82,14 +84,16 @@ def tile_ptr(block_row: torch.Tensor, q: int) -> torch.Tensor:
     return ptr
 
 
-def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet: refuse a call that autograd
-    would have to differentiate rather than return a result with a
+def refuse_grad(what: str, *tensors: torch.Tensor,
+                why: str = "has no backward kernel yet (ROADMAP A5)"
+                ) -> None:
+    """Refuse a call that autograd would have to differentiate where the
+    call form has no backward, rather than return a result with a
     silently missing gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} has no backward kernel yet (ROADMAP A5); run "
-            f"inference under torch.no_grad() or torch.inference_mode()")
+            f"{what} {why}; run inference under torch.no_grad() or "
+            f"torch.inference_mode()")
 
 
 def stream_handle(device: torch.device) -> int:

@@ -3,7 +3,11 @@
 `fused_engn_layer` computes Y = A (X W) over dst-sorted dense tiles: the
 hand-written CUDA kernel `csrc/fused_engn.cu` for CUDA tensors,
 `fused_engn_plain` (per-tile X W, batched tile product, reduce at the
-destination intervals) for CPU tensors.
+destination intervals) for CPU tensors.  Under autograd it is a
+`torch.autograd.Function` whose backward is `fused_engn_bwd`:
+dP = A^T G by the `rer_spmm` kernel over the transposed dense carrier,
+then dX = dP W^T and dW = X^T dP, two plain matrix products outside any
+kernel, as the reference leaves them to XLA.
 
 Source note.  Replaces `repro/kernels/fused_engn/fused_engn.py::
 fused_extract_aggregate` (`_fused_kernel`).  On the H100 it is bound by
@@ -17,15 +21,19 @@ without recomputing any product across CTAs.  T is at most 256.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (check_range, check_status,
-                                         check_tensor, refuse_grad,
-                                         stream_handle, tile_ptr)
+                                         check_tensor, stream_handle,
+                                         tile_ptr)
+from repro_torch.kernels.rer_spmm import ops as spmm_ops
 
-# kernel launches, counted where the kernel is launched
+# kernel launches, counted where the kernel is launched (the backward's
+# A^T G is a rer_spmm launch, counted there as "sum_t")
 LAUNCHES = {"sum": 0}
 
 MAX_TILE = 256      # rows a CTA of the kernel holds
@@ -58,16 +66,11 @@ def _lib():
     return _LIB
 
 
-def fused_engn_layer(blocks: torch.Tensor, block_row: torch.Tensor,
-                     block_col: torch.Tensor, x: torch.Tensor,
-                     w: torch.Tensor, *, q: int) -> torch.Tensor:
-    """Y (q*T, H) = A (X W) over tiles sorted by destination interval.
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+def _forward(blocks, block_row, block_col, x, w, q) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_engn_plain(blocks, block_row, block_col, x, w, q=q)
     if x.device.type != "cuda":
         raise ValueError(f"no fused_engn for device {x.device}")
-    refuse_grad("fused_engn", blocks, x, w)
     dev = x.device
     check_tensor(blocks, "blocks", torch.float32, dev, 3)
     check_tensor(block_row, "block_row", torch.int32, dev, 1)
@@ -95,3 +98,63 @@ def fused_engn_layer(blocks: torch.Tensor, block_row: torch.Tensor,
     check_status(status, "fused_engn")
     LAUNCHES["sum"] += 1
     return y
+
+
+def fused_engn_bwd_plain(bt, x: torch.Tensor, w: torch.Tensor,
+                         g: torch.Tensor, *, q: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dX, dW) in plain PyTorch, on any device."""
+    dp = spmm_ops.blocked_spmm_plain(bt.blocks, bt.block_row, bt.block_col,
+                                     g, q=q)
+    return dp @ w.t(), x.t() @ dp
+
+
+def fused_engn_bwd(bt, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                   *, q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of Y = A (X W) for the cotangent G (q*T, H): dP =
+    A^T G over the transposed dense carrier `bt`
+    (`rer_spmm.TransposedBlocks`) by `blocked_spmm_t`, dX = dP W^T,
+    dW = X^T dP.  CPU tensors take the plain version; CUDA tensors the
+    `rer_spmm` kernel for dP."""
+    dp = spmm_ops.blocked_spmm_t(bt, g, q=q)
+    return dp @ w.t(), x.t() @ dp
+
+
+class _Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, blocks, block_row, block_col, q, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.q, ctx.transposed = q, transposed
+        return _forward(blocks, block_row, block_col, x, w, q)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = fused_engn_bwd(ctx.transposed(), x, w, g.contiguous(),
+                                q=ctx.q)
+        return dx, dw, None, None, None, None, None
+
+
+def fused_engn_layer(blocks: torch.Tensor, block_row: torch.Tensor,
+                     block_col: torch.Tensor, x: torch.Tensor,
+                     w: torch.Tensor, *, q: int,
+                     transposed: Optional[Callable[[], object]]
+                     ) -> torch.Tensor:
+    """Y (q*T, H) = A (X W) over tiles sorted by destination interval.
+    CPU tensors take the plain version; CUDA tensors the kernel.  When
+    autograd needs dX or dW, the backward runs over the transposed
+    carrier `transposed()` returns (a plan builds it once and caches it);
+    None is for calls that autograd does not differentiate."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused_engn for device {x.device}")
+    if blocks.requires_grad:
+        raise NotImplementedError("fused_engn differentiates x and w only; "
+                                  "the tiles are the graph, a constant")
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        return _forward(blocks, block_row, block_col, x, w, q)
+    if transposed is None:
+        raise ValueError("fused_engn_layer under autograd needs the "
+                         "transposed carrier: pass transposed=")
+    return _Fused.apply(x, w, blocks, block_row, block_col, q, transposed)

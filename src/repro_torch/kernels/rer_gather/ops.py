@@ -8,8 +8,15 @@ the store to global `(gsrc, gdst, gval)` entries.
 Device side: `packed_spmm` launches the hand-written CUDA kernel
 `csrc/rer_gather.cu` on one bucket group for CUDA tensors, and runs
 `packed_spmm_plain` (gather the referenced rows, scale, segment-reduce)
-for CPU tensors.  `packed_flat_plain` is the one-launch plain form the
-CPU path of `prepare_graph` carries.  `packed_tile_part` is the streamed
+for CPU tensors.  `packed_groups_spmm` is the whole aggregate over a
+plan's bucket groups (raw partials merged by + / maximum, -inf finished
+once) and its `torch.autograd.Function`: the sum backward runs the same
+kernel over the groups of the transposed store (`packed_spmm_t`), the
+max backward the two kernels of `csrc/rer_gather_bwd.cu`, which split
+the cotangent evenly over all tied entries of a row, as the reference's
+flat `segment_max` does.  `packed_flat_plain` is the one-launch plain
+form the CPU path of `prepare_graph` carries (autograd differentiates it
+directly).  `packed_tile_part` is the streamed
 executor's call form of the same kernel: one chunk of C packed tiles
 against the (C, T, F) stack of their source intervals, reduced into one
 destination interval's raw (T, F) partial; its plain version is
@@ -28,10 +35,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.graphs.partition import PackedTileStore, pow2_bucket
 from repro_torch.kernels import _build
@@ -40,9 +48,11 @@ from repro_torch.kernels._common import (check_range, check_status,
                                          stream_handle, tile_ptr)
 
 # kernel launches by op and call form, counted where the kernel is
-# launched: "sum"/"max" for bucket groups, "tile_part_*" for the
-# streamed executor's chunks
-LAUNCHES = {"sum": 0, "max": 0, "tile_part_sum": 0, "tile_part_max": 0}
+# launched: "sum"/"max" for bucket groups, "sum_t" for the sum backward
+# over the transposed store's groups, "tile_part_*" for the streamed
+# executor's chunks
+LAUNCHES = {"sum": 0, "max": 0, "sum_t": 0, "tile_part_sum": 0,
+            "tile_part_max": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,21 +181,8 @@ def _lib():
     return _LIB
 
 
-def packed_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                block_row: torch.Tensor, block_col: torch.Tensor,
-                x: torch.Tensor, *, q: int, op: str = "sum",
-                finish: bool = True) -> torch.Tensor:
-    """One bucket group: x (q*T, F) -> y (q*T, F).  `finish=False` keeps
-    -inf in uncovered max rows, for callers that merge partials.  CPU
-    tensors take the plain version; CUDA tensors the kernel."""
-    if op not in ("sum", "max"):
-        raise ValueError(op)
-    if x.device.type == "cpu":
-        return packed_spmm_plain(rows, cols, vals, block_row, block_col, x,
-                                 q=q, op=op, finish=finish)
-    if x.device.type != "cuda":
-        raise ValueError(f"no rer_gather for device {x.device}")
-    refuse_grad("rer_gather", vals, x)
+def _launch(rows, cols, vals, block_row, block_col, x, q, op, finish):
+    """Check the arguments and launch the kernel (counted by the caller)."""
     dev = x.device
     check_tensor(rows, "rows", torch.int32, dev, 2)
     check_tensor(cols, "cols", torch.int32, dev, 2)
@@ -213,8 +210,119 @@ def packed_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         block_col.data_ptr(), ptr.data_ptr(), x.data_ptr(), y.data_ptr(),
         q, s, t, f, int(op == "max"), int(finish), stream_handle(dev))
     check_status(status, "rer_gather")
-    LAUNCHES[op] += 1
     return y
+
+
+def _group(gr, x, q, op, finish, key) -> torch.Tensor:
+    args = (gr["rows"], gr["cols"], gr["vals"], gr["block_row"],
+            gr["block_col"], x)
+    if x.device.type == "cpu":
+        return packed_spmm_plain(*args, q=q, op=op, finish=finish)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rer_gather for device {x.device}")
+    y = _launch(*args, q, op, finish)
+    LAUNCHES[key] += 1
+    return y
+
+
+def packed_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                block_row: torch.Tensor, block_col: torch.Tensor,
+                x: torch.Tensor, *, q: int, op: str = "sum",
+                finish: bool = True) -> torch.Tensor:
+    """One bucket group: x (q*T, F) -> y (q*T, F).  `finish=False` keeps
+    -inf in uncovered max rows, for callers that merge partials.  CPU
+    tensors take the plain version; CUDA tensors the kernel.  One group
+    is a raw call form without a gradient: differentiate a plan's groups
+    as a whole through `packed_groups_spmm`."""
+    if op not in ("sum", "max"):
+        raise ValueError(op)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rer_gather for device {x.device}")
+    if x.device.type == "cuda":
+        refuse_grad("rer_gather", vals, x,
+                    why="differentiates a plan's bucket groups only as a "
+                        "whole, through packed_groups_spmm")
+    gr = {"rows": rows, "cols": cols, "vals": vals, "block_row": block_row,
+          "block_col": block_col}
+    return _group(gr, x, q, op, finish, op)
+
+
+def packed_spmm_t(group_t: Dict[str, torch.Tensor], g: torch.Tensor, *,
+                  q: int) -> torch.Tensor:
+    """A^T G over one bucket group of the transposed store: the sum
+    backward of `packed_groups_spmm`, one group's partial."""
+    return _group(group_t, g, q, "sum", True, "sum_t")
+
+
+def _groups_forward(groups, x, q, op) -> torch.Tensor:
+    y = None
+    for gr in groups:
+        part = _group(gr, x, q, op, False, op)
+        if y is None:
+            y = part
+        elif op == "sum":
+            y = y.add_(part)
+        else:
+            y = torch.maximum(y, part, out=y)
+    if op == "max":
+        y = torch.where(torch.isneginf(y), 0.0, y)
+    return y
+
+
+class _PackedGroups(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, q, op, transposed):
+        y = _groups_forward(groups, x, q, op)
+        ctx.groups, ctx.q, ctx.op, ctx.transposed = groups, q, op, transposed
+        if op == "max":
+            ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        g = g.contiguous()
+        q, groups_t = ctx.q, ctx.transposed()
+        dx = None
+        if ctx.op == "sum":
+            for gt in groups_t:
+                part = packed_spmm_t(gt, g, q=q)
+                dx = part if dx is None else dx.add_(part)
+            return dx, None, None, None, None
+        from repro_torch.kernels.rer_gather_bwd import (packed_max_count,
+                                                        packed_max_grad)
+        x, y = ctx.saved_tensors
+        cnt = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+        for gr in ctx.groups:
+            packed_max_count(gr, x, y, cnt, q=q)
+        for gt in groups_t:
+            part = packed_max_grad(gt, x, y, g, cnt, q=q)
+            dx = part if dx is None else dx.add_(part)
+        return dx, None, None, None, None
+
+
+def packed_groups_spmm(groups: Sequence[Dict[str, torch.Tensor]],
+                       x: torch.Tensor, *, q: int, op: str = "sum",
+                       transposed: Optional[Callable[[], Sequence[Dict[
+                           str, torch.Tensor]]]]
+                       ) -> torch.Tensor:
+    """The aggregate over a plan's bucket groups (dicts of `rows`,
+    `cols`, `vals`, `block_row`, `block_col`): one launch per group, raw
+    partials merged by + / maximum, -inf finished once.  When autograd
+    needs dX, the backward runs over the groups `transposed()` returns
+    (the plan builds them from `transpose_packed_store` once); None is
+    for calls that autograd does not differentiate."""
+    if op not in ("sum", "max"):
+        raise ValueError(op)
+    if any(gr["vals"].requires_grad for gr in groups):
+        raise NotImplementedError("rer_gather differentiates x only; the "
+                                  "entries are the graph, a constant")
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _groups_forward(groups, x, q, op)
+    if transposed is None:
+        raise ValueError("packed_groups_spmm under autograd needs the "
+                         "transposed groups: pass transposed=")
+    return _PackedGroups.apply(x, groups, q, op, transposed)
 
 
 # (C, device) -> the q=1 span pointers [0, C] and source intervals

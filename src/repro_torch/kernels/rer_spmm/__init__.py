@@ -1,4 +1,7 @@
-from repro_torch.kernels.rer_spmm.ops import (blocked_spmm, blocked_spmm_plain,
-                                             prepare_blocks)
+from repro_torch.kernels.rer_spmm.ops import (TransposedBlocks, blocked_spmm,
+                                             blocked_spmm_plain,
+                                             blocked_spmm_t, prepare_blocks,
+                                             transpose_blocks_on)
 
-__all__ = ["blocked_spmm", "blocked_spmm_plain", "prepare_blocks"]
+__all__ = ["TransposedBlocks", "blocked_spmm", "blocked_spmm_plain",
+           "blocked_spmm_t", "prepare_blocks", "transpose_blocks_on"]

@@ -217,3 +217,54 @@ def test_dasr_decision():
         for base in ("fau", "afu"):
             assert (j_dasr.predicted_speedup(*args, base)
                     == t_dasr.predicted_speedup(*args, base))
+
+
+# -- the A^T carriers of the backward -------------------------------------
+
+@pytest.mark.parametrize("name,tile", [("cora", 16), ("aifb", 16),
+                                       ("cora", 32)])
+def test_transposed_stores_equal_reference(name, tile):
+    (jg, _, _), (tg, _, _) = _pair(name, max_vertices=200)
+    js = j_partition.build_tile_store(jg.gcn_normalized(), tile)
+    ts = t_partition.build_tile_store(tg.gcn_normalized(), tile)
+    jt, tt = (j_partition.transpose_tile_store(js),
+              t_partition.transpose_tile_store(ts))
+    assert_same(jt, tt, "transposed EdgeTileStore")
+    assert_same(js, t_partition.transpose_tile_store(tt), "A^T^T")
+    jp = j_partition.transpose_packed_store(j_partition.pack_tile_store(js))
+    tp = t_partition.transpose_packed_store(t_partition.pack_tile_store(ts))
+    assert_same(jp, tp, "transposed PackedTileStore")
+    for floor in (1, 8):
+        assert_same(j_gather.prepare_packed_groups(jp, floor),
+                    t_gather.prepare_packed_groups(tp, floor))
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("n_src", [40, 96])
+def test_transposed_dense_carrier_is_prepare_blocks_of_a_transpose(tile,
+                                                                   n_src):
+    """`transpose_blocks` lays A^T out as the reference's `prepare_blocks`
+    lays out any carrier: tiles transposed, roles swapped, pads for the
+    intervals that are no tile's source, one stable sort; the device
+    build (`transpose_blocks_on`) gives the same arrays."""
+    rng = np.random.default_rng(tile + n_src)
+    src = rng.integers(0, n_src, 300).astype(np.int32)
+    dst = rng.integers(0, 96, 300).astype(np.int32)
+    g = t_format.COOGraph(96, src, dst,
+                          rng.standard_normal(300).astype(np.float32))
+    b = t_format.coo_to_blocked(g, tile)
+    blocks, brow, bcol = t_spmm.prepare_blocks(b.blocks, b.block_row,
+                                               b.block_col, b.q)
+    got = t_partition.transpose_blocks(blocks, brow, bcol, b.q)
+    want = j_spmm.prepare_blocks(blocks.transpose(0, 2, 1), bcol, brow, b.q)
+    assert_same(tuple(got[:3]), tuple(want))
+    tile_of = got[3]
+    real = tile_of >= 0
+    np.testing.assert_array_equal(got[0][real],
+                                  blocks[tile_of[real]].transpose(0, 2, 1))
+    assert not got[0][~real].any()
+    on = t_spmm.transpose_blocks_on(torch.from_numpy(blocks),
+                                    torch.from_numpy(brow),
+                                    torch.from_numpy(bcol), b.q)
+    for a, w in zip(on, got):
+        np.testing.assert_array_equal(a.numpy(), w)

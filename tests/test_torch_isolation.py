@@ -94,7 +94,8 @@ def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
 def test_every_cuda_source_is_built_and_counted():
     """Each `csrc/*.cu` is in the build list, and its wrapper module is
     registered for the launch counters the smoke reads (the streamed
-    executor's chunk_queue kernel and the tile-part call form too)."""
+    executor's chunk_queue kernel and the tile-part call form, the
+    backward kernels and the transposed sums, B4 too)."""
     from repro_torch.kernels import _build, _modules, launch_counts
     sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
     assert sorted(_build.KERNELS) == sources
@@ -102,5 +103,7 @@ def test_every_cuda_source_is_built_and_counted():
     counts = launch_counts()
     for key in ("chunk_queue_sum", "chunk_queue_sum_relu",
                 "rer_gather_tile_part_sum", "rer_gather_tile_part_max",
-                "rer_spmm_sum", "rer_gather_sum", "fused_engn_sum"):
+                "rer_spmm_sum", "rer_gather_sum", "fused_engn_sum",
+                "rer_spmm_sum_t", "rer_gather_sum_t", "rer_spmm_bwd_max", "rer_gather_bwd_count",
+                "rer_gather_bwd_max", "feature_update_relu"):
         assert key in counts, key

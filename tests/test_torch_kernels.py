@@ -76,7 +76,7 @@ def test_blocked_spmm_plain_matches_reference(op, f, tile, impl):
     _check(got, want, op)
     # the wrapper takes the plain version for CPU tensors
     _check(t_spmm.blocked_spmm(_t(blocks), _t(brow), _t(bcol), _t(x),
-                               q=b.q, op=op), got, "max")
+                               q=b.q, op=op, transposed=None), got, "max")
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -182,7 +182,8 @@ def test_fused_engn_plain_matches_reference(f, h, impl):
                                    _t(w), q=b.q)
     _check(got, want, "sum")
     _check(t_fused.fused_engn_layer(_t(blocks), _t(brow), _t(bcol), _t(x),
-                                    _t(w), q=b.q), got, "max")
+                                    _t(w), q=b.q, transposed=None), got,
+           "max")
 
 
 # -- what the wrappers share -----------------------------------------------
@@ -234,11 +235,12 @@ def test_check_tensor_rejects_bad_arguments():
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((32, 4), device="meta")
     with pytest.raises(ValueError, match="no rer_spmm"):
-        t_spmm.blocked_spmm(None, None, None, x, q=2)
+        t_spmm.blocked_spmm(None, None, None, x, q=2, transposed=None)
     with pytest.raises(ValueError, match="no rer_gather"):
         t_gather.packed_spmm(None, None, None, None, None, x, q=2)
     with pytest.raises(ValueError, match="no fused_engn"):
-        t_fused.fused_engn_layer(None, None, None, x, None, q=2)
+        t_fused.fused_engn_layer(None, None, None, x, None, q=2,
+                                 transposed=None)
 
 
 def test_build_dir_is_keyed_by_the_sources():
@@ -267,7 +269,7 @@ def test_rer_spmm_kernel_matches_plain_on_card(op, f):
     b = coo_to_blocked(_graph(seed=f), 32)
     x = torch.randn((b.padded_vertices, f), device=dev)
     args = [_t(a).to(dev) for a in (b.blocks, b.block_row, b.block_col)]
-    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op)
+    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op, transposed=None)
     want = t_spmm.blocked_spmm_plain(*args, x, q=b.q, op=op)
     _check(got.cpu(), want.cpu(), op)
 
@@ -296,5 +298,6 @@ def test_fused_engn_kernel_matches_plain_on_card(f, h):
     x = torch.randn((b.padded_vertices, f), device=dev)
     w = torch.randn((f, h), device=dev) * 0.2
     args = [_t(a).to(dev) for a in (b.blocks, b.block_row, b.block_col)]
-    _check(t_fused.fused_engn_layer(*args, x, w, q=b.q).cpu(),
+    _check(t_fused.fused_engn_layer(*args, x, w, q=b.q,
+                                    transposed=None).cpu(),
            t_fused.fused_engn_plain(*args, x, w, q=b.q).cpu(), "sum")
