@@ -14,11 +14,17 @@ prints no result.  Phases, each of which fails the run if it fails:
    on the calls one forward of its main-path run makes (max variants
    `torch.equal`, sum variants `allclose(rtol=1e-4, atol=1e-5)`, since
    their reduction order differs), then timed with CUDA events beside
-   its bound and a `torch.sparse.mm` yardstick.  The streamed
-   executor's kernels: `chunk_queue` on the synthD stand-in at 262,144
-   vertices and layer-1 width (F=50), with and without its relu
-   epilogue, and `rer_gather`'s tile-part form on a stated sample of
-   one forward's calls on the 65,536-vertex graph;
+   its bound, a `torch.sparse.mm` yardstick and, for the rows
+   redesigned since commit 54d7577 (`rer_spmm`, `rer_gather`), that
+   commit's time on the same card type (printed, not recorded).  A `rer_gather` row times the whole aggregate of a plan's
+   bucket groups per width (one launch), the function `torch.sparse.mm`
+   computes; its bound counts 12 B per real entry and X and Y once
+   (54d7577's count, every group array with its pads once per width,
+   is printed beside it).  The streamed executor's kernels: `chunk_queue`
+   on the synthD stand-in at 262,144 vertices and layer-1 width (F=50),
+   with and without its relu epilogue, and `rer_gather`'s tile-part
+   form on a stated sample of one forward's calls on the 65,536-vertex
+   graph;
 4. path: the inference path a user runs — `make_gnn_stack` ->
    `prepare_graph` -> `apply_stack` on `cuda` — for the quickstart (cora
    GCN [1433, 64, 7] on "fused", T=256) and pubmed GCN / GS-Pool
@@ -50,7 +56,8 @@ prints no result.  Phases, each of which fails the run if it fails:
    its checkpoint.
 Launch counters are zeroed just before each path phase (4, 5, the B4
 calls of 6, 7) and read just after; each run must have launched its
-kernels, and each inference run must match the "segment" backend on the
+kernels (a blocked packed forward and sum backward `rer_gather` once per
+layer), and each inference run must match the "segment" backend on the
 card (`allclose(rtol=1e-4, atol=1e-5)`).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -76,6 +83,14 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
 TRAIN_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
+# times of the rows redesigned since commit 54d7577: this script at that
+# commit on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
+# beside this run's times and kept out of the kernels' record
+BEFORE_MS = {"rer_spmm_sum": 3.0424, "rer_spmm_max": 3.5482,
+           "rer_spmm_sum_t": 6.1755, "rer_gather_sum": 2.5092,
+           "rer_gather_max": 4.0777, "rer_gather_sum_t": 1.8897,
+           "rer_gather_tile_part_sum": 13.2051,
+           "rer_gather_tile_part_max": 21.0449}
 
 
 def _smi() -> str:
@@ -194,13 +209,15 @@ def main() -> int:
     records = []
 
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
-                    library=None, record=True, rel=None):
+                    library=None, record=True, rel=None,
+                    before_bytes=None):
         """calls: (kernel thunk, plain thunk) for one forward's calls;
         `record=False` checks and times a variant no path launches,
         printed on its own line and kept out of the record (as is a call
         form whose launches another record counts).  `rel` holds
         a sum to within rel x the plain output's largest magnitude (and
-        rtol rel) instead of RTOL/ATOL."""
+        rtol rel) instead of RTOL/ATOL.  `before_bytes`: 54d7577's
+        byte count of a recounted bound, printed beside the new one."""
         err = 0.0
         for kern, plain in calls:
             yk, yp = kern(), plain()
@@ -232,14 +249,29 @@ def main() -> int:
                "bytes": int(nbytes), "ops": int(ops)}
         if record:
             records.append(rec)
+        # 54d7577's time and bound count: on this line only, not in the
+        # record, which holds what this run measured
+        was = (f", 54d7577 {BEFORE_MS[name]:.4f} ms" if name in BEFORE_MS
+               and record else "")
+        old = ""
+        if before_bytes is not None:
+            old = (f"; 54d7577's count "
+                   f"{max(before_bytes / HBM_BYTES_PER_S * 1e3, t_ops):.4f}"
+                   f" ms")
         print(f"kernel {name}: {len(calls)} calls/forward, max_abs_err "
               f"{err:.3g} ({'equal' if exact else 'allclose'}), "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+              f"{ms:.4f} ms{was} vs plain {plain_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}{old})")
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
+
+    def real_entries(groups):
+        """Real entries of a plan's bucket groups (pads excluded)."""
+        return sum(int(gather_ops.real_counts(gr["rows"], gr["cols"],
+                                              gr["vals"]).sum())
+                   for gr in groups)
 
     # -- kernels vs plain versions, at the main path's shapes ---------------
     g_pub, _, _, f_pub, c_pub = pubmed
@@ -276,30 +308,45 @@ def main() -> int:
                                                "blocked", "packed")[0].cfg)
         groups = packed.carrier["packed_groups"]
         q = packed.meta["q"]
-        nnz_entries = sum(int(torch.count_nonzero(gr["vals"]))
-                          for gr in groups)
+        nnz_entries = real_entries(groups)
         print(f"packed pubmed: {len(groups)} bucket groups, S = "
-              f"{[gr['rows'].shape[1] for gr in groups]}")
+              f"{[gr['rows'].shape[1] for gr in groups]}, {nnz_entries} "
+              f"real entries")
         for op in ("sum", "max"):
-            calls = [(lambda gr=gr, x=x, op=op: gather_ops.packed_spmm(
-                          gr["rows"], gr["cols"], gr["vals"],
-                          gr["block_row"], gr["block_col"], x, q=q, op=op,
-                          finish=False),
-                      lambda gr=gr, x=x, op=op: gather_ops.packed_spmm_plain(
-                          gr["rows"], gr["cols"], gr["vals"],
-                          gr["block_row"], gr["block_col"], x, q=q, op=op,
-                          finish=False))
-                     for x in xs for gr in groups]
+            calls = [(lambda x=x, op=op: gather_ops.packed_groups_spmm(
+                          groups, x, q=q, op=op, transposed=None),
+                      lambda x=x, op=op: gather_ops.packed_groups_plain(
+                          groups, x, q=q, op=op)) for x in xs]
             kernel_case(
                 f"rer_gather_{op}", "src/repro_torch/csrc/rer_gather.cu",
                 "src/repro/kernels/rer_gather/rer_gather.py:103", calls,
                 exact=op == "max",
-                nbytes=sum(nb(*gr.values()) for gr in groups) * len(xs)
+                nbytes=sum(12 * nnz_entries + nb(x, x) for x in xs),
+                before_bytes=sum(nb(*gr.values()) for gr in groups) * len(xs)
                 + sum(nb(x, x) for x in xs),
                 ops=sum(2 * nnz_entries * x.shape[1] for x in xs),
                 library=(None if op == "max" else
                          lambda: [torch.sparse.mm(a_pub, x[:g_pub.num_vertices])
                                   for x in xs]))
+            # the single-group raw form (finish=False keeps -inf), which
+            # no path launches: checked and timed, out of the record; it
+            # builds its work table at each call, and its time holds that
+            kernel_case(
+                f"rer_gather_{op}_raw_groups",
+                "src/repro_torch/csrc/rer_gather.cu",
+                "src/repro/kernels/rer_gather/rer_gather.py:103",
+                [(lambda gr=gr, x=x, op=op: gather_ops.packed_spmm(
+                      gr["rows"], gr["cols"], gr["vals"], gr["block_row"],
+                      gr["block_col"], x, q=q, op=op, finish=False),
+                  lambda gr=gr, x=x, op=op: gather_ops.packed_spmm_plain(
+                      gr["rows"], gr["cols"], gr["vals"], gr["block_row"],
+                      gr["block_col"], x, q=q, op=op, finish=False))
+                 for x in xs for gr in groups],
+                exact=op == "max",
+                nbytes=sum(12 * nnz_entries + len(groups) * nb(x, x)
+                           for x in xs),
+                ops=sum(2 * nnz_entries * x.shape[1] for x in xs),
+                record=False)
         del packed, groups
 
         fused_layers = stack("gcn", [f_cora, 64, c_cora], "fused")
@@ -443,8 +490,10 @@ def main() -> int:
                 "src/repro_torch/csrc/rer_gather.cu",
                 "src/repro/kernels/rer_gather/rer_gather.py:103", calls,
                 exact=op == "max",
-                nbytes=sum(nb(r, c, v, x) + 256 * x.shape[2] * 4
-                           for (r, c, v, _, _), x in zip(staged, xs)),
+                nbytes=sum(12 * real + nb(x) + 256 * x.shape[2] * 4
+                           for (*_, real), x in zip(staged, xs)),
+                before_bytes=sum(nb(r, c, v, x) + 256 * x.shape[2] * 4
+                               for (r, c, v, _, _), x in zip(staged, xs)),
                 ops=sum(2 * real * x.shape[2]
                         for (*_, real), x in zip(staged, xs)),
                 library=lib)
@@ -477,6 +526,9 @@ def main() -> int:
             grew = K.launch_counts()[kern] - before
             if grew <= 0:
                 raise AssertionError(f"{label}: {kern} was not launched")
+            if fmt == "packed" and grew != len(dims) - 1:
+                raise AssertionError(f"{label}: {kern} launched {grew} "
+                                     f"times, not once per layer")
             built.append((label, g, x, perm, model, dims, layers, graph, y,
                           grew))
     path_counts = K.launch_counts()
@@ -504,7 +556,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
             peak = torch.cuda.max_memory_allocated()
-            print(f"path {label}: {grew} launches/forward, max abs err vs "
+            once = " (once per layer)" if graph.tile_format == "packed" else ""
+            print(f"path {label}: {grew} launches/forward{once}, max abs err vs "
                   f"segment {err:.3g}, forward {statistics.median(times):.3f}"
                   f" ms (median of 5, host clock), peak "
                   f"{peak / 2**20:.1f} MiB, tile_format {graph.tile_format}")
@@ -709,18 +762,18 @@ def main() -> int:
               f"{plan_p.footprint_bytes / 1e6:.3f} MB; transposed "
               f"{len(groups_t)} groups, "
               f"{engn_mod.transposed_bytes(plan_p) / 1e6:.3f} MB")
+        nnz_t = real_entries(groups_t)
         kernel_case(
             "rer_gather_sum_t", "src/repro_torch/csrc/rer_gather.cu",
             "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda gt=gt, g=g: gather_ops.packed_spmm_t(gt, g, q=q),
-              lambda gt=gt, g=g: gather_ops.packed_spmm_plain(
-                  gt["rows"], gt["cols"], gt["vals"], gt["block_row"],
-                  gt["block_col"], g, q=q))
-             for g in gs for gt in groups_t],
+            [(lambda g=g: gather_ops.packed_spmm_t(groups_t, g, q=q),
+              lambda g=g: gather_ops.packed_groups_plain(groups_t, g, q=q))
+             for g in gs],
             exact=False, rel=NEW_RTOL,
-            nbytes=sum(nb(*gt.values()) for gt in groups_t) * len(gs)
+            nbytes=sum(12 * nnz_t + nb(g, g) for g in gs),
+            before_bytes=sum(nb(*gt.values()) for gt in groups_t) * len(gs)
             + sum(nb(g, g) for g in gs),
-            ops=sum(2 * nnz_p * g.shape[1] for g in gs),
+            ops=sum(2 * nnz_t * g.shape[1] for g in gs),
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
         xs_max = [rows_n(torch.relu(feats(npad, w))) for w in widths_tr]
         ys_max = [gather_ops.packed_groups_spmm(groups, x, q=q, op="max",
@@ -916,6 +969,19 @@ def main() -> int:
                 raise AssertionError(f"{label}: loss trajectory {losses} "
                                      f"differs from segment {ref.tolist()}")
         per_step = {k: v / TRAIN_STEPS for k, v in grew.items()}
+        if fmt == "packed":
+            # one rer_gather launch per layer forward, and per layer sum
+            # backward (GS-Pool's max backward keeps rer_gather_bwd)
+            once = {"rer_gather_max" if model == "gs_pool"
+                    else "rer_gather_sum": 2}
+            if model == "gcn":
+                once["rer_gather_sum_t"] = 2
+            for k, v in once.items():
+                if per_step.get(k) != v:
+                    raise AssertionError(f"{label}: {k} {per_step.get(k)} "
+                                         f"launches/step, not one per layer")
+            print(f"train {label}: rer_gather once per layer per step "
+                  f"{once}")
         bwd = sum(v for k, v in per_step.items() if k in bwd_keys)
         row = {"run": label, "plan": f"{tr.plan.backend}/"
                f"{tr.plan.tile_format}",

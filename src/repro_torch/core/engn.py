@@ -278,8 +278,8 @@ class EnGNLayer(nn.Module):
                                   n=xf.shape[0], op=base_op)
             return _finish(y)
         if "packed_groups" in graph:
-            # CUDA plans: one rer_gather launch per pow2 nnz-bucket
-            # group; raw partials merge by + / maximum, -inf finished once
+            # CUDA plans: one rer_gather launch over every pow2
+            # nnz-bucket group (its work table built with the plan)
             from repro_torch.kernels.rer_gather import packed_groups_spmm
             y = packed_groups_spmm(
                 graph["packed_groups"], xf, q=graph["blocks_meta"]["q"],
@@ -309,10 +309,10 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def upload_groups(groups, dev: torch.device):
-    return [{"rows": _upload(gr.rows, dev), "cols": _upload(gr.cols, dev),
-             "vals": _upload(gr.vals, dev),
-             "block_row": _upload(gr.block_row, dev),
-             "block_col": _upload(gr.block_col, dev)} for gr in groups]
+    """A plan's bucket groups on `dev`, with the `rer_gather` kernel's
+    work table built from the host arrays beside them (`PlanGroups`)."""
+    from repro_torch.kernels.rer_gather import PlanGroups
+    return PlanGroups(groups, dev)
 
 
 def transposed_blocks(graph: Dict[str, Any]):

@@ -8,23 +8,40 @@
 //   pad entries are (0, 0, 0.0); max skips val == 0 and, unless
 //   `finish`, keeps -inf in uncovered rows so partials merge by maximum.
 //
-// Bound on the H100: bytes.  Each entry costs 12 B of (row, col, val)
-// and one F-wide row of X; the work is 2 operations per entry and
-// feature.  Design:
-//   * the reference's one-hot MXU gather is a TPU workaround: here each
-//     warp loads 32 entries with one coalesced read, broadcasts them
-//     with __shfl_sync, and each lane reads its feature of the referenced
-//     X row directly, so only the rows the entries name are read;
-//   * one CTA per (dst interval, 32-wide feature chunk) walks its
-//     interval's tile span and keeps a T x 32 accumulator in shared
-//     memory; it owns its output block, so global memory sees no atomics;
-//   * the eight warps of a CTA share that accumulator: sum adds with
-//     shared-memory float atomics (the order of the adds varies from run
-//     to run, so sums agree with the plain version to fp32 rounding, not
-//     bitwise); max uses a compare-and-swap float max, exact in any order;
+// Bound on the H100: bytes.  Each real entry costs 12 B of (row, col,
+// val) and one F-wide row of X; the work is 2 operations per entry and
+// feature.  Two launchers share one warp walker:
+//   * `rer_gather_launch`: a whole aggregate, every bucket group of a
+//     plan in one launch, driven by a work table built on the host with
+//     the plan's groups (`rer_gather/ops.py::PlanGroups`): the real
+//     entries of every tile (real entries come first in a tile's S slots,
+//     so no pad slot is read) cut into pieces and packed into segments
+//     of at most SEG_ENTRIES (64) entries, in destination order, one warp
+//     per segment; a warp walks its segment as one run of entries, each lane
+//     finding its entry's piece by a binary search, so many small tiles
+//     share a 32-entry load and the hub interval's tens of thousands of
+//     entries spread over hundreds of warps;
+//   * `rer_gather_part_launch`: the streamed executor's chunk, (C, S)
+//     entries against a (C, T, F) source stack into one interval's (T, F)
+//     partial; one warp per (tile, 64-slot slice), so a hub tile spreads
+//     over the card too; the chunk arrives from the host each step, so
+//     there is no table, and a pad slot costs the read of its val;
+//   * the walker loads 32 entries with one coalesced read (rows and cols
+//     only where val != 0), broadcasts them with __shfl_sync and keeps
+//     the running destination row's sum or max in registers, lanes over
+//     features (below 32 features, groups of pow2(F) >= 4 lanes take
+//     different entries), kU x kNR values of X in flight per lane;
+//     entries are row-sorted within a forward tile, so it flushes to Y
+//     only when the row changes: atomicAdd into a zero-filled Y (sum), or
+//     an integer-atomic float max into a -inf-filled Y, -inf -> 0 after
+//     when `finish` (max); both are fire-and-forget reductions, with no
+//     shared-memory atomics, no per-group partial and no merge outside
+//     the kernel;
 //   * entries with val == 0 (pads, and a merged weight of 0) are skipped,
-//     which is exact for sum and is the max convention;
-//   * buckets reach S = 16384, so the entries are walked in chunks.
+//     which is exact for sum and is the max convention.
+// Numerics: max is exact in any order; the order of the atomic adds
+// varies from run to run, so sums agree with the plain version to fp32
+// rounding, not bitwise.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -32,111 +49,305 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFc = 32;  // features per CTA: one per lane
+constexpr int kU = 4;        // entries gathered per lane per batch
+constexpr int kSlice = 64;   // slots per warp in the tile-part form
 
+// Float max by integer atomics: floats without the sign bit order as
+// ints, floats with it (-0 to -inf) inversely as unsigned ints, and each
+// kind against the other correctly too, so one atomicMax or atomicMin is
+// an exact max, issued without waiting for a reply (a compare-and-swap
+// loop waits on every read).  NaN is not ordered.
 __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  int* ia = reinterpret_cast<int*>(addr);
-  int old = *reinterpret_cast<volatile int*>(ia);
-  // values only grow, so a stale read is never above the true value
-  while (__int_as_float(old) < v) {
-    const int assumed = old;
-    old = atomicCAS(ia, assumed, __float_as_int(v));
-    if (old == assumed) break;
-  }
+  if (!signbit(v))
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
-template <bool kMax>
-__global__ void __launch_bounds__(kThreads)
-rer_gather_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                  const float* __restrict__ vals,
-                  const int* __restrict__ block_col,
-                  const int* __restrict__ tile_ptr,
-                  const float* __restrict__ x, float* __restrict__ y,
-                  int s, int t, int f, int n_fchunks, int finish) {
-  extern __shared__ float acc_s[];  // t x kFc
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int dst = blockIdx.x / n_fchunks;
-  const int f0 = (blockIdx.x % n_fchunks) * kFc;
-  const int fcol = f0 + lane;
-  const bool live = fcol < f;
+// One warp walks n entries, 32 at a time: load(e, &v, &row, &src) gives
+// entry e's weight, its Y row and its X row (v == 0: skip; rows and cols
+// are read only where v != 0).  Lane = (group g, feature fl); features
+// fb + fl + fp * n, n < kNR.
+template <bool kMax, int kNR, typename Load>
+__device__ __forceinline__ void walk(int n_entries, Load load,
+                                     const float* __restrict__ x,
+                                     float* __restrict__ y, int f, int fb,
+                                     int fp, int lane) {
+  const int g = lane / fp, fl = lane % fp;
+  const int per = fp;  // entries per group in a 32-entry chunk
+  int cur = -1;
+  float acc[kNR];
+#pragma unroll
+  for (int n = 0; n < kNR; ++n) acc[n] = kMax ? -INFINITY : 0.f;
 
-  for (int e = tid; e < t * kFc; e += kThreads)
-    acc_s[e] = kMax ? -INFINITY : 0.f;
-  __syncthreads();
-
-  const int k_lo = tile_ptr[dst], k_hi = tile_ptr[dst + 1];
-  for (int k = k_lo; k < k_hi; ++k) {
-    const float* xs = x + (size_t)block_col[k] * t * f;
-    const size_t base = (size_t)k * s;
-    for (int e0 = warp * 32; e0 < s; e0 += kWarps * 32) {
-      const int e = e0 + lane;
-      int r = 0, c = 0;
-      float v = 0.f;
-      if (e < s) {
-        r = rows[base + e];
-        c = cols[base + e];
-        v = vals[base + e];
+  auto flush = [&]() {
+    if (cur < 0) return;
+#pragma unroll
+    for (int n = 0; n < kNR; ++n) {
+      const int fi = fb + fl + fp * n;
+      if (fi >= f) continue;
+      float* out = y + (size_t)cur * f + fi;
+      if (kMax) {
+        if (acc[n] != -INFINITY) atomic_max_float(out, acc[n]);
+      } else if (acc[n] != 0.f) {
+        atomicAdd(out, acc[n]);
       }
-      if (__ballot_sync(0xffffffffu, v != 0.f) == 0u) continue;
-#pragma unroll 4
-      for (int j = 0; j < 32; ++j) {
-        const float vj = __shfl_sync(0xffffffffu, v, j);
-        const int rj = __shfl_sync(0xffffffffu, r, j);
+      acc[n] = kMax ? -INFINITY : 0.f;
+    }
+  };
+
+  for (int e0 = 0; e0 < n_entries; e0 += 32) {
+    float v = 0.f;
+    int r = 0, c = 0;
+    if (e0 + lane < n_entries) load(e0 + lane, &v, &r, &c);
+    if (__ballot_sync(0xffffffffu, v != 0.f) == 0u) continue;
+    for (int i0 = 0; i0 < per; i0 += kU) {
+      float vv[kU], xv[kU][kNR];
+      int rr[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int j = g * per + i0 + u;
+        vv[u] = __shfl_sync(0xffffffffu, v, j);
+        rr[u] = __shfl_sync(0xffffffffu, r, j);
         const int cj = __shfl_sync(0xffffffffu, c, j);
-        if (vj == 0.f || !live) continue;
-        const float m = vj * xs[(size_t)cj * f + fcol];
-        if (kMax)
-          atomic_max_float(&acc_s[rj * kFc + lane], m);
-        else
-          atomicAdd(&acc_s[rj * kFc + lane], m);
+        const float* xr = x + (size_t)cj * f;
+#pragma unroll
+        for (int n = 0; n < kNR; ++n) {
+          const int fi = fb + fl + fp * n;
+          xv[u][n] = (vv[u] != 0.f && fi < f) ? xr[fi] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (vv[u] == 0.f) continue;
+        if (rr[u] != cur) {
+          flush();
+          cur = rr[u];
+        }
+#pragma unroll
+        for (int n = 0; n < kNR; ++n)
+          acc[n] = kMax ? fmaxf(acc[n], vv[u] * xv[u][n])
+                        : fmaf(vv[u], xv[u][n], acc[n]);
       }
     }
   }
-  __syncthreads();
+  flush();
+}
 
-  for (int e = tid; e < t * kFc; e += kThreads) {
-    const int row = e / kFc, col = f0 + e % kFc;
-    if (col >= f) continue;
-    float v = acc_s[e];
-    if (kMax && finish && v == -INFINITY) v = 0.f;
-    y[((size_t)dst * t + row) * f + col] = v;
+// A whole aggregate over a plan's bucket groups.  gtab: (G, 4) int64
+// rows, cols, vals device pointers and S of each group; pieces: (P, 6)
+// int32 (group, tile, lo, hi, dst interval, src interval); poff (P,):
+// each piece's first entry within its segment.  Segment s is pieces
+// [seg_ptr[s], seg_ptr[s+1]), walked as one run of entries: each lane
+// finds the piece of its entry by a binary search of poff, so a chunk of
+// 32 entries spans as many small tiles as it needs.  gridDim.y runs over
+// feature passes of fp * kNR features.
+template <bool kMax, int kNR>
+__global__ void __launch_bounds__(kThreads)
+rer_gather_kernel(const long long* __restrict__ gtab,
+                  const int* __restrict__ pieces,
+                  const int* __restrict__ poff,
+                  const int* __restrict__ seg_ptr, int n_seg,
+                  const float* __restrict__ x, float* __restrict__ y, int t,
+                  int f, int fp) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= n_seg) return;
+  const int p_lo = seg_ptr[s], p_hi = seg_ptr[s + 1];
+  const int* last = pieces + 6 * (p_hi - 1);
+  const int n_entries = poff[p_hi - 1] + last[3] - last[2];
+  auto load = [&](int e, float* v, int* r, int* c) {
+    int lo = p_lo, hi = p_hi - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (poff[mid] <= e) lo = mid; else hi = mid - 1;
+    }
+    const int* pc = pieces + 6 * lo;
+    const long long* gt = gtab + 4 * pc[0];
+    const size_t slot = (size_t)pc[1] * (size_t)gt[3] + pc[2] + (e - poff[lo]);
+    *v = reinterpret_cast<const float*>(gt[2])[slot];
+    if (*v != 0.f) {
+      *r = pc[4] * t + reinterpret_cast<const int*>(gt[0])[slot];
+      *c = pc[5] * t + reinterpret_cast<const int*>(gt[1])[slot];
+    }
+  };
+  walk<kMax, kNR>(n_entries, load, x, y, f, blockIdx.y * fp * kNR, fp,
+                  lane);
+}
+
+// The streamed chunk: warp w takes tile w / n_slices, slots
+// [kSlice * (w % n_slices), +kSlice); X rows c*T + col of the (C, T, F)
+// stack, Y rows of the one (T, F) partial.
+template <bool kMax, int kNR>
+__global__ void __launch_bounds__(kThreads)
+rer_gather_part_kernel(const int* __restrict__ rows,
+                       const int* __restrict__ cols,
+                       const float* __restrict__ vals, int c_tiles, int s,
+                       int n_slices, const float* __restrict__ xs,
+                       float* __restrict__ y, int t, int f, int fp) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= c_tiles * n_slices) return;
+  const int tile = w / n_slices, lo = (w % n_slices) * kSlice;
+  const size_t base = (size_t)tile * s + lo;
+  const int src = tile * t;
+  auto load = [&](int e, float* v, int* r, int* c) {
+    *v = vals[base + e];
+    if (*v != 0.f) {
+      *r = rows[base + e];
+      *c = src + cols[base + e];
+    }
+  };
+  walk<kMax, kNR>(min(kSlice, s - lo), load, xs, y, f,
+                  blockIdx.y * fp * kNR, fp, lane);
+}
+
+__global__ void fill_kernel(float* __restrict__ y, size_t count, float v) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * blockDim.x)
+    y[i] = v;
+}
+
+__global__ void finish_kernel(float* __restrict__ y, size_t count) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * blockDim.x)
+    if (y[i] == -INFINITY) y[i] = 0.f;
+}
+
+unsigned grid_for(size_t count) {
+  const size_t b = (count + 255) / 256;
+  return (unsigned)(b < 4096 ? (b ? b : 1) : 4096);
+}
+
+// Y filled with 0 (a memset, no kernel) or -inf before pieces merge in.
+void fill_y(float* y, size_t count, bool neg_inf, cudaStream_t st) {
+  if (neg_inf)
+    fill_kernel<<<grid_for(count), 256, 0, st>>>(y, count, -INFINITY);
+  else
+    cudaMemsetAsync(y, 0, count * sizeof(float), st);
+}
+
+// Lanes per entry fp and features per lane kNR for width f: one pass of
+// fp * kNR features (f <= 32: fp = pow2(f) >= 4, kNR = 1; f <= 64: 32 x 2;
+// wider: 32 x 4 per pass).
+int lanes_for(int f, int* nr) {
+  if (f > 64) {
+    *nr = 4;
+    return 32;
   }
+  if (f > 32) {
+    *nr = 2;
+    return 32;
+  }
+  *nr = 1;
+  int fp = 4;
+  while (fp < f) fp <<= 1;
+  return fp;
+}
+
+template <bool kMax, int kNR>
+void launch_table(const long long* gtab, const int* pieces, const int* poff,
+                  const int* seg_ptr, int n_seg, const float* x, float* y,
+                  int t, int f, int fp, cudaStream_t st) {
+  const dim3 grid((unsigned)((n_seg + kWarps - 1) / kWarps),
+                  (unsigned)((f + fp * kNR - 1) / (fp * kNR)));
+  rer_gather_kernel<kMax, kNR><<<grid, kThreads, 0, st>>>(
+      gtab, pieces, poff, seg_ptr, n_seg, x, y, t, f, fp);
+}
+
+template <bool kMax, int kNR>
+void launch_part(const int* rows, const int* cols, const float* vals, int c,
+                 int s, const float* xs, float* y, int t, int f, int fp,
+                 cudaStream_t st) {
+  const int n_slices = (s + kSlice - 1) / kSlice;
+  const long long warps = (long long)c * n_slices;
+  const dim3 grid((unsigned)((warps + kWarps - 1) / kWarps),
+                  (unsigned)((f + fp * kNR - 1) / (fp * kNR)));
+  rer_gather_part_kernel<kMax, kNR><<<grid, kThreads, 0, st>>>(
+      rows, cols, vals, c, s, n_slices, xs, y, t, f, fp);
+}
+
+template <bool kMax>
+void dispatch_table(const long long* gtab, const int* pieces,
+                    const int* poff, const int* seg_ptr, int n_seg,
+                    const float* x, float* y, int t, int f, cudaStream_t st) {
+  int nr;
+  const int fp = lanes_for(f, &nr);
+  if (nr == 1)
+    launch_table<kMax, 1>(gtab, pieces, poff, seg_ptr, n_seg, x, y, t, f,
+                          fp, st);
+  else if (nr == 2)
+    launch_table<kMax, 2>(gtab, pieces, poff, seg_ptr, n_seg, x, y, t, f,
+                          fp, st);
+  else
+    launch_table<kMax, 4>(gtab, pieces, poff, seg_ptr, n_seg, x, y, t, f,
+                          fp, st);
+}
+
+template <bool kMax>
+void dispatch_part(const int* rows, const int* cols, const float* vals,
+                   int c, int s, const float* xs, float* y, int t, int f,
+                   cudaStream_t st) {
+  int nr;
+  const int fp = lanes_for(f, &nr);
+  if (nr == 1)
+    launch_part<kMax, 1>(rows, cols, vals, c, s, xs, y, t, f, fp, st);
+  else if (nr == 2)
+    launch_part<kMax, 2>(rows, cols, vals, c, s, xs, y, t, f, fp, st);
+  else
+    launch_part<kMax, 4>(rows, cols, vals, c, s, xs, y, t, f, fp, st);
 }
 
 }  // namespace
 
-extern "C" int rer_gather_launch(const void* rows, const void* cols,
-                                 const void* vals, const void* block_col,
-                                 const void* tile_ptr, const void* x, void* y,
-                                 int q, int s, int t, int f, int op_max,
-                                 int finish, void* stream) {
+// Y (q*T, F) over every piece of the work table: filled first (0 for
+// sum, -inf for max), -inf -> 0 afterwards when `finish` (max).
+extern "C" int rer_gather_launch(const void* gtab, const void* pieces,
+                                 const void* poff, const void* seg_ptr,
+                                 int n_seg,
+                                 const void* x, void* y, int q, int t, int f,
+                                 int op_max, int finish, void* stream) {
   if (q == 0 || t == 0 || f == 0) return (int)cudaGetLastError();
-  const int n_fchunks = (f + kFc - 1) / kFc;
-  const size_t smem = (size_t)t * kFc * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* rr = static_cast<const int*>(rows);
-  const int* cc = static_cast<const int*>(cols);
-  const float* vv = static_cast<const float*>(vals);
-  const int* bc = static_cast<const int*>(block_col);
-  const int* tp = static_cast<const int*>(tile_ptr);
-  const float* xx = static_cast<const float*>(x);
   float* yy = static_cast<float*>(y);
-  const dim3 grid((unsigned)q * n_fchunks);
-  if (op_max) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(rer_gather_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    rer_gather_kernel<true><<<grid, kThreads, smem, st>>>(
-        rr, cc, vv, bc, tp, xx, yy, s, t, f, n_fchunks, finish);
-  } else {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(rer_gather_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    rer_gather_kernel<false><<<grid, kThreads, smem, st>>>(
-        rr, cc, vv, bc, tp, xx, yy, s, t, f, n_fchunks, finish);
+  const size_t count = (size_t)q * t * f;
+  fill_y(yy, count, op_max, st);
+  if (n_seg > 0) {
+    const long long* gt = static_cast<const long long*>(gtab);
+    const int* pc = static_cast<const int*>(pieces);
+    const int* po = static_cast<const int*>(poff);
+    const int* sp = static_cast<const int*>(seg_ptr);
+    const float* xx = static_cast<const float*>(x);
+    if (op_max)
+      dispatch_table<true>(gt, pc, po, sp, n_seg, xx, yy, t, f, st);
+    else
+      dispatch_table<false>(gt, pc, po, sp, n_seg, xx, yy, t, f, st);
+  }
+  if (op_max && finish)
+    finish_kernel<<<grid_for(count), 256, 0, st>>>(yy, count);
+  return (int)cudaGetLastError();
+}
+
+// The streamed chunk: (C, S) entries against the (C, T, F) stack xs ->
+// the (T, F) raw partial y (sum from 0; max keeps -inf where uncovered).
+extern "C" int rer_gather_part_launch(const void* rows, const void* cols,
+                                      const void* vals, int c, int s,
+                                      const void* xs, void* y, int t, int f,
+                                      int op_max, void* stream) {
+  if (t == 0 || f == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* yy = static_cast<float*>(y);
+  const size_t count = (size_t)t * f;
+  fill_y(yy, count, op_max, st);
+  if (c > 0 && s > 0) {
+    const int* rr = static_cast<const int*>(rows);
+    const int* cc = static_cast<const int*>(cols);
+    const float* vv = static_cast<const float*>(vals);
+    const float* xx = static_cast<const float*>(xs);
+    if (op_max)
+      dispatch_part<true>(rr, cc, vv, c, s, xx, yy, t, f, st);
+    else
+      dispatch_part<false>(rr, cc, vv, c, s, xx, yy, t, f, st);
   }
   return (int)cudaGetLastError();
 }

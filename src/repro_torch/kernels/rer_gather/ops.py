@@ -5,37 +5,42 @@ Host side (numpy, the reference's carriers field for field):
 group dst-sorted with every interval present; `flat_entries` flattens
 the store to global `(gsrc, gdst, gval)` entries.
 
-Device side: `packed_spmm` launches the hand-written CUDA kernel
-`csrc/rer_gather.cu` on one bucket group for CUDA tensors, and runs
-`packed_spmm_plain` (gather the referenced rows, scale, segment-reduce)
-for CPU tensors.  `packed_groups_spmm` is the whole aggregate over a
-plan's bucket groups (raw partials merged by + / maximum, -inf finished
-once) and its `torch.autograd.Function`: the sum backward runs the same
-kernel over the groups of the transposed store (`packed_spmm_t`), the
-max backward the two kernels of `csrc/rer_gather_bwd.cu`, which split
-the cotangent evenly over all tied entries of a row, as the reference's
+Device side: one launch of the hand-written CUDA kernel
+`csrc/rer_gather.cu` covers a whole aggregate for CUDA tensors: every
+bucket group of a plan (`packed_groups_spmm`, its sum backward over the
+transposed store's groups `packed_spmm_t`, and the single-group raw form
+`packed_spmm`), walked through a work table (`work_table`) that cuts the
+real entries into segments of about `SEG_ENTRIES` entries in
+destination order and never names a pad slot.  A plan's groups
+(`PlanGroups`, built where the plan uploads them) carry their table,
+made from the host arrays; any other list of groups builds one at each
+call from the per-tile real counts read back.  CPU tensors take the
+plain versions: `packed_spmm_plain` per group (gather the referenced
+rows, scale, segment-reduce), merged by + / maximum.  The max backward
+runs the two kernels of `csrc/rer_gather_bwd.cu`, which split the
+cotangent evenly over all tied entries of a row, as the reference's
 flat `segment_max` does.  `packed_flat_plain` is the one-launch plain
 form the CPU path of `prepare_graph` carries (autograd differentiates it
-directly).  `packed_tile_part` is the streamed
-executor's call form of the same kernel: one chunk of C packed tiles
-against the (C, T, F) stack of their source intervals, reduced into one
-destination interval's raw (T, F) partial; its plain version is
+directly).  `packed_tile_part` is the streamed executor's call form:
+one chunk of C packed tiles against the (C, T, F) stack of their source
+intervals, reduced into one destination interval's raw (T, F) partial,
+one warp per (tile, 64-slot slice); its plain version is
 `packed_tile_part_plain`.
 
 Source note.  Replaces `repro/kernels/rer_gather/rer_gather.py::
 rer_gather` (`_gather_kernel_sum`, `_gather_kernel_max`).  On the H100
-it is bound by bytes: 12 B per entry plus one referenced feature row.
-The kernel reads each referenced X row directly (the reference's one-hot
-MXU gather is a TPU workaround), walks an interval's tile span per CTA
-with a T x 32 shared-memory accumulator, and merges the warps' entries
-with shared-memory atomics (sum) or a compare-and-swap float max (max,
-exact in any order).  See the kernel source for the rest.
+it is bound by bytes: 12 B per real entry plus one referenced feature
+row.  The kernel reads each referenced X row directly (the reference's
+one-hot MXU gather is a TPU workaround); each warp walks one segment,
+keeps the running destination row in registers and flushes it to Y with
+global atomics (sum) or an integer-atomic float max (max, exact in any
+order) when the row changes.  See the kernel source for the rest.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,14 +50,17 @@ from repro_torch.graphs.partition import PackedTileStore, pow2_bucket
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (check_range, check_status,
                                          check_tensor, refuse_grad,
-                                         stream_handle, tile_ptr)
+                                         stream_handle)
 
 # kernel launches by op and call form, counted where the kernel is
-# launched: "sum"/"max" for bucket groups, "sum_t" for the sum backward
-# over the transposed store's groups, "tile_part_*" for the streamed
-# executor's chunks
+# launched: "sum"/"max" for bucket groups (one per aggregate), "sum_t"
+# for the sum backward over the transposed store's groups, "tile_part_*"
+# for the streamed executor's chunks
 LAUNCHES = {"sum": 0, "max": 0, "sum_t": 0, "tile_part_sum": 0,
             "tile_part_max": 0}
+
+# real entries a segment of the work table holds at most (one warp each)
+SEG_ENTRIES = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +174,166 @@ def packed_tile_part_plain(rows: torch.Tensor, cols: torch.Tensor,
                            rows.long().reshape(-1), t, op, finish=False)
 
 
+def real_counts(rows: torch.Tensor, cols: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """Per tile of a (K, S) group, the slots up to its last one that is
+    not a pad (0, 0, 0.0): the store's entry count for every tile but a
+    lone (0, 0) entry of weight 0, which contributes nothing.  Every
+    slot from there on is a pad, so a walk over [0, count) sees every
+    entry that contributes and no pad slot."""
+    k, s = rows.shape
+    if s == 0:
+        return torch.zeros(k, dtype=torch.int64, device=rows.device)
+    live = (rows != 0) | (cols != 0) | (vals != 0)
+    pos = torch.arange(1, s + 1, device=rows.device)
+    return torch.where(live, pos, 0).amax(dim=1)
+
+
+def work_table(counts: Sequence[np.ndarray], block_row: Sequence[np.ndarray],
+               block_col: Sequence[np.ndarray],
+               seg_entries: int = SEG_ENTRIES):
+    """The kernel's work table over bucket groups: group g's tile k holds
+    `counts[g][k]` real entries in its first slots.  Each tile's entries
+    are cut into pieces of at most `seg_entries`, the pieces sorted by
+    (destination interval, group, tile, first entry) and packed greedily
+    into segments of at most `seg_entries` entries.  Returns `pieces`
+    (P, 6) int32 rows (group, tile, lo, hi, dst interval, src interval),
+    `seg_ptr` (n_seg + 1) int32: segment s is pieces
+    [seg_ptr[s], seg_ptr[s+1]), and `poff` (P,) int32: each piece's
+    first entry within its segment (a warp walks a segment as one run of
+    entries)."""
+    parts = []
+    for g, (cnt, br, bc) in enumerate(zip(counts, block_row, block_col)):
+        cnt = np.asarray(cnt, np.int64)
+        k = np.nonzero(cnt > 0)[0]
+        n = -(-cnt[k] // seg_entries)
+        tile = np.repeat(k, n)
+        j = np.arange(tile.size) - np.repeat(np.cumsum(n) - n, n)
+        lo = j * seg_entries
+        hi = np.minimum(lo + seg_entries, cnt[tile])
+        parts.append(np.stack([np.full(tile.size, g), tile, lo, hi,
+                               np.asarray(br, np.int64)[tile],
+                               np.asarray(bc, np.int64)[tile]], axis=1))
+    pieces = (np.concatenate(parts) if parts
+              else np.zeros((0, 6), np.int64))
+    pieces = pieces[np.lexsort((pieces[:, 2], pieces[:, 1], pieces[:, 0],
+                                pieces[:, 4]))]
+    # greedy packing: a piece opens a new segment when the open one
+    # could not take it
+    seg_ptr = [0]
+    fill = 0
+    for i, size in enumerate((pieces[:, 3] - pieces[:, 2]).tolist()):
+        if fill + size > seg_entries and i > seg_ptr[-1]:
+            seg_ptr.append(i)
+            fill = 0
+        fill += size
+    if pieces.shape[0]:
+        seg_ptr.append(pieces.shape[0])
+    seg_ptr = np.asarray(seg_ptr, np.int64)
+    size = pieces[:, 3] - pieces[:, 2]
+    start = np.cumsum(size) - size
+    poff = start - np.repeat(start[seg_ptr[:-1]], np.diff(seg_ptr))
+    return (pieces.astype(np.int32), seg_ptr.astype(np.int32),
+            poff.astype(np.int32))
+
+
+_FIELDS = ("rows", "cols", "vals", "block_row", "block_col")
+
+
+class _Work(NamedTuple):
+    gtab: torch.Tensor       # (G, 4) int64: rows, cols, vals pointers, S
+    pieces: torch.Tensor     # (P, 6) int32
+    poff: torch.Tensor       # (P,) int32
+    seg_ptr: torch.Tensor    # (n_seg + 1,) int32
+    n_seg: int
+    q: int                   # the entries name intervals < q ...
+    t: int                   # ... and rows and columns < t
+    keep: tuple              # the group tensors whose pointers gtab holds
+
+
+def _build_work(groups: Sequence[Dict[str, torch.Tensor]], counts, brow,
+                bcol, q: int, t: int) -> _Work:
+    """The work table of device groups, from host arrays of their real
+    counts and tile intervals."""
+    dev = groups[0]["rows"].device
+    pieces, seg_ptr, poff = work_table(counts, brow, bcol)
+    gtab = torch.tensor([[gr["rows"].data_ptr(), gr["cols"].data_ptr(),
+                          gr["vals"].data_ptr(), gr["rows"].shape[1]]
+                         for gr in groups], dtype=torch.int64).to(dev)
+    return _Work(gtab, torch.from_numpy(pieces).to(dev),
+                 torch.from_numpy(poff).to(dev),
+                 torch.from_numpy(seg_ptr).to(dev), seg_ptr.size - 1, q, t,
+                 tuple(gr[k] for gr in groups for k in _FIELDS))
+
+
+class PlanGroups(list):
+    """A plan's bucket groups on their device: the list of group dicts
+    (`rows`, `cols`, `vals`, `block_row`, `block_col`) every consumer
+    reads, and in `work` the kernel's work table, built from the host
+    arrays as they are uploaded, so that no launch reads back or checks
+    them again.  The groups are constants of the plan: a launch takes
+    the table as built."""
+
+    def __init__(self, groups: Sequence[PackedGroup], dev: torch.device):
+        super().__init__(
+            {k: torch.from_numpy(np.ascontiguousarray(getattr(gr, k))).to(dev)
+             for k in _FIELDS} for gr in groups)
+        self.work = None
+        if groups:
+            self.work = _build_work(
+                self, [real_counts(*(torch.from_numpy(getattr(gr, k))
+                                     for k in _FIELDS[:3])).numpy()
+                       for gr in groups],
+                [gr.block_row for gr in groups],
+                [gr.block_col for gr in groups],
+                q=1 + max(int(a.max(initial=0)) for gr in groups
+                          for a in (gr.block_row, gr.block_col)),
+                t=1 + max(int(a.max(initial=0)) for gr in groups
+                          for a in (gr.rows, gr.cols)))
+
+
+def _check_groups(groups, dev: torch.device, q: int, t: int) -> None:
+    for gr in groups:
+        check_tensor(gr["rows"], "rows", torch.int32, dev, 2)
+        check_tensor(gr["cols"], "cols", torch.int32, dev, 2)
+        check_tensor(gr["vals"], "vals", torch.float32, dev, 2)
+        check_tensor(gr["block_row"], "block_row", torch.int32, dev, 1)
+        check_tensor(gr["block_col"], "block_col", torch.int32, dev, 1)
+        k, s = gr["rows"].shape
+        if gr["cols"].shape != (k, s) or gr["vals"].shape != (k, s):
+            raise ValueError("rows, cols and vals must share one (K, S) "
+                             "shape")
+        if gr["block_row"].numel() != k or gr["block_col"].numel() != k:
+            raise ValueError(f"{k} packed tiles but block_row/block_col "
+                             f"hold {gr['block_row'].numel()}/"
+                             f"{gr['block_col'].numel()}")
+        check_range(gr["rows"], t, "rows")
+        check_range(gr["cols"], t, "cols")
+        check_range(gr["block_row"], q, "block_row")
+        check_range(gr["block_col"], q, "block_col")
+
+
+def _work(groups: Sequence[Dict[str, torch.Tensor]], q: int, t: int,
+          dev: torch.device) -> _Work:
+    """A plan's table, held to the grid of x; for any other list of
+    groups, a table built now, after the groups' checks, from the real
+    counts and tile intervals read back to the host."""
+    w = getattr(groups, "work", None)
+    if w is None:
+        _check_groups(groups, dev, q, t)
+        w = _build_work(
+            groups, [real_counts(gr["rows"], gr["cols"], gr["vals"])
+                     .cpu().numpy() for gr in groups],
+            [gr["block_row"].cpu().numpy() for gr in groups],
+            [gr["block_col"].cpu().numpy() for gr in groups], q, t)
+    if w.gtab.device != dev:
+        raise ValueError(f"the groups lie on {w.gtab.device}, x on {dev}")
+    if w.q > q or w.t > t:
+        raise ValueError(f"the groups name {w.q} intervals of {w.t} rows; "
+                         f"x holds {q} of {t}")
+    return w
+
+
 _LIB = None
 
 
@@ -174,53 +342,65 @@ def _lib():
     if _LIB is None:
         lib = _build.load("rer_gather")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rer_gather_launch.argtypes = [p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, p]
+        lib.rer_gather_launch.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i,
+                                          p]
         lib.rer_gather_launch.restype = i
+        lib.rer_gather_part_launch.argtypes = [p, p, p, i, i, p, p, i, i, i,
+                                               p]
+        lib.rer_gather_part_launch.restype = i
         _LIB = lib
     return _LIB
 
 
-def _launch(rows, cols, vals, block_row, block_col, x, q, op, finish):
-    """Check the arguments and launch the kernel (counted by the caller)."""
+def _launch(groups, x, q, op, finish) -> torch.Tensor:
+    """Check the arguments and launch the kernel once over every group
+    (counted by the caller)."""
     dev = x.device
-    check_tensor(rows, "rows", torch.int32, dev, 2)
-    check_tensor(cols, "cols", torch.int32, dev, 2)
-    check_tensor(vals, "vals", torch.float32, dev, 2)
-    check_tensor(block_row, "block_row", torch.int32, dev, 1)
-    check_tensor(block_col, "block_col", torch.int32, dev, 1)
     check_tensor(x, "x", torch.float32, dev, 2)
-    k, s = rows.shape
-    if cols.shape != (k, s) or vals.shape != (k, s):
-        raise ValueError("rows, cols and vals must share one (K, S) shape")
-    if block_row.numel() != k or block_col.numel() != k:
-        raise ValueError(f"{k} packed tiles but block_row/block_col hold "
-                         f"{block_row.numel()}/{block_col.numel()}")
     if q <= 0 or x.shape[0] % q:
         raise ValueError(f"x rows {x.shape[0]} are not q={q} intervals")
     t = x.shape[0] // q
     f = x.shape[1]
-    ptr = tile_ptr(block_row, q)
-    check_range(block_col, q, "block_col")
-    check_range(rows, t, "rows")
-    check_range(cols, t, "cols")
+    w = _work(groups, q, t, dev)
     y = torch.empty((q * t, f), dtype=torch.float32, device=dev)
     status = _lib().rer_gather_launch(
-        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-        block_col.data_ptr(), ptr.data_ptr(), x.data_ptr(), y.data_ptr(),
-        q, s, t, f, int(op == "max"), int(finish), stream_handle(dev))
+        w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
+        w.seg_ptr.data_ptr(), w.n_seg, x.data_ptr(), y.data_ptr(), q, t, f,
+        int(op == "max"), int(finish), stream_handle(dev))
     check_status(status, "rer_gather")
     return y
 
 
-def _group(gr, x, q, op, finish, key) -> torch.Tensor:
-    args = (gr["rows"], gr["cols"], gr["vals"], gr["block_row"],
-            gr["block_col"], x)
+def packed_groups_plain(groups: Sequence[Dict[str, torch.Tensor]],
+                        x: torch.Tensor, *, q: int, op: str = "sum",
+                        finish: bool = True) -> torch.Tensor:
+    """The plain version of a whole aggregate, on any device: one
+    `packed_spmm_plain` per group, raw partials merged by + / maximum,
+    -inf finished once (unless `finish=False`)."""
+    y = None
+    for gr in groups:
+        part = packed_spmm_plain(gr["rows"], gr["cols"], gr["vals"],
+                                 gr["block_row"], gr["block_col"], x, q=q,
+                                 op=op, finish=False)
+        if y is None:
+            y = part
+        elif op == "sum":
+            y = y.add_(part)
+        else:
+            y = torch.maximum(y, part, out=y)
+    if op == "max" and finish:
+        y = torch.where(torch.isneginf(y), 0.0, y)
+    return y
+
+
+def _aggregate(groups, x, q, op, finish, key) -> torch.Tensor:
     if x.device.type == "cpu":
-        return packed_spmm_plain(*args, q=q, op=op, finish=finish)
+        return packed_groups_plain(groups, x, q=q, op=op, finish=finish)
     if x.device.type != "cuda":
         raise ValueError(f"no rer_gather for device {x.device}")
-    y = _launch(*args, q, op, finish)
+    if not groups:
+        raise ValueError("an aggregate needs at least one bucket group")
+    y = _launch(groups, x, q, op, finish)
     LAUNCHES[key] += 1
     return y
 
@@ -231,48 +411,32 @@ def packed_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                 finish: bool = True) -> torch.Tensor:
     """One bucket group: x (q*T, F) -> y (q*T, F).  `finish=False` keeps
     -inf in uncovered max rows, for callers that merge partials.  CPU
-    tensors take the plain version; CUDA tensors the kernel.  One group
-    is a raw call form without a gradient: differentiate a plan's groups
-    as a whole through `packed_groups_spmm`."""
+    tensors take the plain version; CUDA tensors the kernel, with a work
+    table built at each call (one read back).  One group is a raw call
+    form without a gradient: differentiate a plan's groups as a whole
+    through `packed_groups_spmm`."""
     if op not in ("sum", "max"):
         raise ValueError(op)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no rer_gather for device {x.device}")
     if x.device.type == "cuda":
         refuse_grad("rer_gather", vals, x,
                     why="differentiates a plan's bucket groups only as a "
                         "whole, through packed_groups_spmm")
     gr = {"rows": rows, "cols": cols, "vals": vals, "block_row": block_row,
           "block_col": block_col}
-    return _group(gr, x, q, op, finish, op)
+    return _aggregate([gr], x, q, op, finish, op)
 
 
-def packed_spmm_t(group_t: Dict[str, torch.Tensor], g: torch.Tensor, *,
-                  q: int) -> torch.Tensor:
-    """A^T G over one bucket group of the transposed store: the sum
-    backward of `packed_groups_spmm`, one group's partial."""
-    return _group(group_t, g, q, "sum", True, "sum_t")
-
-
-def _groups_forward(groups, x, q, op) -> torch.Tensor:
-    y = None
-    for gr in groups:
-        part = _group(gr, x, q, op, False, op)
-        if y is None:
-            y = part
-        elif op == "sum":
-            y = y.add_(part)
-        else:
-            y = torch.maximum(y, part, out=y)
-    if op == "max":
-        y = torch.where(torch.isneginf(y), 0.0, y)
-    return y
+def packed_spmm_t(groups_t: Sequence[Dict[str, torch.Tensor]],
+                  g: torch.Tensor, *, q: int) -> torch.Tensor:
+    """A^T G over the groups of the transposed store: the sum backward
+    of `packed_groups_spmm`, one launch on CUDA."""
+    return _aggregate(groups_t, g, q, "sum", True, "sum_t")
 
 
 class _PackedGroups(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups, q, op, transposed):
-        y = _groups_forward(groups, x, q, op)
+        y = _aggregate(groups, x, q, op, True, op)
         ctx.groups, ctx.q, ctx.op, ctx.transposed = groups, q, op, transposed
         if op == "max":
             ctx.save_for_backward(x, y)
@@ -283,15 +447,12 @@ class _PackedGroups(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous()
         q, groups_t = ctx.q, ctx.transposed()
-        dx = None
         if ctx.op == "sum":
-            for gt in groups_t:
-                part = packed_spmm_t(gt, g, q=q)
-                dx = part if dx is None else dx.add_(part)
-            return dx, None, None, None, None
+            return packed_spmm_t(groups_t, g, q=q), None, None, None, None
         from repro_torch.kernels.rer_gather_bwd import (packed_max_count,
                                                         packed_max_grad)
         x, y = ctx.saved_tensors
+        dx = None
         cnt = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
         for gr in ctx.groups:
             packed_max_count(gr, x, y, cnt, q=q)
@@ -307,37 +468,23 @@ def packed_groups_spmm(groups: Sequence[Dict[str, torch.Tensor]],
                            str, torch.Tensor]]]]
                        ) -> torch.Tensor:
     """The aggregate over a plan's bucket groups (dicts of `rows`,
-    `cols`, `vals`, `block_row`, `block_col`): one launch per group, raw
-    partials merged by + / maximum, -inf finished once.  When autograd
-    needs dX, the backward runs over the groups `transposed()` returns
-    (the plan builds them from `transpose_packed_store` once); None is
-    for calls that autograd does not differentiate."""
+    `cols`, `vals`, `block_row`, `block_col`): one kernel launch over
+    every group on CUDA (the plain per-group partials merged by + /
+    maximum on the CPU), -inf finished once.  When autograd needs dX,
+    the backward runs over the groups `transposed()` returns (the plan
+    builds them from `transpose_packed_store` once); None is for calls
+    that autograd does not differentiate."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     if any(gr["vals"].requires_grad for gr in groups):
         raise NotImplementedError("rer_gather differentiates x only; the "
                                   "entries are the graph, a constant")
     if not (torch.is_grad_enabled() and x.requires_grad):
-        return _groups_forward(groups, x, q, op)
+        return _aggregate(groups, x, q, op, True, op)
     if transposed is None:
         raise ValueError("packed_groups_spmm under autograd needs the "
                          "transposed groups: pass transposed=")
     return _PackedGroups.apply(x, groups, q, op, transposed)
-
-
-# (C, device) -> the q=1 span pointers [0, C] and source intervals
-# arange(C) of a tile-part launch: built once, so no launch synchronises
-_PART_INDEX = {}
-
-
-def _part_index(c: int, dev: torch.device):
-    key = (c, str(dev))
-    hit = _PART_INDEX.get(key)
-    if hit is None:
-        hit = (torch.tensor([0, c], dtype=torch.int32, device=dev),
-               torch.arange(c, dtype=torch.int32, device=dev))
-        _PART_INDEX[key] = hit
-    return hit
 
 
 def packed_tile_part(rows: torch.Tensor, cols: torch.Tensor,
@@ -346,8 +493,8 @@ def packed_tile_part(rows: torch.Tensor, cols: torch.Tensor,
     """One streamed chunk: (C, S) packed entries against the (C, T, F)
     stack of their source intervals -> (T, F) raw partial for a single
     destination interval.  CPU tensors take the plain version; CUDA
-    tensors the kernel, as a one-interval launch (q=1) with T passed
-    explicitly.  `checked=True` is the caller's word that rows and cols
+    tensors the kernel, one warp per (tile, 64-slot slice).
+    `checked=True` is the caller's word that rows and cols
     lie in [0, T) (the streamed executor checks its host store once);
     otherwise they are checked here, which reads back to the host."""
     if op not in ("sum", "max"):
@@ -370,12 +517,11 @@ def packed_tile_part(rows: torch.Tensor, cols: torch.Tensor,
     if not checked:
         check_range(rows, t, "rows")
         check_range(cols, t, "cols")
-    ptr, block_col = _part_index(c, dev)
     y = torch.empty((t, f), dtype=torch.float32, device=dev)
-    status = _lib().rer_gather_launch(
-        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-        block_col.data_ptr(), ptr.data_ptr(), xs.data_ptr(), y.data_ptr(),
-        1, s, t, f, int(op == "max"), 0, stream_handle(dev))
+    status = _lib().rer_gather_part_launch(
+        rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), c, s,
+        xs.data_ptr(), y.data_ptr(), t, f, int(op == "max"),
+        stream_handle(dev))
     check_status(status, "rer_gather")
     LAUNCHES["tile_part_" + op] += 1
     return y

@@ -16,11 +16,13 @@ destination intervals), for CPU tensors.  Under autograd it is a
 Source note.  Replaces `repro/kernels/rer_spmm/rer_spmm.py::rer_spmm`
 (`_spmm_kernel_sum`, `_spmm_kernel_max`).  On the H100 it is bound by
 bytes: the tiles are mostly structural zeros, so 4 T^2 bytes per tile
-buy 2 * nnz * F useful operations.  The kernel streams each tile once
-per 16-wide feature chunk, with the chunks of one interval side by side
-in the grid so they share the tile through L2; one CTA per
-(interval, row slab, chunk) walks its interval's tile span and owns its
-output, so there are no atomics.  See the kernel source for the rest.
+buy 2 * nnz * F useful operations.  The kernel streams each tile from
+HBM once per call (F up to 1024) through two cp.async stages, compacts each
+slab's nonzeros on chip and gathers only the X rows they name; one CTA
+per (span piece, row slab) with each interval's span cut into balanced
+pieces of at most `PIECE_TILES` tiles (`span_pieces`, built on the host
+once per carrier), merged in Y by atomics where an interval is split.
+See the kernel source for the rest.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.graphs.partition import transpose_block_index
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (check_range, check_status,
+from repro_torch.kernels._common import (_memo, check_range, check_status,
                                          check_tensor, stream_handle,
                                          tile_ptr)
 
@@ -46,6 +48,10 @@ _TRANSPOSE_SLAB = 256
 
 # elements of one (tiles, T, T, F) candidate slab in the plain max
 _PLAIN_MAX_SLAB = 1 << 26
+
+# most tiles one CTA of the kernel walks: longer spans are cut into
+# balanced pieces merged by atomics
+PIECE_TILES = 16
 
 
 def prepare_blocks(blocks: np.ndarray, block_row: np.ndarray,
@@ -96,6 +102,37 @@ def blocked_spmm_plain(blocks: torch.Tensor, block_row: torch.Tensor,
     return y.reshape(q * t, f)
 
 
+def span_pieces(ptr: np.ndarray, piece_tiles: int = PIECE_TILES):
+    """Cut each destination interval's tile span `[ptr[i], ptr[i+1])`
+    into ceil(span / piece_tiles) pieces of balanced length: an
+    (n_pieces, 4) int32 table of (interval, first tile, end tile, split)
+    rows, `split` set where the interval has more than one piece.  The
+    second value says whether Y must be filled first: some interval is
+    split (its pieces merge by atomics) or has no tile (no CTA writes
+    its rows)."""
+    ptr = np.asarray(ptr, np.int64)
+    span = np.diff(ptr)
+    n = -(-span // piece_tiles)
+    owner = np.repeat(np.arange(span.size), n)
+    j = np.arange(owner.size) - np.repeat(np.cumsum(n) - n, n)
+    lo = ptr[owner] + span[owner] * j // n[owner]
+    hi = ptr[owner] + span[owner] * (j + 1) // n[owner]
+    table = np.stack([owner, lo, hi, n[owner] > 1], axis=1)
+    return table.astype(np.int32), bool((n != 1).any())
+
+
+def _pieces(block_row: torch.Tensor, q: int):
+    """The device table of `span_pieces` for a carrier, built once: the
+    span pointers are read back to the host on the first launch."""
+    m = _memo(block_row)
+    hit = m.get(("pieces", q))
+    if hit is None:
+        table, fill = span_pieces(tile_ptr(block_row, q).cpu().numpy())
+        hit = (torch.from_numpy(table).to(block_row.device), fill)
+        m[("pieces", q)] = hit
+    return hit
+
+
 _LIB = None
 
 
@@ -104,7 +141,8 @@ def _lib():
     if _LIB is None:
         lib = _build.load("rer_spmm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rer_spmm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.rer_spmm_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, i, i,
+                                        p]
         lib.rer_spmm_launch.restype = i
         _LIB = lib
     return _LIB
@@ -161,13 +199,14 @@ def _launch(blocks: torch.Tensor, block_row: torch.Tensor,
     if x.shape[0] != q * t:
         raise ValueError(f"x has {x.shape[0]} rows, expected q*T = {q * t}")
     f = x.shape[1]
-    ptr = tile_ptr(block_row, q)
+    pieces, fill = _pieces(block_row, q)
     check_range(block_col, q, "block_col")
+    vec = t % 4 == 0 and blocks.data_ptr() % 16 == 0
     y = torch.empty((q * t, f), dtype=torch.float32, device=dev)
     status = _lib().rer_spmm_launch(
-        blocks.data_ptr(), block_col.data_ptr(), ptr.data_ptr(),
-        x.data_ptr(), y.data_ptr(), q, t, f, int(op == "max"),
-        stream_handle(dev))
+        blocks.data_ptr(), block_col.data_ptr(), pieces.data_ptr(),
+        pieces.shape[0], int(fill), x.data_ptr(), y.data_ptr(), q, t, f,
+        int(op == "max"), int(vec), stream_handle(dev))
     check_status(status, "rer_spmm")
     return y
 

@@ -18,8 +18,10 @@ from repro.kernels.rer_gather import ops as j_gather
 from repro.kernels.rer_spmm import ops as j_spmm
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.generate import rmat_graph
+from repro_torch.core.engn import upload_groups
 from repro_torch.graphs.partition import (build_tile_store, merge_by_key,
-                                          pack_tile_store)
+                                          pack_tile_store,
+                                          transpose_packed_store)
 from repro_torch.kernels import _build, _common
 from repro_torch.kernels.fused_engn import ops as t_fused
 from repro_torch.kernels.rer_gather import ops as t_gather
@@ -41,6 +43,23 @@ def _graph(n=100, live=70, e=500, seed=0, merge=False):
         return COOGraph(n, (key % n).astype(np.int32),
                         (key // n).astype(np.int32), val)
     return COOGraph(n, g.src, g.dst, val)
+
+
+def _hub_graph(n=640, live=560, hub=16, seed=0, integer=False):
+    """R-MAT edges among the first `live` vertices (the trailing
+    intervals stay empty) plus `hub` rows fed from every live source:
+    at T=16 the hub interval's span covers every live interval and its
+    tiles hold up to T*T entries.  Multi-edges are merged; `integer`
+    weights (1 or 2) make every product and sum exact, so maxima tie."""
+    rng = np.random.default_rng(seed)
+    g = rmat_graph(live, 6 * live, seed=seed)
+    src = np.concatenate([g.src, rng.integers(0, live, hub * live // 2)])
+    dst = np.concatenate([g.dst, np.repeat(np.arange(hub), live // 2)])
+    val = (rng.integers(1, 3, src.size) if integer
+           else rng.standard_normal(src.size)).astype(np.float32)
+    key, val = merge_by_key(dst.astype(np.int64) * n + src, val)
+    return COOGraph(n, (key % n).astype(np.int32),
+                    (key // n).astype(np.int32), val)
 
 
 def _check(got, want, op):
@@ -161,6 +180,106 @@ def test_packed_groups_merge_to_the_dense_aggregate(op):
     want = t_spmm.blocked_spmm_plain(_t(b.blocks), _t(b.block_row),
                                      _t(b.block_col), x, q=b.q, op=op)
     _check(y, want, op)
+
+
+# -- the kernels' host tables ------------------------------------------------
+
+@pytest.mark.parametrize("piece", [1, 3, 16])
+def test_span_pieces_cover_each_span_once(piece):
+    """rer_spmm's pieces: each interval's span cut into ceil(span /
+    piece) consecutive pieces of at most `piece` tiles, in interval
+    order; Y is filled first when an interval is split or empty."""
+    b = coo_to_blocked(_hub_graph(), 16)
+    ptr = np.searchsorted(b.block_row, np.arange(b.q + 1))
+    table, fill = t_spmm.span_pieces(ptr, piece)
+    assert (np.diff(table[:, 0]) >= 0).all()
+    for i in range(b.q):
+        own = table[table[:, 0] == i]
+        span = ptr[i + 1] - ptr[i]
+        assert len(own) == -(-span // piece)
+        if span:
+            assert own[0, 1] == ptr[i] and own[-1, 2] == ptr[i + 1]
+            assert (own[1:, 1] == own[:-1, 2]).all()
+            assert (own[:, 2] - own[:, 1] <= piece).all()
+            assert (own[:, 2] > own[:, 1]).all()
+            assert (own[:, 3] == (len(own) > 1)).all()
+    assert fill                          # trailing intervals are empty
+    assert (table[:, 3] == 1).any() == (np.diff(ptr).max() > piece)
+    full = np.arange(0, 4 * b.q + 1, 4)  # every span 4 tiles, none split
+    assert not t_spmm.span_pieces(full, 4)[1]
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("seg", [8, t_gather.SEG_ENTRIES])
+def test_work_table_covers_each_real_entry_once(transposed, seg):
+    """rer_gather's work table over bucket groups, forward and A^T: every
+    real entry of the PackedTileStore is covered exactly once, no pad
+    slot is, each segment holds at most `seg` entries, pieces run in
+    destination order, and the hub tiles are cut across segments."""
+    ps = pack_tile_store(build_tile_store(_hub_graph(), 16))
+    store = transpose_packed_store(ps) if transposed else ps
+    groups = t_gather.prepare_packed_groups(store)
+    counts = [t_gather.real_counts(_t(gr.rows), _t(gr.cols),
+                                   _t(gr.vals)).numpy() for gr in groups]
+    assert sum(int(c.sum()) for c in counts) == store.nnz
+    pieces, seg_ptr, poff = t_gather.work_table(
+        counts, [gr.block_row for gr in groups],
+        [gr.block_col for gr in groups], seg)
+    seen = [np.zeros(gr.rows.shape, np.int64) for gr in groups]
+    for grp, k, lo, hi, dst, src in pieces.tolist():
+        gr = groups[grp]
+        assert 0 <= lo < hi <= counts[grp][k] and hi - lo <= seg
+        assert (dst, src) == (gr.block_row[k], gr.block_col[k])
+        seen[grp][k, lo:hi] += 1
+    t = store.tile
+    got = []
+    for gr, hit in zip(groups, seen):
+        assert hit.max() <= 1
+        k, e = np.nonzero(hit)
+        got.append(np.stack([gr.block_col[k].astype(np.int64) * t
+                             + gr.cols[k, e],
+                             gr.block_row[k].astype(np.int64) * t
+                             + gr.rows[k, e],
+                             gr.vals[k, e].view(np.int32)], axis=1))
+    got = np.concatenate(got)
+    gsrc, gdst, gval = t_gather.flat_entries(store)
+    want = np.stack([gsrc, gdst, gval.view(np.int32)], axis=1).astype(
+        np.int64)
+    assert got.shape == want.shape       # no pad slot, no entry missed
+    np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
+                                  want[np.lexsort(want.T[::-1])])
+    assert (np.diff(pieces[:, 4]) >= 0).all()
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == len(pieces)
+    assert (np.diff(seg_ptr) > 0).all()
+    size = pieces[:, 3] - pieces[:, 2]
+    assert (np.add.reduceat(size, seg_ptr[:-1]) <= seg).all()
+    for a, b in zip(seg_ptr[:-1], seg_ptr[1:]):   # one run of entries each
+        assert poff[a] == 0
+        np.testing.assert_array_equal(poff[a + 1:b],
+                                      np.cumsum(size[a:b])[:-1])
+    tiles = pieces[:, 0].astype(np.int64) * 1_000_000 + pieces[:, 1]
+    assert np.unique(tiles, return_counts=True)[1].max() > 1
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_plan_groups_carry_the_table_a_read_back_builds(transposed):
+    """A plan's groups carry the work table built from the host arrays
+    as they are uploaded: the one a launch of a plain list of the same
+    groups builds from the real counts read back.  A launch holds the
+    table to x's grid."""
+    ps = pack_tile_store(build_tile_store(_hub_graph(), 16))
+    store = transpose_packed_store(ps) if transposed else ps
+    cpu = torch.device("cpu")
+    plan = upload_groups(t_gather.prepare_packed_groups(store), cpu)
+    assert isinstance(plan, t_gather.PlanGroups)
+    assert t_gather._work(plan, store.q, store.tile, cpu) is plan.work
+    built = t_gather._work(list(plan), store.q, store.tile, cpu)
+    for k in ("gtab", "pieces", "poff", "seg_ptr"):
+        assert torch.equal(getattr(plan.work, k), getattr(built, k)), k
+    assert plan.work.n_seg == built.n_seg
+    assert plan.work.q <= store.q and plan.work.t <= store.tile
+    with pytest.raises(ValueError, match="intervals"):
+        t_gather._work(plan, plan.work.q - 1, store.tile, cpu)
 
 
 # -- fused_engn -----------------------------------------------------------
@@ -288,6 +407,149 @@ def test_rer_gather_kernel_matches_plain_on_card(op, finish):
         want = t_gather.packed_spmm_plain(*args, x, q=ps.q, op=op,
                                           finish=finish)
         _check(got.cpu(), want.cpu(), op)
+
+
+def _check_hub(got, want, op):
+    """The hub cases' outputs reach magnitudes of ~100 (hub rows sum
+    hundreds of products), where fp32 rounding of a sum taken in another
+    order is ~1e-7 of the magnitude: sums are held to rtol=1e-4 with an
+    absolute tolerance of 1e-5 times the output's largest magnitude (the
+    smoke's convention for its training-shape sums); max stays exact."""
+    got, want = np.asarray(got), np.asarray(want)
+    if op == "max":
+        np.testing.assert_array_equal(got, want)
+    else:
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL * scale)
+
+
+def _hub_x(rows, f, op, seed):
+    """Features for the hub cases: integer-valued for max (products tie
+    within and across pieces and segments), normal for sum."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-2, 3, (rows, f)) if op == "max"
+         else rng.standard_normal((rows, f)))
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("f", [3, 64, 100])
+@pytest.mark.parametrize("pads", [False, True])
+@pytest.mark.parametrize("tile", [16, 18])
+def test_rer_spmm_split_spans_on_card(op, f, pads, tile):
+    """A hub interval whose 32- to 35-tile span is cut into pieces merged
+    by atomics, intervals with no tile (pads=False) or with an all-zero
+    pad tile (pads=True), ties straddling the pieces; T = 18 takes the
+    4-byte copies (a tile row is not a multiple of 16 bytes)."""
+    dev = _card()
+    b = coo_to_blocked(_hub_graph(integer=op == "max"), tile)
+    arrs = (t_spmm.prepare_blocks(b.blocks, b.block_row, b.block_col, b.q)
+            if pads else (b.blocks, b.block_row, b.block_col))
+    args = [_t(a).to(dev) for a in arrs]
+    assert (t_spmm._pieces(args[1], b.q)[0][:, 3] == 1).any()
+    x = _t(_hub_x(b.padded_vertices, f, op, f)).to(dev)
+    before = t_spmm.LAUNCHES[op]
+    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op, transposed=None)
+    want = t_spmm.blocked_spmm_plain(*args, x, q=b.q, op=op)
+    torch.cuda.synchronize()
+    assert t_spmm.LAUNCHES[op] == before + 1
+    _check_hub(got.cpu(), want.cpu(), op)
+
+
+def _hub_groups(dev, transposed=False, integer=False):
+    ps = pack_tile_store(build_tile_store(_hub_graph(integer=integer), 16))
+    store = transpose_packed_store(ps) if transposed else ps
+    groups = upload_groups(t_gather.prepare_packed_groups(store), dev)
+    flat = [_t(a).to(dev) for a in t_gather.flat_entries(store)]
+    return store, groups, flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("f", [3, 64, 100])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_rer_gather_one_launch_per_aggregate_on_card(op, f, transposed):
+    """Every bucket group in one launch: hub tiles of up to 256 entries
+    cut across segments, all-pad tiles, empty intervals, ties straddling
+    the segments; forward groups and the transposed store's groups
+    (whose entries come in (col, row) order)."""
+    dev = _card()
+    store, groups, flat = _hub_groups(dev, transposed, op == "max")
+    assert len(groups) > 1
+    x = _t(_hub_x(store.padded_vertices, f, op, f)).to(dev)
+    before = dict(t_gather.LAUNCHES)
+    if transposed and op == "sum":
+        got, key = t_gather.packed_spmm_t(groups, x, q=store.q), "sum_t"
+    else:
+        got = t_gather.packed_groups_spmm(groups, x, q=store.q, op=op,
+                                          transposed=None)
+        key = op
+    want = t_gather.packed_flat_plain(*flat, x, n=x.shape[0], op=op)
+    torch.cuda.synchronize()
+    assert t_gather.LAUNCHES[key] == before[key] + 1
+    assert sum(t_gather.LAUNCHES.values()) == sum(before.values()) + 1
+    _check_hub(got.cpu(), want.cpu(), op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_rer_gather_raw_group_keeps_neg_inf_on_card(op):
+    """The single-group raw form with finish=False: uncovered max rows
+    stay -inf, so partials still merge by maximum."""
+    dev = _card()
+    store, groups, _ = _hub_groups(dev, integer=op == "max")
+    x = _t(_hub_x(store.padded_vertices, 64, op, 3)).to(dev)
+    for gr in groups:
+        args = [gr[k] for k in ("rows", "cols", "vals", "block_row",
+                                "block_col")]
+        got = t_gather.packed_spmm(*args, x, q=store.q, op=op, finish=False)
+        want = t_gather.packed_spmm_plain(*args, x, q=store.q, op=op,
+                                          finish=False)
+        if op == "max":
+            assert torch.isneginf(want).any()
+            assert torch.equal(got, want)
+        else:
+            _check_hub(got.cpu(), want.cpu(), op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["dense", "packed"])
+def test_max_backward_after_split_forward_on_card(fmt):
+    """The max backward kernels read only the finished forward output:
+    after a forward whose ties straddle pieces (dense) or segments
+    (packed), the card's gradient equals the CPU's plain one."""
+    dev = _card()
+    g = _hub_graph(integer=True)
+    grads = []
+    for d in ("cpu", dev):
+        if fmt == "dense":
+            b = coo_to_blocked(g, 16)
+            arrs = [_t(a).to(d) for a in t_spmm.prepare_blocks(
+                b.blocks, b.block_row, b.block_col, b.q)]
+            q, n = b.q, b.padded_vertices
+
+            def run(x, arrs=arrs, q=q):
+                return t_spmm.blocked_spmm(
+                    *arrs, x, q=q, op="max",
+                    transposed=lambda: t_spmm.transpose_blocks_on(*arrs, q))
+        else:
+            ps = pack_tile_store(build_tile_store(g, 16))
+            groups = upload_groups(t_gather.prepare_packed_groups(ps), d)
+            groups_t = upload_groups(t_gather.prepare_packed_groups(
+                transpose_packed_store(ps)), d)
+            q, n = ps.q, ps.padded_vertices
+
+            def run(x, groups=groups, groups_t=groups_t, q=q):
+                return t_gather.packed_groups_spmm(
+                    groups, x, q=q, op="max", transposed=lambda: groups_t)
+        x = _t(_hub_x(n, 24, "max", 5)).to(d).requires_grad_(True)
+        gy = _t(np.random.default_rng(6).standard_normal(
+            (n, 24)).astype(np.float32)).to(d)
+        (run(x) * gy).sum().backward()
+        grads.append(x.grad.cpu())
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

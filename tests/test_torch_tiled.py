@@ -620,6 +620,45 @@ def test_tile_part_kernel_matches_plain_on_card(op, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("c", [1, 8])
+def test_tile_part_one_huge_tile_on_card(op, c):
+    """A chunk holding one hub tile of thousands of entries (spread over
+    many 64-slot slices), the rest small or all-pad tiles, ties in the
+    max (integer weights and features)."""
+    dev = _card()
+    n, t = 1024, 64
+    rng = np.random.default_rng(c)
+    src = np.concatenate([rng.integers(0, n, 3000),
+                          rng.integers(0, t, 6000)])
+    dst = np.concatenate([rng.integers(0, n, 3000),
+                          rng.integers(0, t, 6000)])
+    key, val = t_part.merge_by_key(
+        dst.astype(np.int64) * n + src,
+        rng.integers(1, 3, src.size).astype(np.float32))
+    g = COOGraph(n, (key % n).astype(np.int32), (key // n).astype(np.int32),
+                 val)
+    store = t_part.build_tile_store(g, t)
+    packed = t_part.pack_tile_store(store)
+    tiles = store.row_tiles(0)[:c]
+    assert packed.tile_nnz()[tiles].max() > 1000
+    rows, cols, vals = (torch.from_numpy(a).to(dev) for a in packed.pack(
+        tiles, c, packed.bucket_of(tiles)))
+    xs = torch.from_numpy(rng.integers(-2, 3, (c, t, 33)).astype(
+        np.float32)).to(dev)
+    before = t_gather.LAUNCHES["tile_part_" + op]
+    got = t_gather.packed_tile_part(rows, cols, vals, xs, op=op)
+    want = t_gather.packed_tile_part_plain(rows, cols, vals, xs, op=op)
+    torch.cuda.synchronize()
+    assert t_gather.LAUNCHES["tile_part_" + op] == before + 1
+    if op == "max":
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("model,dims", STACKS[:3],
                          ids=["gcn-afu-fau", "gcn-fau", "gs_pool"])
 def test_tiled_stack_on_card_matches_cpu(model, dims):
