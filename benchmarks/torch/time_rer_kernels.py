@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the `rer_spmm` and `rer_gather` kernels of whichever `repro_torch`
-is on the path, at the shapes `chip_smoke.py` times them.
+"""Time the `rer_spmm`, `rer_gather`, `fused_engn` and `rer_spmm_bwd`
+kernels of whichever `repro_torch` is on the path, at the shapes
+`chip_smoke.py` times them.
 
     PYTHONPATH=<tree>/src python3 benchmarks/torch/time_rer_kernels.py \
         --label new [--reps 3] [--only ROW,...] [--profile]
@@ -18,7 +19,13 @@ both widths together and each alone):
   transposed groups, widths 64 and 3;
 - `rer_gather_tile_part_sum`: the tile-part form on the first 32
   column chunks (C=8, F=50) and 64 row tiles (C=1, F=16) of synthD at
-  65,536 vertices.
+  65,536 vertices;
+- `fused_engn_sum`: degree-sorted cora on dense T=256 tiles, the
+  quickstart's two layers (1433 -> 64, 64 -> 7), one call each;
+- `fused_engn_sum_train`: the training graph's dense tiles, widths
+  128 -> 64 and 64 -> 3;
+- `rer_spmm_bwd_max`: the max backward at the training shapes, widths
+  64 and 3 (relu features, so maxima tie).
 
 Each row is checked against its plain version first.  Prints one JSON
 line with the times, the card's name and its power limit.  Put two
@@ -26,11 +33,15 @@ source trees on the path in turns (old, new, new, old) within one call
 to compare kernel versions: each builds its kernels into its own
 `build/`; `--only` leaves out a row whose call form an older tree
 lacks (at commit 54d7577 `packed_spmm_t` took one group, not a list, so
-`rer_gather_sum_t` does not run there).  Needs a CUDA card.
+`rer_gather_sum_t` does not run there).  The `fused_engn` and
+`rer_spmm_bwd` rows take either tree's call form: at commit 42e678e the
+fused kernel took no column table and the max backward took the
+transposed carrier.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -59,11 +70,13 @@ def main() -> int:
                                            degree_sort_permutation)
     from repro_torch.graphs.format import COOGraph
     from repro_torch.graphs.generate import make_dataset
+    from repro_torch.kernels.fused_engn import ops as fused_ops
     from repro_torch.graphs.partition import (build_tile_store,
                                               chunk_tile_row, merge_by_key,
                                               pack_tile_store)
     from repro_torch.kernels.rer_gather import ops as gather_ops
     from repro_torch.kernels.rer_spmm import ops as spmm_ops
+    from repro_torch.kernels.rer_spmm_bwd import ops as bwd_ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -132,9 +145,31 @@ def main() -> int:
             out["device"] = device_ms(lambda: [k() for k in kern])
         return out
 
-    def cfg(fmt):
+    def cfg(fmt, op="sum"):
         return rt.EnGNConfig(500, 64, backend="blocked", tile=256,
-                             tile_format=fmt)
+                             tile_format=fmt, aggregate_op=op)
+
+    # the call forms of whichever tree is on the path
+    fused_takes_table = "columns" in inspect.signature(
+        fused_ops.fused_engn_layer).parameters
+    bwd_takes_counts = "counts" in inspect.signature(
+        bwd_ops.blocked_spmm_max_bwd).parameters
+
+    def fused_rows(name, c, pairs, q):
+        """The fused forward over carrier `c` for each (x, w) pair."""
+        table = {}
+        if fused_takes_table:
+            table["columns"] = c.get("fused_columns") or (
+                fused_ops.column_table(c["block_col"].cpu().numpy(), q,
+                                       dev))
+        rows[name] = checked(
+            name,
+            [lambda x=x, w=w: fused_ops.fused_engn_layer(
+                c["blocks"], c["block_row"], c["block_col"], x, w, q=q,
+                transposed=None, **table) for x, w in pairs],
+            [lambda x=x, w=w: fused_ops.fused_engn_plain(
+                c["blocks"], c["block_row"], c["block_col"], x, w, q=q)
+             for x, w in pairs], False, [w.shape[1] for _, w in pairs])
 
     rows = {}
     g, _, _ = make_dataset("pubmed", seed=0)
@@ -142,9 +177,22 @@ def main() -> int:
         g, degree_sort_permutation(g)).gcn_normalized())
     g_tr, _, _ = make_dataset("pubmed")
     g_tr = merged(g_tr.gcn_normalized())
+    g_cora, f_cora, c_cora = make_dataset("cora", seed=0)
+    g_cora = apply_vertex_permutation(
+        g_cora, degree_sort_permutation(g_cora)).gcn_normalized()
     with torch.inference_mode():
+        if not only or "fused_engn_sum" in only:
+            plan = rt.prepare_graph(g_cora, rt.EnGNConfig(
+                f_cora, 64, backend="fused", tile=256))
+            c = plan.carrier
+            q, npad = c["blocks_meta"]["q"], c["blocks_meta"]["padded"]
+            fused_rows("fused_engn_sum", c,
+                       [(feats(npad, f_cora), feats(f_cora, 64)),
+                        (feats(npad, 64), feats(64, c_cora))], q)
+            del plan, c
         for graph, tag in ((g, "inference"), (g_tr, "training")):
-            plan = rt.prepare_graph(graph, cfg("dense"))
+            plan = rt.prepare_graph(graph, cfg(
+                "dense", "sum" if tag == "inference" else "max"))
             cd = plan.carrier
             q, npad = cd["blocks_meta"]["q"], cd["blocks_meta"]["padded"]
             xs = [feats(npad, w) for w in WIDTHS]
@@ -168,7 +216,30 @@ def main() -> int:
                     [lambda x=x: spmm_ops.blocked_spmm_plain(
                         bt.blocks, bt.block_row, bt.block_col, x, q=q)
                      for x in xs], False, WIDTHS)
-                del bt
+                carrier = (cd["blocks"], cd["block_row"], cd["block_col"])
+                if bwd_takes_counts:
+                    bwd_args, bwd_kw = carrier, {"counts": cd["row_counts"]}
+                    plain_args = carrier
+                else:
+                    bwd_args, bwd_kw = carrier + (bt,), {}
+                    plain_args = bwd_args
+                xm = [torch.relu(x) for x in xs]
+                ym = [spmm_ops.blocked_spmm(*carrier, x, q=q, op="max",
+                                            transposed=None) for x in xm]
+                gm = [feats(npad, w) for w in WIDTHS]
+                rows["rer_spmm_bwd_max"] = checked(
+                    "rer_spmm_bwd_max",
+                    [lambda x=x, y=y, gg=gg: bwd_ops.blocked_spmm_max_bwd(
+                        *bwd_args, x, y, gg, q=q, **bwd_kw)
+                     for x, y, gg in zip(xm, ym, gm)],
+                    [lambda x=x, y=y, gg=gg:
+                     bwd_ops.blocked_spmm_max_bwd_plain(*plain_args, x, y,
+                                                        gg, q=q)
+                     for x, y, gg in zip(xm, ym, gm)], False, WIDTHS)
+                fused_rows("fused_engn_sum_train", cd,
+                           [(feats(npad, 128), feats(128, 64)),
+                            (feats(npad, 64), feats(64, 3))], q)
+                del bt, xm, ym, gm
             del plan, cd
 
             plan = rt.prepare_graph(graph, cfg("packed"))

@@ -15,8 +15,9 @@ prints no result.  Phases, each of which fails the run if it fails:
    `torch.equal`, sum variants `allclose(rtol=1e-4, atol=1e-5)`, since
    their reduction order differs), then timed with CUDA events beside
    its bound, a `torch.sparse.mm` yardstick and, for the rows
-   redesigned since commit 54d7577 (`rer_spmm`, `rer_gather`), that
-   commit's time on the same card type (printed, not recorded).  A `rer_gather` row times the whole aggregate of a plan's
+   redesigned since commit 42e678e (`fused_engn_sum`,
+   `rer_spmm_bwd_max`), that commit's time on the same card type
+   (printed, not recorded).  A `rer_gather` row times the whole aggregate of a plan's
    bucket groups per width (one launch), the function `torch.sparse.mm`
    computes; its bound counts 12 B per real entry and X and Y once
    (54d7577's count, every group array with its pads once per width,
@@ -35,12 +36,15 @@ prints no result.  Phases, each of which fails the run if it fails:
    (spills to "tiled"; no queue fits), GS-Pool on "tiled" (streamed
    max);
 6. backward and B4 kernels: at the training path's shapes (uncut pubmed
-   as `build_gnn` makes it, F capped at 128, hidden 64, T=256), the sum
+   as `build_gnn` makes it, F capped at 128, hidden 64, T=256), the
+   fused forward (`fused_engn_sum_train`, widths 128 -> 64 and 64 -> 3,
+   beside `torch.sparse.mm(A, X @ W)`), the sum
    backwards over the transposed carriers (`rer_spmm_sum_t`,
    `rer_gather_sum_t`; the fused backward, `rer_spmm_sum_t` plus two
    matrix products, is checked and timed on a line of its own, outside
    the kernels' record) and both max backwards
-   (`rer_spmm_bwd_max`, `rer_gather_bwd_count` / `_max`), each against
+   (`rer_spmm_bwd_max`, over the forward tiles alone, and
+   `rer_gather_bwd_count` / `_max`), each against
    its plain version (integer counts `torch.equal`, sums within 1e-5 of
    the output's largest magnitude); B4 (`fused_linear_act`) through its
    entry point at the three stages whose function it computes on uncut
@@ -51,11 +55,15 @@ prints no result.  Phases, each of which fails the run if it fails:
    "blocked" dense / packed and "fused", GS-Pool on "blocked" dense /
    packed (multi-edges merged), each trajectory against the same run on
    "segment" (`allclose(rtol=1e-3, atol=1e-4)`) and one step's
-   gradients against the plain versions' own autograd; then `run_gnn`
+   gradients against the plain versions' own autograd; GS-Pool dense
+   must build no carrier of A^T (`transposed_bytes` 0); then `run_gnn`
    through `FaultTolerantRunner` and `CheckpointManager`, and again from
    its checkpoint.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7) and read just after; each run must have launched its
+calls of 6, 7) and read just after (a record's launches are its
+kernel's over every phase; `fused_engn_sum` counts the inference
+phase's, `fused_engn_sum_train` the training phase's); each run must
+have launched its
 kernels (a blocked packed forward and sum backward `rer_gather` once per
 layer), and each inference run must match the "segment" backend on the
 card (`allclose(rtol=1e-4, atol=1e-5)`).
@@ -83,14 +91,11 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
 TRAIN_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
-# times of the rows redesigned since commit 54d7577: this script at that
+# times of the rows redesigned since commit 42e678e: this script at that
 # commit on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
 # beside this run's times and kept out of the kernels' record
-BEFORE_MS = {"rer_spmm_sum": 3.0424, "rer_spmm_max": 3.5482,
-           "rer_spmm_sum_t": 6.1755, "rer_gather_sum": 2.5092,
-           "rer_gather_max": 4.0777, "rer_gather_sum_t": 1.8897,
-           "rer_gather_tile_part_sum": 13.2051,
-           "rer_gather_tile_part_max": 21.0449}
+BEFORE = "42e678e"
+BEFORE_MS = {"fused_engn_sum": 1.2883, "rer_spmm_bwd_max": 17.9969}
 
 
 def _smi() -> str:
@@ -207,17 +212,21 @@ def main() -> int:
         return start.elapsed_time(stop) / iters
 
     records = []
+    counted_by = {}     # record -> (launch counter, phase labels or None)
 
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
                     library=None, record=True, rel=None,
-                    before_bytes=None):
+                    before_bytes=None, counter=None, phases=None):
         """calls: (kernel thunk, plain thunk) for one forward's calls;
         `record=False` checks and times a variant no path launches,
         printed on its own line and kept out of the record (as is a call
         form whose launches another record counts).  `rel` holds
         a sum to within rel x the plain output's largest magnitude (and
         rtol rel) instead of RTOL/ATOL.  `before_bytes`: 54d7577's
-        byte count of a recounted bound, printed beside the new one."""
+        byte count of a recounted bound, printed beside the new one.
+        `counter`, `phases`: the launch counter a record reads (default
+        its name) and the path phases counted (default all)."""
+        counted_by[name] = (counter or name, phases)
         err = 0.0
         for kern, plain in calls:
             yk, yp = kern(), plain()
@@ -249,9 +258,9 @@ def main() -> int:
                "bytes": int(nbytes), "ops": int(ops)}
         if record:
             records.append(rec)
-        # 54d7577's time and bound count: on this line only, not in the
-        # record, which holds what this run measured
-        was = (f", 54d7577 {BEFORE_MS[name]:.4f} ms" if name in BEFORE_MS
+        # 42e678e's time and 54d7577's bound count: on this line only,
+        # not in the record, which holds what this run measured
+        was = (f", {BEFORE} {BEFORE_MS[name]:.4f} ms" if name in BEFORE_MS
                and record else "")
         old = ""
         if before_bytes is not None:
@@ -360,23 +369,25 @@ def main() -> int:
         nnz_cora = int(torch.count_nonzero(cf["blocks"]))
         a_cora = csr(g_cora)
         n_cora = g_cora.num_vertices
+        cols = cf["fused_columns"]
         kernel_case(
             "fused_engn_sum", "src/repro_torch/csrc/fused_engn.cu",
             "src/repro/kernels/fused_engn/fused_engn.py:60",
             [(lambda x=x, w=w: fused_ops.fused_engn_layer(
                   cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q,
-                  transposed=None),
+                  transposed=None, columns=cols),
               lambda x=x, w=w: fused_ops.fused_engn_plain(
                   cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q))
              for x, w in pairs],
-            exact=False,
-            nbytes=sum(nb(cf["blocks"], cf["block_row"], cf["block_col"], x,
-                          w) + npad * w.shape[1] * 4 for x, w in pairs),
+            exact=False, phases=("inference",),
+            nbytes=sum(nb(cf["blocks"], cf["block_row"], cf["block_col"],
+                          *cols, x, w) + npad * w.shape[1] * 4
+                       for x, w in pairs),
             ops=sum(2 * npad * w.shape[0] * w.shape[1]
                     + 2 * nnz_cora * w.shape[1] for _, w in pairs),
             library=lambda: [torch.sparse.mm(a_cora, x[:n_cora] @ w)
                              for x, w in pairs])
-        del fused, cf
+        del fused, cf, cols
 
     # -- the streamed executor's kernels ------------------------------------
     def queue_sizes(label, packed):
@@ -680,10 +691,13 @@ def main() -> int:
     print(f"training graph pubmed: |V|={n_tr} |E|={g_tr.num_edges} (merged) "
           f"F={f_tr} classes={c_tr}")
     widths_tr = [64, c_tr]                # aggregate widths, 2 layers
+    a_tr = csr(g_tr)
     a_tr_t = csr(COOGraph(n_tr, g_tr.dst, g_tr.src, g_tr.weights()))
     with torch.inference_mode():
+        # a max config: the dense plan carries the max backward's
+        # row counts, as GS-Pool's does
         cfg_tr = rt.EnGNConfig(f_tr, 64, backend="blocked", tile=256,
-                               tile_format="dense")
+                               tile_format="dense", aggregate_op="max")
         plan_d = rt.prepare_graph(g_tr, cfg_tr)
         cd = plan_d.carrier
         q, npad = cd["blocks_meta"]["q"], cd["blocks_meta"]["padded"]
@@ -715,21 +729,49 @@ def main() -> int:
                        for g in gs),
             ops=sum(2 * nnz_tr * g.shape[1] for g in gs),
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
+        counts = cd["row_counts"]
+        print(f"max backward slabs: R = {counts.rows} rows, fullest slab "
+              f"{spmm_bwd_ops.slab_max(counts.dev.cpu().numpy(), 256, 16)} "
+              f"nonzeros at R = 16 (list {spmm_bwd_ops.LIST_CAP})")
         kernel_case(
             "rer_spmm_bwd_max", "src/repro_torch/csrc/rer_spmm_bwd.cu",
             "src/repro/kernels/rer_spmm/rer_spmm.py:74",
             [(lambda x=x, y=y, g=g: spmm_bwd_ops.blocked_spmm_max_bwd(
-                  cd["blocks"], cd["block_row"], cd["block_col"], bt, x, y, g,
-                  q=q),
+                  cd["blocks"], cd["block_row"], cd["block_col"], x, y, g,
+                  q=q, counts=counts),
               lambda x=x, y=y, g=g: spmm_bwd_ops.blocked_spmm_max_bwd_plain(
-                  cd["blocks"], cd["block_row"], cd["block_col"], bt, x, y, g,
+                  cd["blocks"], cd["block_row"], cd["block_col"], x, y, g,
                   q=q))
              for x, y, g in zip(xs_max, ys_max, gs)],
             exact=False, rel=NEW_RTOL,
             nbytes=sum(nb(cd["blocks"], cd["block_row"], cd["block_col"],
-                          x, y, g, x)
+                          counts.dev, x, y, g, x)
                        for x, y, g in zip(xs_max, ys_max, gs)),
             ops=sum(4 * nnz_tr * x.shape[1] for x in xs_max))
+        # the fused forward at the training path's shapes, on the same
+        # tiles with the column table a fused plan builds
+        cols = fused_ops.column_table(cd["block_col"].cpu().numpy(), q, dev)
+        pairs = [(rows_n(feats(npad, f_tr)), feats(f_tr, 64)),
+                 (rows_n(feats(npad, 64)), feats(64, c_tr))]
+        kernel_case(
+            "fused_engn_sum_train", "src/repro_torch/csrc/fused_engn.cu",
+            "src/repro/kernels/fused_engn/fused_engn.py:60",
+            [(lambda x=x, w=w: fused_ops.fused_engn_layer(
+                  cd["blocks"], cd["block_row"], cd["block_col"], x, w, q=q,
+                  transposed=None, columns=cols),
+              lambda x=x, w=w: fused_ops.fused_engn_plain(
+                  cd["blocks"], cd["block_row"], cd["block_col"], x, w, q=q))
+             for x, w in pairs],
+            exact=False, rel=NEW_RTOL, counter="fused_engn_sum",
+            phases=("training",),
+            nbytes=sum(nb(cd["blocks"], cd["block_row"], cd["block_col"],
+                          *cols, x, w) + npad * w.shape[1] * 4
+                       for x, w in pairs),
+            ops=sum(2 * npad * w.shape[0] * w.shape[1]
+                    + 2 * nnz_tr * w.shape[1] for _, w in pairs),
+            library=lambda: [torch.sparse.mm(a_tr, x[:n_tr] @ w)
+                             for x, w in pairs])
+        del cols, pairs
         # the fused backward at both layers' shapes: [128 -> 64], [64 -> 3]
         fused_in = [(rows_n(feats(npad, f_tr)), feats(f_tr, 64), gs[0]),
                     (rows_n(feats(npad, 64)), feats(64, c_tr), gs[1])]
@@ -750,7 +792,7 @@ def main() -> int:
                           w) for x, w, g in fused_in),
             ops=sum(2 * nnz_tr * w.shape[1] + 4 * npad * w.shape[0]
                     * w.shape[1] for x, w, g in fused_in))
-        del plan_d, cd, bt, xs_max, ys_max, fused_in
+        del plan_d, cd, bt, xs_max, ys_max, fused_in, counts
 
         plan_p = rt.prepare_graph(g_tr, dataclasses.replace(
             cfg_tr, tile_format="packed"))
@@ -958,6 +1000,10 @@ def main() -> int:
         for kern in kerns or ():
             if grew.get(kern, 0) <= 0:
                 raise AssertionError(f"{label}: {kern} was not launched")
+        if (model, backend, fmt) == ("gs_pool", "blocked", "dense") and (
+                engn_mod.transposed_bytes(tr.plan) != 0):
+            raise AssertionError(f"{label}: the max backward built a "
+                                 f"carrier of A^T")
         if backend == "segment":
             seg_losses[model] = losses
             lerr = 0.0
@@ -1034,13 +1080,16 @@ def main() -> int:
           f"{second['losses']}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    phases = (path_counts, tiled_counts, b4_counts, train_counts)
+    phases = {"inference": path_counts, "tiled": tiled_counts,
+              "b4": b4_counts, "training": train_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
-        # is named by its launch counter
+        # reads its launch counter over its phases
+        counter, chosen = counted_by[rec["name"]]
         rec["launches"] = (b4_launches[rec["name"]]
                            if rec["name"] in b4_launches
-                           else sum(c[rec["name"]] for c in phases))
+                           else sum(phases[p][counter]
+                                    for p in chosen or phases))
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} never ran on a path")
     print(f"queue layouts: {json.dumps(queue_table)}")

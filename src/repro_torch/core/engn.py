@@ -25,10 +25,11 @@ graph over `device_budget_bytes` spills to "tiled" (`auto_spill=True`)
 or raises `DeviceBudgetExceeded`.
 
 The resident backends train: their aggregates are autograd Functions
-whose backward runs over the carrier of A^T (the dense tiles
+whose sum backward runs over the carrier of A^T (the dense tiles
 transposed, or the packed groups of `transpose_packed_store`), built
 once per plan on the plan's device at its first backward and cached in
-the carrier under "transposed" (`transposed_bytes` reports its size).
+the carrier under "transposed" (`transposed_bytes` reports its size);
+the dense max backward walks the forward tiles and builds none.
 The budget gate prices training as the reference does
 (`cfg.training=True` doubles the activations) and does not count it.
 
@@ -205,7 +206,8 @@ class EnGNLayer(nn.Module):
                                  graph["block_col"], _pad_rows(graph, x),
                                  self.w, q=graph["blocks_meta"]["q"],
                                  transposed=partial(transposed_blocks,
-                                                    graph))
+                                                    graph),
+                                 columns=graph.get("fused_columns"))
             return self.update(x, y[:graph["n"]])
         if linear_sum and self.dasr_order() == "afu":
             return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
@@ -291,7 +293,8 @@ class EnGNLayer(nn.Module):
         y = blocked_spmm(graph["blocks"], graph["block_row"],
                          graph["block_col"], xf,
                          q=graph["blocks_meta"]["q"], op=base_op,
-                         transposed=partial(transposed_blocks, graph))
+                         transposed=partial(transposed_blocks, graph),
+                         counts=graph.get("row_counts"))
         return _finish(y)
 
 
@@ -429,6 +432,15 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
     d["blocks"] = _upload(blocks, dev)
     d["block_row"] = _upload(brow, dev)
     d["block_col"] = _upload(bcol, dev)
+    if dev.type == "cuda":
+        # the kernels' host tables, built once with the plan (CPU plans
+        # run the plain versions, which need neither)
+        if backend == "fused":
+            from repro_torch.kernels.fused_engn import column_table
+            d["fused_columns"] = column_table(bcol, b.q, dev)
+        if cfg.aggregate_op == "max":
+            from repro_torch.kernels.rer_spmm_bwd import upload_row_counts
+            d["row_counts"] = upload_row_counts(blocks, brow, b.q, dev)
     d["blocks_meta"] = {"q": b.q, "padded": b.padded_vertices,
                         "order": order, "tile": b.tile,
                         "tile_format": "dense", "format_choice": choice}

@@ -11,7 +11,7 @@ destination intervals), for CPU tensors.  Under autograd it is a
     `blocked_spmm_t`;
   * max: `rer_spmm_bwd.blocked_spmm_max_bwd` (`csrc/rer_spmm_bwd.cu`),
     the reference's two-level tie split (within a tile, then across the
-    tiles of an interval).
+    tiles of an interval), over the forward tiles: no A^T is built.
 
 Source note.  Replaces `repro/kernels/rer_spmm/rer_spmm.py::rer_spmm`
 (`_spmm_kernel_sum`, `_spmm_kernel_max`).  On the H100 it is bound by
@@ -233,10 +233,11 @@ def blocked_spmm_t(bt: TransposedBlocks, g: torch.Tensor, *,
 
 class _BlockedSpmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, blocks, block_row, block_col, q, op, transposed):
+    def forward(ctx, x, blocks, block_row, block_col, q, op, transposed,
+                counts):
         y = _forward(blocks, block_row, block_col, x, q, op, op)
         ctx.q, ctx.op, ctx.transposed = q, op, transposed
-        ctx.carrier = (blocks, block_row, block_col)
+        ctx.carrier, ctx.counts = (blocks, block_row, block_col), counts
         if op == "max":
             ctx.save_for_backward(x, y)
         return y
@@ -245,27 +246,31 @@ class _BlockedSpmm(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         g = g.contiguous()
-        bt = ctx.transposed()
         if ctx.op == "sum":
-            dx = blocked_spmm_t(bt, g, q=ctx.q)
+            dx = blocked_spmm_t(ctx.transposed(), g, q=ctx.q)
         else:
+            # the max backward walks the forward tiles: no A^T is built
             from repro_torch.kernels.rer_spmm_bwd import blocked_spmm_max_bwd
             x, y = ctx.saved_tensors
-            dx = blocked_spmm_max_bwd(*ctx.carrier, bt, x, y, g, q=ctx.q)
-        return dx, None, None, None, None, None, None
+            dx = blocked_spmm_max_bwd(*ctx.carrier, x, y, g, q=ctx.q,
+                                      counts=ctx.counts)
+        return dx, None, None, None, None, None, None, None
 
 
 def blocked_spmm(blocks: torch.Tensor, block_row: torch.Tensor,
                  block_col: torch.Tensor, x: torch.Tensor, *, q: int,
                  op: str = "sum",
-                 transposed: Optional[Callable[[], TransposedBlocks]]
-                 ) -> torch.Tensor:
+                 transposed: Optional[Callable[[], TransposedBlocks]],
+                 counts=None) -> torch.Tensor:
     """Y (q*T, F) = A X over dense tiles sorted by destination interval
     (`block_row` non-decreasing; an interval without tiles comes out 0).
     CPU tensors take the plain version; CUDA tensors the kernel.  When
-    autograd needs dX, the backward runs over the transposed carrier
-    that `transposed()` returns (a plan builds it once and caches it);
-    None is for calls that autograd does not differentiate."""
+    autograd needs dX of a sum, the backward runs over the transposed
+    carrier that `transposed()` returns (a plan builds it once and caches
+    it); None is for calls that autograd does not differentiate.  The
+    max backward walks the forward tiles (`rer_spmm_bwd`, with the
+    carrier's `RowCounts` `counts` where the plan has them) and never
+    calls `transposed`."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     if x.device.type not in ("cpu", "cuda"):
@@ -275,8 +280,8 @@ def blocked_spmm(blocks: torch.Tensor, block_row: torch.Tensor,
                                   "tiles are the graph, a constant")
     if not (torch.is_grad_enabled() and x.requires_grad):
         return _forward(blocks, block_row, block_col, x, q, op, op)
-    if transposed is None:
+    if transposed is None and op == "sum":
         raise ValueError("blocked_spmm under autograd needs the transposed "
                          "carrier: pass transposed=")
     return _BlockedSpmm.apply(x, blocks, block_row, block_col, q, op,
-                              transposed)
+                              transposed, counts)

@@ -26,6 +26,7 @@ from repro_torch.kernels import _build, _common
 from repro_torch.kernels.fused_engn import ops as t_fused
 from repro_torch.kernels.rer_gather import ops as t_gather
 from repro_torch.kernels.rer_spmm import ops as t_spmm
+from repro_torch.kernels.rer_spmm_bwd import ops as t_spmm_bwd
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -207,6 +208,71 @@ def test_span_pieces_cover_each_span_once(piece):
     assert (table[:, 3] == 1).any() == (np.diff(ptr).max() > piece)
     full = np.arange(0, 4 * b.q + 1, 4)  # every span 4 tiles, none split
     assert not t_spmm.span_pieces(full, 4)[1]
+
+
+@pytest.mark.parametrize("hub", [False, True])
+def test_column_table_covers_each_tile_once(hub):
+    """fused_engn's walk: `order` is the carrier's tiles in column
+    order, the tiles of one source interval in the carrier's own order;
+    the pieces cover every position of `order` exactly once, each piece
+    within one source interval's column span and at most PIECE_TILES
+    long; the hub graph's long column spans are split, the small
+    graph's are not."""
+    g = _hub_graph() if hub else _graph()
+    b = coo_to_blocked(g, 16)
+    blocks, brow, bcol = t_spmm.prepare_blocks(b.blocks, b.block_row,
+                                               b.block_col, b.q)
+    order, pieces = t_fused.column_order(bcol, b.q)
+    assert order.dtype == np.int32 and pieces.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(bcol.size))
+    key = bcol[order].astype(np.int64) * bcol.size + order
+    assert (np.diff(key) > 0).all()       # by column, then carrier order
+    seen = np.zeros(order.size, np.int64)
+    for j, lo, hi, split in pieces.tolist():
+        assert 0 < hi - lo <= t_spmm.PIECE_TILES
+        assert (bcol[order[lo:hi]] == j).all()
+        assert split == (np.count_nonzero(bcol == j) > t_spmm.PIECE_TILES)
+        seen[lo:hi] += 1
+    np.testing.assert_array_equal(seen, 1)
+    assert (np.diff(pieces[:, 0]) >= 0).all()
+    assert pieces[:, 3].any() == hub
+    table = t_fused.column_table(bcol, b.q, torch.device("cpu"))
+    np.testing.assert_array_equal(table.order.numpy(), order)
+    np.testing.assert_array_equal(table.pieces.numpy(), pieces)
+    assert table.nbytes == order.nbytes + pieces.nbytes
+
+
+@pytest.mark.parametrize("tile", [16, 18])
+def test_row_counts_equal_the_tile_store(tile):
+    """rer_spmm_bwd's slab counts: the nonzeros of each destination row
+    over its interval's dense tiles equal a count of the packed tile
+    store's entries, so do the per-slab sums for every R, and the R the
+    kernel gets is the largest whose fullest slab fits the list."""
+    g = _hub_graph()
+    b = coo_to_blocked(g, tile)
+    counts = t_spmm_bwd.row_counts(b.blocks, b.block_row, b.q)
+    gsrc, gdst, gval = t_gather.flat_entries(
+        pack_tile_store(build_tile_store(g, tile)))
+    want = np.bincount(gdst[gval != 0], minlength=b.padded_vertices)
+    assert counts.dtype == np.int32
+    np.testing.assert_array_equal(counts, want)
+    for rows in (1, 2, 4, 8, 16):
+        per = np.add.reduceat(want.reshape(b.q, tile),
+                              np.arange(0, tile, rows), axis=1)
+        assert t_spmm_bwd.slab_max(counts, tile, rows) == per.max()
+    assert t_spmm_bwd.slab_rows(counts, tile) == 16   # 3,816 fit the list
+    up = t_spmm_bwd.upload_row_counts(b.blocks, b.block_row, b.q,
+                                      torch.device("cpu"))
+    np.testing.assert_array_equal(up.dev.numpy(), counts)
+    assert up.rows == 16 and up.nbytes == counts.nbytes
+    cap = t_spmm_bwd.LIST_CAP
+    dense_hub = np.zeros(4 * 16, np.int32)
+    dense_hub[16:32] = cap // 12          # 16 rows over the list, 8 not
+    assert t_spmm_bwd.slab_rows(dense_hub, 16) == 8
+    star = np.zeros(4 * 16, np.int32)
+    star[5] = cap + 1                     # one row over the list
+    assert t_spmm_bwd.slab_rows(star, 16) == 1
+    assert t_spmm_bwd.slab_rows(np.zeros(4 * 256, np.int32), 256) == 16
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -513,43 +579,124 @@ def test_rer_gather_raw_group_keeps_neg_inf_on_card(op):
             _check_hub(got.cpu(), want.cpu(), op)
 
 
+def _star_graph(hubs, fan, seed=0):
+    """`hubs` destination rows (0, 1, ..) each fed from sources 0 ..
+    fan-1, over R-MAT edges among the first 200 vertices; integer
+    weights (1 or 2, merged), so products tie within and across tiles."""
+    n = fan + 16
+    rng = np.random.default_rng(seed)
+    bg = rmat_graph(200, 1200, seed=seed)
+    src = np.concatenate([bg.src, np.tile(np.arange(fan), hubs)])
+    dst = np.concatenate([bg.dst, np.repeat(np.arange(hubs), fan)])
+    val = rng.integers(1, 3, src.size).astype(np.float32)
+    key, val = merge_by_key(dst.astype(np.int64) * n + src, val)
+    return COOGraph(n, (key % n).astype(np.int32),
+                    (key // n).astype(np.int32), val)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["dense", "packed"])
 def test_max_backward_after_split_forward_on_card(fmt):
     """The max backward kernels read only the finished forward output:
     after a forward whose ties straddle pieces (dense) or segments
-    (packed), the card's gradient equals the CPU's plain one."""
+    (packed), the card's gradient equals the CPU's plain one.  The dense
+    backward runs without the carrier of A^T (`transposed=None`), also
+    on two graphs whose slabs overflow the kernel's shared list: 16 rows
+    of 300 in-edges (R drops to 8) and one star row of 4,200 in-edges
+    (R = 1; that slab walks its span twice)."""
     dev = _card()
-    g = _hub_graph(integer=True)
-    grads = []
-    for d in ("cpu", dev):
-        if fmt == "dense":
-            b = coo_to_blocked(g, 16)
-            arrs = [_t(a).to(d) for a in t_spmm.prepare_blocks(
-                b.blocks, b.block_row, b.block_col, b.q)]
-            q, n = b.q, b.padded_vertices
+    cases = [(_hub_graph(integer=True), None)]
+    if fmt == "dense":
+        cases += [(_star_graph(16, 300), 8), (_star_graph(1, 4200), 1)]
+    for g, rows in cases:
+        grads = []
+        for d in ("cpu", dev):
+            if fmt == "dense":
+                b = coo_to_blocked(g, 16)
+                host = t_spmm.prepare_blocks(b.blocks, b.block_row,
+                                             b.block_col, b.q)
+                arrs = [_t(a).to(d) for a in host]
+                q, n = b.q, b.padded_vertices
 
-            def run(x, arrs=arrs, q=q):
-                return t_spmm.blocked_spmm(
-                    *arrs, x, q=q, op="max",
-                    transposed=lambda: t_spmm.transpose_blocks_on(*arrs, q))
-        else:
-            ps = pack_tile_store(build_tile_store(g, 16))
-            groups = upload_groups(t_gather.prepare_packed_groups(ps), d)
-            groups_t = upload_groups(t_gather.prepare_packed_groups(
-                transpose_packed_store(ps)), d)
-            q, n = ps.q, ps.padded_vertices
+                def run(x, arrs=arrs, q=q):
+                    return t_spmm.blocked_spmm(*arrs, x, q=q, op="max",
+                                               transposed=None)
+            else:
+                ps = pack_tile_store(build_tile_store(g, 16))
+                groups = upload_groups(t_gather.prepare_packed_groups(ps), d)
+                groups_t = upload_groups(t_gather.prepare_packed_groups(
+                    transpose_packed_store(ps)), d)
+                q, n = ps.q, ps.padded_vertices
 
-            def run(x, groups=groups, groups_t=groups_t, q=q):
-                return t_gather.packed_groups_spmm(
-                    groups, x, q=q, op="max", transposed=lambda: groups_t)
-        x = _t(_hub_x(n, 24, "max", 5)).to(d).requires_grad_(True)
-        gy = _t(np.random.default_rng(6).standard_normal(
-            (n, 24)).astype(np.float32)).to(d)
-        (run(x) * gy).sum().backward()
-        grads.append(x.grad.cpu())
-    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
-                               rtol=1e-5, atol=1e-6)
+                def run(x, groups=groups, groups_t=groups_t, q=q):
+                    return t_gather.packed_groups_spmm(
+                        groups, x, q=q, op="max", transposed=lambda: groups_t)
+            x = _t(_hub_x(n, 24, "max", 5)).to(d).requires_grad_(True)
+            gy = _t(np.random.default_rng(6).standard_normal(
+                (n, 24)).astype(np.float32)).to(d)
+            before = t_spmm_bwd.LAUNCHES["max"]
+            (run(x) * gy).sum().backward()
+            if d != "cpu" and fmt == "dense":
+                torch.cuda.synchronize()
+                assert t_spmm_bwd.LAUNCHES["max"] == before + 1
+            grads.append(x.grad.cpu())
+        if rows is not None:
+            counts = t_spmm_bwd.row_counts(host[0], host[1], q)
+            assert t_spmm_bwd.slab_rows(counts, 16) == rows
+        np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [20, 300])
+@pytest.mark.parametrize("tile", [16, 18])
+@pytest.mark.parametrize("h", [3, 7, 64, 300])
+def test_fused_engn_split_columns_on_card(h, tile, f):
+    """B3 on the hub graph, whose column spans are cut into pieces merged
+    in Y by atomics: H = 3 and 7 take scalar atomics, 64 float4 ones, 300
+    two output chunks; T = 18 the 4-byte copies; F = 300 a reduction
+    over ten stages.  The plan's column table and one built for the call
+    give the same Y, and each call is one launch."""
+    dev = _card()
+    b = coo_to_blocked(_hub_graph(), tile)
+    host = t_spmm.prepare_blocks(b.blocks, b.block_row, b.block_col, b.q)
+    args = [_t(a).to(dev) for a in host]
+    assert t_fused.column_order(host[2], b.q)[1][:, 3].any()
+    rng = np.random.default_rng(h + f)
+    x = _t(rng.standard_normal((b.padded_vertices, f)).astype(
+        np.float32)).to(dev)
+    w = _t((rng.standard_normal((f, h)) / np.sqrt(f)).astype(
+        np.float32)).to(dev)
+    before = t_fused.LAUNCHES["sum"]
+    got = t_fused.fused_engn_layer(
+        *args, x, w, q=b.q, transposed=None,
+        columns=t_fused.column_table(host[2], b.q, dev))
+    again = t_fused.fused_engn_layer(*args, x, w, q=b.q, transposed=None)
+    want = t_fused.fused_engn_plain(*args, x, w, q=b.q)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["sum"] == before + 2
+    _check_hub(got.cpu(), want.cpu(), "sum")
+    _check_hub(again.cpu(), want.cpu(), "sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [7, 64])
+def test_fused_engn_large_grid_on_card(h):
+    """A grid of more than one wave (over 528 column pieces at T = 16)
+    takes the kernel's full-height source slabs; the smaller grids above
+    take the half-height ones."""
+    dev = _card()
+    b = coo_to_blocked(_graph(n=9600, live=9600, e=48000, seed=h), 16)
+    host = t_spmm.prepare_blocks(b.blocks, b.block_row, b.block_col, b.q)
+    assert len(t_fused.column_order(host[2], b.q)[1]) >= 4 * 132
+    args = [_t(a).to(dev) for a in host]
+    rng = np.random.default_rng(h)
+    x = _t(rng.standard_normal((b.padded_vertices, 40)).astype(
+        np.float32)).to(dev)
+    w = _t((rng.standard_normal((40, h)) / 8).astype(np.float32)).to(dev)
+    _check_hub(t_fused.fused_engn_layer(*args, x, w, q=b.q,
+                                        transposed=None).cpu(),
+               t_fused.fused_engn_plain(*args, x, w, q=b.q).cpu(), "sum")
 
 
 @pytest.mark.cuda

@@ -109,7 +109,10 @@ def test_one_step_gradients_match_jax_grad(model, backend, fmt):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=RTOL,
                                atol=ATOL, err_msg="x")
     if backend in ("blocked", "fused") and fmt != "packed":
-        assert t_engn.transposed_bytes(tplan) > 0     # built once, cached
+        # built once and cached for a sum backward; the dense max
+        # backward walks the forward tiles and builds no A^T
+        built = t_engn.transposed_bytes(tplan)
+        assert built == 0 if model == "gs_pool" else built > 0
 
 
 # -- the max backward's tie conventions -----------------------------------
@@ -141,6 +144,38 @@ def test_dense_max_tie_split_is_two_level():
                                 *carrier, b.q))
     (y * torch.from_numpy(gy)).sum().backward()
     np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("backend", ["blocked", "fused"])
+def test_dense_max_backward_builds_no_transposed_carrier(backend):
+    """A GS-Pool stack on dense tiles ("fused" runs a max through the
+    same dense aggregate) trains without the carrier of A^T: after a
+    backward that matches jax.grad, `transposed_bytes` is still 0, and a
+    max under autograd takes `transposed=None`."""
+    g, x = _graph(seed=2)
+    jl, jp, tl = _stacks("gs_pool", DIMS["gs_pool"], backend, "dense")
+    cot = np.random.default_rng(9).standard_normal(
+        (g.num_vertices, DIMS["gs_pool"][-1])).astype(np.float32)
+    jplan = j_engn.prepare_graph(g, jl[0].cfg)
+    jgx = jax.grad(lambda xx: jnp.sum(
+        j_models.apply_stack(jl, jp, jplan, xx) * cot))(jnp.asarray(x))
+    tplan = rt.prepare_graph(g, tl[0].cfg, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (rt.apply_stack(tl, tplan, xt) * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=RTOL,
+                               atol=ATOL)
+    assert t_engn.transposed_bytes(tplan) == 0
+    assert "transposed" not in tplan.carrier or not tplan.carrier[
+        "transposed"]
+    c = tplan.carrier
+    xm = torch.from_numpy(np.abs(x[:, :5])).requires_grad_(True)
+    xf = torch.zeros((c["blocks_meta"]["padded"], 5))
+    xf[:g.num_vertices] = xm
+    y = t_spmm.blocked_spmm(c["blocks"], c["block_row"], c["block_col"], xf,
+                            q=c["blocks_meta"]["q"], op="max",
+                            transposed=None)
+    y.sum().backward()
+    assert xm.grad is not None and bool(torch.isfinite(xm.grad).all())
 
 
 @pytest.mark.parametrize("floor", [1, 2])
