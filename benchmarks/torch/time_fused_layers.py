@@ -70,7 +70,7 @@ def main() -> int:
                 out[f"{tag} {f}->{h}"] = timed(
                     lambda x=x, w=w: fused_ops.fused_engn_layer(
                         c["blocks"], c["block_row"], c["block_col"], x, w,
-                        q=q, transposed=None, columns=c["fused_columns"]))
+                        q=q, columns=c["fused_columns"]))
             del plan, c
     print(json.dumps({"label": sys.argv[1], "ms": out}))
     return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the `rer_spmm`, `rer_gather`, `fused_engn` and `rer_spmm_bwd`
-kernels of whichever `repro_torch` is on the path, at the shapes
-`chip_smoke.py` times them.
+"""Time the `rer_spmm`, `rer_gather`, `fused_engn`, `rer_spmm_bwd` and
+`rer_gather_bwd` kernels of whichever `repro_torch` is on the path, at
+the shapes `chip_smoke.py` times them.
 
     PYTHONPATH=<tree>/src python3 benchmarks/torch/time_rer_kernels.py \
         --label new [--reps 3] [--only ROW,...] [--profile]
@@ -11,12 +11,15 @@ both widths together and each alone):
 
 - `rer_spmm_{sum,max}`: degree-sorted pubmed on dense T=256 tiles,
   widths 64 and 3, one call each;
-- `rer_spmm_sum_t`: the training graph's transposed dense carrier (uncut
-  pubmed as `build_gnn` makes it), widths 64 and 3;
+- `rer_spmm_sum_t`: the sum backward dX = A^T G at the training graph's
+  dense tiles (uncut pubmed as `build_gnn` makes it), widths 64 and 3;
 - `rer_gather_{sum,max}`: the whole aggregate of the packed plan's
   bucket groups (`packed_groups_spmm`), widths 64 and 3;
-- `rer_gather_sum_t`: the sum backward over the training plan's
-  transposed groups, widths 64 and 3;
+- `rer_gather_sum_t`: the sum backward of the training plan's bucket
+  groups, widths 64 and 3;
+- `rer_gather_bwd_count`, `rer_gather_bwd_max`: the packed max
+  backward's winner count and gradient at the training plan's groups,
+  widths 64 and 3 (relu features, so maxima tie);
 - `rer_gather_tile_part_sum`: the tile-part form on the first 32
   column chunks (C=8, F=50) and 64 row tiles (C=1, F=16) of synthD at
   65,536 vertices;
@@ -31,17 +34,17 @@ Each row is checked against its plain version first.  Prints one JSON
 line with the times, the card's name and its power limit.  Put two
 source trees on the path in turns (old, new, new, old) within one call
 to compare kernel versions: each builds its kernels into its own
-`build/`; `--only` leaves out a row whose call form an older tree
-lacks (at commit 54d7577 `packed_spmm_t` took one group, not a list, so
-`rer_gather_sum_t` does not run there).  The `fused_engn` and
-`rer_spmm_bwd` rows take either tree's call form: at commit 42e678e the
-fused kernel took no column table and the max backward took the
-transposed carrier.  Needs a CUDA card.
+`build/`.  Trees back to 7d3f40b run every row; the four backward rows
+redesigned after it take that commit's call forms too (the sums over
+the carriers of A^T the plan built, `transposed=` on every
+differentiable call, the packed max backward one launch per group, its
+gradient over the transposed groups): what an old tree builds for A^T
+is built before the timing, as its plan built it once.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import subprocess
 import sys
@@ -149,27 +152,82 @@ def main() -> int:
         return rt.EnGNConfig(500, 64, backend="blocked", tile=256,
                              tile_format=fmt, aggregate_op=op)
 
-    # the call forms of whichever tree is on the path
-    fused_takes_table = "columns" in inspect.signature(
-        fused_ops.fused_engn_layer).parameters
-    bwd_takes_counts = "counts" in inspect.signature(
-        bwd_ops.blocked_spmm_max_bwd).parameters
+    # the call forms of whichever tree is on the path: before this slice: sum backwards over carriers of A^T, which every
+    # differentiable call named (`transposed=`), and a packed max
+    # backward of one launch per group
+    old_t = hasattr(engn_mod, "transposed_blocks")
+    tr_kw = {"transposed": None} if old_t else {}
 
     def fused_rows(name, c, pairs, q):
         """The fused forward over carrier `c` for each (x, w) pair."""
-        table = {}
-        if fused_takes_table:
-            table["columns"] = c.get("fused_columns") or (
-                fused_ops.column_table(c["block_col"].cpu().numpy(), q,
-                                       dev))
+        table = c.get("fused_columns") or fused_ops.column_table(
+            c["block_col"].cpu().numpy(), q, dev)
         rows[name] = checked(
             name,
             [lambda x=x, w=w: fused_ops.fused_engn_layer(
                 c["blocks"], c["block_row"], c["block_col"], x, w, q=q,
-                transposed=None, **table) for x, w in pairs],
+                columns=table, **tr_kw) for x, w in pairs],
             [lambda x=x, w=w: fused_ops.fused_engn_plain(
                 c["blocks"], c["block_row"], c["block_col"], x, w, q=q)
              for x, w in pairs], False, [w.shape[1] for _, w in pairs])
+
+    def gather_bwd_rows(rows, cp, groups, xs, q):
+        """The packed backward rows at the training plan's groups, in
+        the call forms of the tree on the path."""
+        from repro_torch.kernels.rer_gather_bwd import ops as gbwd
+        gs = [feats(x.shape[0], x.shape[1]) for x in xs]
+        xm = [torch.relu(x) for x in xs]
+        ym = [gather_ops.packed_groups_spmm(groups, x, q=q, op="max",
+                                            **tr_kw) for x in xm]
+        if old_t:
+            groups_t = engn_mod.transposed_groups(cp, 8)
+
+            def sum_t(g):
+                return gather_ops.packed_spmm_t(groups_t, g, q=q)
+
+            def sum_t_plain(g):
+                return gather_ops.packed_groups_plain(groups_t, g, q=q)
+
+            def count(fn, x, y):
+                cnt = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+                for gr in groups:
+                    fn(gr, x, y, cnt, q=q)
+                return cnt
+
+            def scatter(fn, x, y, g, c):
+                dx = torch.zeros_like(x)
+                for gt in groups_t:
+                    dx += fn(gt, x, y, g, c, q=q)
+                return dx
+            fns = [(lambda x, y: count(gbwd.packed_max_count, x, y)),
+                   (lambda x, y: count(gbwd.packed_max_count_plain, x, y)),
+                   (lambda *a: scatter(gbwd.packed_max_grad, *a)),
+                   (lambda *a: scatter(gbwd.packed_max_grad_plain, *a))]
+        else:
+            def sum_t(g):
+                return gbwd.packed_groups_t(groups, g, q=q)
+
+            def sum_t_plain(g):
+                return gbwd.packed_groups_t_plain(groups, g, q=q)
+            fns = [(lambda x, y: gbwd.packed_max_count(groups, x, y, q=q)),
+                   (lambda x, y: gbwd.packed_max_count_plain(groups, x, y,
+                                                             q=q)),
+                   (lambda *a: gbwd.packed_max_scatter(groups, *a, q=q)),
+                   (lambda *a: gbwd.packed_max_scatter_plain(groups, *a,
+                                                             q=q))]
+        rows["rer_gather_sum_t"] = checked(
+            "rer_gather_sum_t", [lambda g=g: sum_t(g) for g in gs],
+            [lambda g=g: sum_t_plain(g) for g in gs], False, WIDTHS)
+        rows["rer_gather_bwd_count"] = checked(
+            "rer_gather_bwd_count",
+            [lambda x=x, y=y: fns[0](x, y) for x, y in zip(xm, ym)],
+            [lambda x=x, y=y: fns[1](x, y) for x, y in zip(xm, ym)], True,
+            WIDTHS)
+        cnts = [fns[1](x, y) for x, y in zip(xm, ym)]
+        args = list(zip(xm, ym, gs, cnts))
+        rows["rer_gather_bwd_max"] = checked(
+            "rer_gather_bwd_max", [lambda a=a: fns[2](*a) for a in args],
+            [lambda a=a: fns[3](*a) for a in args], False, WIDTHS)
 
     rows = {}
     g, _, _ = make_dataset("pubmed", seed=0)
@@ -202,44 +260,44 @@ def main() -> int:
                         f"rer_spmm_{op}",
                         [lambda x=x, op=op: spmm_ops.blocked_spmm(
                             cd["blocks"], cd["block_row"], cd["block_col"],
-                            x, q=q, op=op, transposed=None) for x in xs],
+                            x, q=q, op=op, **tr_kw) for x in xs],
                         [lambda x=x, op=op: spmm_ops.blocked_spmm_plain(
                             cd["blocks"], cd["block_row"], cd["block_col"],
                             x, q=q, op=op) for x in xs], op == "max",
                         WIDTHS)
             else:
-                bt = engn_mod.transposed_blocks(cd)
+                carrier = (cd["blocks"], cd["block_row"], cd["block_col"])
+                if old_t:
+                    bt = engn_mod.transposed_blocks(cd)
+                    t_args = (bt,)
+                    t_plain = (lambda x: spmm_ops.blocked_spmm_plain(
+                        bt.blocks, bt.block_row, bt.block_col, x, q=q))
+                else:
+                    bt, t_args = None, carrier
+                    t_plain = (lambda x: spmm_ops.blocked_spmm_t_plain(
+                        *carrier, x, q=q))
                 rows["rer_spmm_sum_t"] = checked(
                     "rer_spmm_sum_t",
-                    [lambda x=x: spmm_ops.blocked_spmm_t(bt, x, q=q)
+                    [lambda x=x: spmm_ops.blocked_spmm_t(*t_args, x, q=q)
                      for x in xs],
-                    [lambda x=x: spmm_ops.blocked_spmm_plain(
-                        bt.blocks, bt.block_row, bt.block_col, x, q=q)
-                     for x in xs], False, WIDTHS)
-                carrier = (cd["blocks"], cd["block_row"], cd["block_col"])
-                if bwd_takes_counts:
-                    bwd_args, bwd_kw = carrier, {"counts": cd["row_counts"]}
-                    plain_args = carrier
-                else:
-                    bwd_args, bwd_kw = carrier + (bt,), {}
-                    plain_args = bwd_args
+                    [lambda x=x: t_plain(x) for x in xs], False, WIDTHS)
                 xm = [torch.relu(x) for x in xs]
                 ym = [spmm_ops.blocked_spmm(*carrier, x, q=q, op="max",
-                                            transposed=None) for x in xm]
+                                            **tr_kw) for x in xm]
                 gm = [feats(npad, w) for w in WIDTHS]
                 rows["rer_spmm_bwd_max"] = checked(
                     "rer_spmm_bwd_max",
                     [lambda x=x, y=y, gg=gg: bwd_ops.blocked_spmm_max_bwd(
-                        *bwd_args, x, y, gg, q=q, **bwd_kw)
+                        *carrier, x, y, gg, q=q, counts=cd["row_counts"])
                      for x, y, gg in zip(xm, ym, gm)],
                     [lambda x=x, y=y, gg=gg:
-                     bwd_ops.blocked_spmm_max_bwd_plain(*plain_args, x, y,
-                                                        gg, q=q)
+                     bwd_ops.blocked_spmm_max_bwd_plain(*carrier, x, y, gg,
+                                                        q=q)
                      for x, y, gg in zip(xm, ym, gm)], False, WIDTHS)
                 fused_rows("fused_engn_sum_train", cd,
                            [(feats(npad, 128), feats(128, 64)),
                             (feats(npad, 64), feats(64, 3))], q)
-                del bt, xm, ym, gm
+                del bt, t_args, xm, ym, gm
             del plan, cd
 
             plan = rt.prepare_graph(graph, cfg("packed"))
@@ -260,18 +318,12 @@ def main() -> int:
                     rows[f"rer_gather_{op}"] = checked(
                         f"rer_gather_{op}",
                         [lambda x=x, op=op: gather_ops.packed_groups_spmm(
-                            groups, x, q=q, op=op, transposed=None)
+                            groups, x, q=q, op=op, **tr_kw)
                          for x in xs],
                         [lambda x=x, op=op: plain_groups(groups, x, op)
                          for x in xs], op == "max", WIDTHS)
             else:
-                groups_t = engn_mod.transposed_groups(cp, 8)
-                rows["rer_gather_sum_t"] = checked(
-                    "rer_gather_sum_t",
-                    [lambda x=x: gather_ops.packed_spmm_t(groups_t, x, q=q)
-                     for x in xs],
-                    [lambda x=x: plain_groups(groups_t, x, "sum")
-                     for x in xs], False, WIDTHS)
+                gather_bwd_rows(rows, cp, groups, xs, q)
             del plan, cp, groups
 
         g_syn, _, _ = make_dataset("synthD", seed=0, max_vertices=65536)

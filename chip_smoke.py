@@ -15,17 +15,17 @@ prints no result.  Phases, each of which fails the run if it fails:
    `torch.equal`, sum variants `allclose(rtol=1e-4, atol=1e-5)`, since
    their reduction order differs), then timed with CUDA events beside
    its bound, a `torch.sparse.mm` yardstick and, for the rows
-   redesigned since commit 42e678e (`fused_engn_sum`,
-   `rer_spmm_bwd_max`), that commit's time on the same card type
-   (printed, not recorded).  A `rer_gather` row times the whole aggregate of a plan's
-   bucket groups per width (one launch), the function `torch.sparse.mm`
-   computes; its bound counts 12 B per real entry and X and Y once
-   (54d7577's count, every group array with its pads once per width,
-   is printed beside it).  The streamed executor's kernels: `chunk_queue`
-   on the synthD stand-in at 262,144 vertices and layer-1 width (F=50),
-   with and without its relu epilogue, and `rer_gather`'s tile-part
-   form on a stated sample of one forward's calls on the 65,536-vertex
-   graph;
+   redesigned since commit 7d3f40b (`rer_spmm_sum_t`, `rer_gather_sum_t`,
+   `rer_gather_bwd_count`, `rer_gather_bwd_max`), that commit's time on
+   the same card type (printed, not recorded).  A `rer_gather` row times
+   the whole aggregate of a plan's bucket groups per width (one launch),
+   the function `torch.sparse.mm` computes; its bound counts 12 B per
+   real entry and X and Y once (an older count, every group array with
+   its pads once per width, is printed beside it).  The streamed
+   executor's kernels: `chunk_queue` on the synthD stand-in at 262,144
+   vertices and layer-1 width (F=50), with and without its relu
+   epilogue, and `rer_gather`'s tile-part form on a stated sample of one
+   forward's calls on the 65,536-vertex graph;
 4. path: the inference path a user runs — `make_gnn_stack` ->
    `prepare_graph` -> `apply_stack` on `cuda` — for the quickstart (cora
    GCN [1433, 64, 7] on "fused", T=256) and pubmed GCN / GS-Pool
@@ -38,27 +38,33 @@ prints no result.  Phases, each of which fails the run if it fails:
 6. backward and B4 kernels: at the training path's shapes (uncut pubmed
    as `build_gnn` makes it, F capped at 128, hidden 64, T=256), the
    fused forward (`fused_engn_sum_train`, widths 128 -> 64 and 64 -> 3,
-   beside `torch.sparse.mm(A, X @ W)`), the sum
-   backwards over the transposed carriers (`rer_spmm_sum_t`,
-   `rer_gather_sum_t`; the fused backward, `rer_spmm_sum_t` plus two
-   matrix products, is checked and timed on a line of its own, outside
-   the kernels' record) and both max backwards
-   (`rer_spmm_bwd_max`, over the forward tiles alone, and
-   `rer_gather_bwd_count` / `_max`), each against
-   its plain version (integer counts `torch.equal`, sums within 1e-5 of
-   the output's largest magnitude); B4 (`fused_linear_act`) through its
-   entry point at the three stages whose function it computes on uncut
-   pubmed (GS-Pool extraction 500 x 64, GS-Pool update 564 x 64, GCN afu
-   500 x 64), against the layers' own stage output and its plain
-   version, timed beside `torch.addmm` + relu;
+   beside `torch.sparse.mm(A, X @ W)`), and every backward, each over
+   the FORWARD carrier (no carrier of A^T is built): the sums' A^T G
+   (`rer_spmm_sum_t` over the dense tiles, `rer_gather_sum_t` over the
+   bucket groups' work table, beside `torch.sparse.mm(A^T, G)`; the
+   fused backward, `rer_spmm_sum_t` plus two matrix products, is checked
+   and timed on a line of its own, outside the kernels' record) and
+   both max backwards (`rer_spmm_bwd_max` over the tiles, and the packed
+   count and scatter `rer_gather_bwd_count` / `_max`, one launch each
+   over the work table), each against its plain version (integer counts
+   `torch.equal`, sums within 1e-5 of the output's largest magnitude);
+   B4 (`fused_linear_act`) through its entry point at the three stages
+   whose function it computes on uncut pubmed (GS-Pool extraction 500 x
+   64, GS-Pool update 564 x 64, GCN afu 500 x 64), against the layers'
+   own stage output and its plain version, timed beside `torch.addmm` +
+   relu;
 7. training path: `build_gnn` on uncut pubmed, 20 steps each, GCN on
    "blocked" dense / packed and "fused", GS-Pool on "blocked" dense /
    packed (multi-edges merged), each trajectory against the same run on
    "segment" (`allclose(rtol=1e-3, atol=1e-4)`) and one step's
-   gradients against the plain versions' own autograd; GS-Pool dense
-   must build no carrier of A^T (`transposed_bytes` 0); then `run_gnn`
-   through `FaultTolerantRunner` and `CheckpointManager`, and again from
-   its checkpoint.
+   gradients against the plain versions' own autograd; every run's plan
+   must hold after its 20 steps exactly the bytes it held before them
+   (`PreparedPlan.held_bytes`: no backward built a carrier of A^T), and
+   each prints its plan + state and peak memory; GS-Pool packed must
+   make one count and one scatter launch per layer a step, GCN packed
+   one sum-backward launch per layer; then `run_gnn` through
+   `FaultTolerantRunner` and `CheckpointManager`, and again from its
+   checkpoint.
 Launch counters are zeroed just before each path phase (4, 5, the B4
 calls of 6, 7) and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
@@ -91,11 +97,12 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
 TRAIN_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
-# times of the rows redesigned since commit 42e678e: this script at that
+# times of the rows redesigned since commit 7d3f40b: this script at that
 # commit on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
 # beside this run's times and kept out of the kernels' record
-BEFORE = "42e678e"
-BEFORE_MS = {"fused_engn_sum": 1.2883, "rer_spmm_bwd_max": 17.9969}
+BEFORE = "7d3f40b"
+BEFORE_MS = {"rer_spmm_sum_t": 0.8415, "rer_gather_sum_t": 0.0723,
+             "rer_gather_bwd_count": 1.7088, "rer_gather_bwd_max": 2.8755}
 
 
 def _smi() -> str:
@@ -216,14 +223,14 @@ def main() -> int:
 
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
                     library=None, record=True, rel=None,
-                    before_bytes=None, counter=None, phases=None):
+                    old_bytes=None, counter=None, phases=None):
         """calls: (kernel thunk, plain thunk) for one forward's calls;
         `record=False` checks and times a variant no path launches,
         printed on its own line and kept out of the record (as is a call
         form whose launches another record counts).  `rel` holds
         a sum to within rel x the plain output's largest magnitude (and
-        rtol rel) instead of RTOL/ATOL.  `before_bytes`: 54d7577's
-        byte count of a recounted bound, printed beside the new one.
+        rtol rel) instead of RTOL/ATOL.  `old_bytes`: (label, bytes),
+        an older byte count of a recounted bound, printed beside it.
         `counter`, `phases`: the launch counter a record reads (default
         its name) and the path phases counted (default all)."""
         counted_by[name] = (counter or name, phases)
@@ -258,14 +265,14 @@ def main() -> int:
                "bytes": int(nbytes), "ops": int(ops)}
         if record:
             records.append(rec)
-        # 42e678e's time and 54d7577's bound count: on this line only,
+        # 7d3f40b's time and an older bound count: on this line only,
         # not in the record, which holds what this run measured
         was = (f", {BEFORE} {BEFORE_MS[name]:.4f} ms" if name in BEFORE_MS
                and record else "")
         old = ""
-        if before_bytes is not None:
-            old = (f"; 54d7577's count "
-                   f"{max(before_bytes / HBM_BYTES_PER_S * 1e3, t_ops):.4f}"
+        if old_bytes is not None:
+            old = (f"; {old_bytes[0]} "
+                   f"{max(old_bytes[1] / HBM_BYTES_PER_S * 1e3, t_ops):.4f}"
                    f" ms")
         print(f"kernel {name}: {len(calls)} calls/forward, max_abs_err "
               f"{err:.3g} ({'equal' if exact else 'allclose'}), "
@@ -297,7 +304,7 @@ def main() -> int:
         for op in ("sum", "max"):
             calls = [(lambda x=x, op=op: spmm_ops.blocked_spmm(
                           cd["blocks"], cd["block_row"], cd["block_col"],
-                          x, q=q, op=op, transposed=None),
+                          x, q=q, op=op),
                       lambda x=x, op=op: spmm_ops.blocked_spmm_plain(
                           cd["blocks"], cd["block_row"], cd["block_col"],
                           x, q=q, op=op)) for x in xs]
@@ -323,7 +330,7 @@ def main() -> int:
               f"real entries")
         for op in ("sum", "max"):
             calls = [(lambda x=x, op=op: gather_ops.packed_groups_spmm(
-                          groups, x, q=q, op=op, transposed=None),
+                          groups, x, q=q, op=op),
                       lambda x=x, op=op: gather_ops.packed_groups_plain(
                           groups, x, q=q, op=op)) for x in xs]
             kernel_case(
@@ -331,8 +338,9 @@ def main() -> int:
                 "src/repro/kernels/rer_gather/rer_gather.py:103", calls,
                 exact=op == "max",
                 nbytes=sum(12 * nnz_entries + nb(x, x) for x in xs),
-                before_bytes=sum(nb(*gr.values()) for gr in groups) * len(xs)
-                + sum(nb(x, x) for x in xs),
+                old_bytes=("54d7577's count",
+                           sum(nb(*gr.values()) for gr in groups) * len(xs)
+                           + sum(nb(x, x) for x in xs)),
                 ops=sum(2 * nnz_entries * x.shape[1] for x in xs),
                 library=(None if op == "max" else
                          lambda: [torch.sparse.mm(a_pub, x[:g_pub.num_vertices])
@@ -375,7 +383,7 @@ def main() -> int:
             "src/repro/kernels/fused_engn/fused_engn.py:60",
             [(lambda x=x, w=w: fused_ops.fused_engn_layer(
                   cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q,
-                  transposed=None, columns=cols),
+                  columns=cols),
               lambda x=x, w=w: fused_ops.fused_engn_plain(
                   cf["blocks"], cf["block_row"], cf["block_col"], x, w, q=q))
              for x, w in pairs],
@@ -503,8 +511,9 @@ def main() -> int:
                 exact=op == "max",
                 nbytes=sum(12 * real + nb(x) + 256 * x.shape[2] * 4
                            for (*_, real), x in zip(staged, xs)),
-                before_bytes=sum(nb(r, c, v, x) + 256 * x.shape[2] * 4
-                               for (r, c, v, _, _), x in zip(staged, xs)),
+                old_bytes=("54d7577's count",
+                           sum(nb(r, c, v, x) + 256 * x.shape[2] * 4
+                               for (r, c, v, _, _), x in zip(staged, xs))),
                 ops=sum(2 * real * x.shape[2]
                         for (*_, real), x in zip(staged, xs)),
                 library=lib)
@@ -668,7 +677,6 @@ def main() -> int:
             print(f"  TiledStats/forward {json.dumps(stats)}")
 
     # -- the backward kernels and B4 ------------------------------------------
-    from repro_torch.core import engn as engn_mod
     from repro_torch.kernels.feature_update import ops as update_ops
     from repro_torch.kernels.rer_gather_bwd import ops as gather_bwd_ops
     from repro_torch.kernels.rer_spmm_bwd import ops as spmm_bwd_ops
@@ -701,11 +709,11 @@ def main() -> int:
         plan_d = rt.prepare_graph(g_tr, cfg_tr)
         cd = plan_d.carrier
         q, npad = cd["blocks_meta"]["q"], cd["blocks_meta"]["padded"]
-        bt = engn_mod.transposed_blocks(cd)
+        carrier = (cd["blocks"], cd["block_row"], cd["block_col"])
         nnz_tr = int(torch.count_nonzero(cd["blocks"]))
         print(f"training dense carrier: {cd['blocks'].shape[0]} tiles, "
-              f"{plan_d.footprint_bytes / 1e9:.3f} GB; transposed "
-              f"{bt.nbytes() / 1e9:.3f} GB")
+              f"{plan_d.footprint_bytes / 1e9:.3f} GB (every backward walks "
+              f"it; no A^T)")
 
         def rows_n(t):
             t[n_tr:] = 0
@@ -713,20 +721,16 @@ def main() -> int:
         gs = [rows_n(feats(npad, w)) for w in widths_tr]
         # max inputs like GS-Pool's relu extraction: half zeros, ties
         xs_max = [rows_n(torch.relu(feats(npad, w))) for w in widths_tr]
-        ys_max = [spmm_ops.blocked_spmm(cd["blocks"], cd["block_row"],
-                                        cd["block_col"], x, q=q, op="max",
-                                        transposed=None)
+        ys_max = [spmm_ops.blocked_spmm(*carrier, x, q=q, op="max")
                   for x in xs_max]
         kernel_case(
             "rer_spmm_sum_t", "src/repro_torch/csrc/rer_spmm.cu",
             "src/repro/kernels/rer_spmm/rer_spmm.py:74",
-            [(lambda g=g: spmm_ops.blocked_spmm_t(bt, g, q=q),
-              lambda g=g: spmm_ops.blocked_spmm_plain(
-                  bt.blocks, bt.block_row, bt.block_col, g, q=q))
+            [(lambda g=g: spmm_ops.blocked_spmm_t(*carrier, g, q=q),
+              lambda g=g: spmm_ops.blocked_spmm_t_plain(*carrier, g, q=q))
              for g in gs],
             exact=False, rel=NEW_RTOL,
-            nbytes=sum(nb(bt.blocks, bt.block_row, bt.block_col, g, g)
-                       for g in gs),
+            nbytes=sum(nb(*carrier, g, g) for g in gs),
             ops=sum(2 * nnz_tr * g.shape[1] for g in gs),
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
         counts = cd["row_counts"]
@@ -758,7 +762,7 @@ def main() -> int:
             "src/repro/kernels/fused_engn/fused_engn.py:60",
             [(lambda x=x, w=w: fused_ops.fused_engn_layer(
                   cd["blocks"], cd["block_row"], cd["block_col"], x, w, q=q,
-                  transposed=None, columns=cols),
+                  columns=cols),
               lambda x=x, w=w: fused_ops.fused_engn_plain(
                   cd["blocks"], cd["block_row"], cd["block_col"], x, w, q=q))
              for x, w in pairs],
@@ -777,7 +781,7 @@ def main() -> int:
                     (rows_n(feats(npad, 64)), feats(64, c_tr), gs[1])]
 
         def flat_bwd(fn, x, w, g):
-            dx, dw = fn(bt, x, w, g, q=q)
+            dx, dw = fn(*carrier, x, w, g, q=q)
             return torch.cat([dx.reshape(-1), dw.reshape(-1)])
         kernel_case(
             "fused_engn_bwd", "src/repro_torch/csrc/rer_spmm.cu",
@@ -788,73 +792,70 @@ def main() -> int:
                                               x, w, g))
              for x, w, g in fused_in],
             exact=False, rel=NEW_RTOL, record=False,
-            nbytes=sum(nb(bt.blocks, bt.block_row, bt.block_col, x, w, g, x,
-                          w) for x, w, g in fused_in),
+            nbytes=sum(nb(*carrier, x, w, g, x, w) for x, w, g in fused_in),
             ops=sum(2 * nnz_tr * w.shape[1] + 4 * npad * w.shape[0]
                     * w.shape[1] for x, w, g in fused_in))
-        del plan_d, cd, bt, xs_max, ys_max, fused_in, counts
+        del plan_d, cd, carrier, xs_max, ys_max, fused_in, counts
 
         plan_p = rt.prepare_graph(g_tr, dataclasses.replace(
             cfg_tr, tile_format="packed"))
         cp = plan_p.carrier
         groups = cp["packed_groups"]
-        groups_t = engn_mod.transposed_groups(cp, cfg_tr.packed_bucket_floor)
-        nnz_p = sum(int(torch.count_nonzero(gr["vals"])) for gr in groups)
+        nnz_p = real_entries(groups)
+        group_bytes = sum(nb(*gr.values()) for gr in groups)
         print(f"training packed carrier: {len(groups)} groups, "
-              f"{plan_p.footprint_bytes / 1e6:.3f} MB; transposed "
-              f"{len(groups_t)} groups, "
-              f"{engn_mod.transposed_bytes(plan_p) / 1e6:.3f} MB")
-        nnz_t = real_entries(groups_t)
+              f"{plan_p.footprint_bytes / 1e6:.3f} MB, {nnz_p} real entries, "
+              f"{groups.work.n_seg} segments (every backward walks it; no "
+              f"A^T)")
         kernel_case(
-            "rer_gather_sum_t", "src/repro_torch/csrc/rer_gather.cu",
+            "rer_gather_sum_t", "src/repro_torch/csrc/rer_gather_bwd.cu",
             "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda g=g: gather_ops.packed_spmm_t(groups_t, g, q=q),
-              lambda g=g: gather_ops.packed_groups_plain(groups_t, g, q=q))
+            [(lambda g=g: gather_bwd_ops.packed_groups_t(groups, g, q=q),
+              lambda g=g: gather_bwd_ops.packed_groups_t_plain(groups, g,
+                                                               q=q))
              for g in gs],
             exact=False, rel=NEW_RTOL,
-            nbytes=sum(12 * nnz_t + nb(g, g) for g in gs),
-            before_bytes=sum(nb(*gt.values()) for gt in groups_t) * len(gs)
-            + sum(nb(g, g) for g in gs),
-            ops=sum(2 * nnz_t * g.shape[1] for g in gs),
+            nbytes=sum(12 * nnz_p + nb(g, g) for g in gs),
+            ops=sum(2 * nnz_p * g.shape[1] for g in gs),
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
         xs_max = [rows_n(torch.relu(feats(npad, w))) for w in widths_tr]
-        ys_max = [gather_ops.packed_groups_spmm(groups, x, q=q, op="max",
-                                                transposed=None)
+        ys_max = [gather_ops.packed_groups_spmm(groups, x, q=q, op="max")
                   for x in xs_max]
-
-        def counted(fn, x, y):
-            cnt = torch.zeros(x.shape, dtype=torch.int32, device=dev)
-            for gr in groups:
-                fn(gr, x, y, cnt, q=q)
-            return cnt
         kernel_case(
             "rer_gather_bwd_count", "src/repro_torch/csrc/rer_gather_bwd.cu",
             "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda x=x, y=y: counted(gather_bwd_ops.packed_max_count, x, y),
-              lambda x=x, y=y: counted(gather_bwd_ops.packed_max_count_plain,
-                                       x, y))
+            [(lambda x=x, y=y: gather_bwd_ops.packed_max_count(
+                  groups, x, y, q=q),
+              lambda x=x, y=y: gather_bwd_ops.packed_max_count_plain(
+                  groups, x, y, q=q))
              for x, y in zip(xs_max, ys_max)],
             exact=True,
-            nbytes=sum(nb(*gr.values()) for gr in groups) * len(xs_max)
-            + sum(nb(x, y, x) for x, y in zip(xs_max, ys_max)),
+            nbytes=sum(12 * nnz_p + nb(x, y, x)
+                       for x, y in zip(xs_max, ys_max)),
+            old_bytes=("7d3f40b's count (padded groups)",
+                       sum(group_bytes + nb(x, y, x)
+                                      for x, y in zip(xs_max, ys_max))),
             ops=sum(2 * nnz_p * x.shape[1] for x in xs_max))
-        cnts = [counted(gather_bwd_ops.packed_max_count_plain, x, y)
+        cnts = [gather_bwd_ops.packed_max_count_plain(groups, x, y, q=q)
                 for x, y in zip(xs_max, ys_max)]
         kernel_case(
             "rer_gather_bwd_max", "src/repro_torch/csrc/rer_gather_bwd.cu",
             "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda gt=gt, x=x, y=y, g=g, c=c: gather_bwd_ops.packed_max_grad(
-                  gt, x, y, g, c, q=q),
-              lambda gt=gt, x=x, y=y, g=g, c=c:
-              gather_bwd_ops.packed_max_grad_plain(gt, x, y, g, c, q=q))
-             for x, y, g, c in zip(xs_max, ys_max, gs, cnts)
-             for gt in groups_t],
+            [(lambda x=x, y=y, g=g, c=c: gather_bwd_ops.packed_max_scatter(
+                  groups, x, y, g, c, q=q),
+              lambda x=x, y=y, g=g, c=c:
+              gather_bwd_ops.packed_max_scatter_plain(groups, x, y, g, c,
+                                                      q=q))
+             for x, y, g, c in zip(xs_max, ys_max, gs, cnts)],
             exact=False, rel=NEW_RTOL,
-            nbytes=sum(nb(*gt.values()) for gt in groups_t) * len(xs_max)
-            + sum(nb(x, y, g, c, x) for x, y, g, c in
-                  zip(xs_max, ys_max, gs, cnts)),
+            nbytes=sum(12 * nnz_p + nb(x, y, g, c, x) for x, y, g, c in
+                       zip(xs_max, ys_max, gs, cnts)),
+            old_bytes=("7d3f40b's count (padded groups)",
+                       sum(group_bytes + nb(x, y, g, c, x)
+                                      for x, y, g, c in
+                                      zip(xs_max, ys_max, gs, cnts))),
             ops=sum(4 * nnz_p * x.shape[1] for x in xs_max))
-        del plan_p, cp, groups, groups_t, xs_max, ys_max, cnts, gs
+        del plan_p, cp, groups, xs_max, ys_max, cnts, gs
 
     # B4 through its entry point, at the stages whose function it computes
     # on uncut pubmed: the layers' own weights, the layers' own stage
@@ -970,6 +971,7 @@ def main() -> int:
     for label, model, backend, fmt, kerns in train_runs:
         mem0 = torch.cuda.memory_allocated()
         tr, state, data = build_run(model, backend, fmt)
+        held = tr.plan.held_bytes()           # as prepare_graph built it
         if backend != "segment":
             batch0 = next(data)
             data.seek(0)
@@ -1000,10 +1002,10 @@ def main() -> int:
         for kern in kerns or ():
             if grew.get(kern, 0) <= 0:
                 raise AssertionError(f"{label}: {kern} was not launched")
-        if (model, backend, fmt) == ("gs_pool", "blocked", "dense") and (
-                engn_mod.transposed_bytes(tr.plan) != 0):
-            raise AssertionError(f"{label}: the max backward built a "
-                                 f"carrier of A^T")
+        if tr.plan.held_bytes() != held:
+            raise AssertionError(f"{label}: the plan held {held} B before "
+                                 f"training and {tr.plan.held_bytes()} B "
+                                 f"after: a backward built a carrier")
         if backend == "segment":
             seg_losses[model] = losses
             lerr = 0.0
@@ -1016,17 +1018,16 @@ def main() -> int:
                                      f"differs from segment {ref.tolist()}")
         per_step = {k: v / TRAIN_STEPS for k, v in grew.items()}
         if fmt == "packed":
-            # one rer_gather launch per layer forward, and per layer sum
-            # backward (GS-Pool's max backward keeps rer_gather_bwd)
-            once = {"rer_gather_max" if model == "gs_pool"
-                    else "rer_gather_sum": 2}
-            if model == "gcn":
-                once["rer_gather_sum_t"] = 2
+            # one launch per layer forward, and per layer backward pass:
+            # the sum's A^T G, or the max's count and scatter
+            once = ({"rer_gather_max": 2, "rer_gather_bwd_count": 2,
+                     "rer_gather_bwd_max": 2} if model == "gs_pool"
+                    else {"rer_gather_sum": 2, "rer_gather_sum_t": 2})
             for k, v in once.items():
                 if per_step.get(k) != v:
                     raise AssertionError(f"{label}: {k} {per_step.get(k)} "
                                          f"launches/step, not one per layer")
-            print(f"train {label}: rer_gather once per layer per step "
+            print(f"train {label}: one launch per layer per pass a step "
                   f"{once}")
         bwd = sum(v for k, v in per_step.items() if k in bwd_keys)
         row = {"run": label, "plan": f"{tr.plan.backend}/"
@@ -1037,7 +1038,7 @@ def main() -> int:
                "plan_and_state_mib": (base - mem0) / 2**20,
                "peak_mib": peak / 2**20,
                "footprint_bytes": tr.plan.footprint_bytes,
-               "transposed_bytes": engn_mod.transposed_bytes(tr.plan),
+               "held_bytes": held,
                "loss_first": losses[0], "loss_last": losses[-1],
                "max_loss_err_vs_segment": lerr}
         if backend != "segment":
@@ -1050,8 +1051,8 @@ def main() -> int:
               f"plan + state {row['plan_and_state_mib']:.1f} MiB, peak "
               f"{row['peak_mib']:.1f} MiB (both over what the run found "
               f"allocated), footprint "
-              f"{row['footprint_bytes']} B + transposed "
-              f"{row['transposed_bytes']} B, loss {losses[0]:.4f} -> "
+              f"{row['footprint_bytes']} B, plan holds {held} B before and "
+              f"after training (no A^T), loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}, max loss err vs segment {lerr:.3g}"
               + (f", max grad err vs plain {gerr:.3g}"
                  if backend != "segment" else ""))

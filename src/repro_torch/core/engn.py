@@ -25,13 +25,13 @@ graph over `device_budget_bytes` spills to "tiled" (`auto_spill=True`)
 or raises `DeviceBudgetExceeded`.
 
 The resident backends train: their aggregates are autograd Functions
-whose sum backward runs over the carrier of A^T (the dense tiles
-transposed, or the packed groups of `transpose_packed_store`), built
-once per plan on the plan's device at its first backward and cached in
-the carrier under "transposed" (`transposed_bytes` reports its size);
-the dense max backward walks the forward tiles and builds none.
-The budget gate prices training as the reference does
-(`cfg.training=True` doubles the activations) and does not count it.
+whose backwards walk the forward carrier itself (the dense tiles, or
+the packed groups through their work table), sum and max alike, so a
+backward builds no carrier of A^T and the plan holds after training
+what it held after `prepare_graph` (`PreparedPlan.held_bytes`), as the
+reference's, whose tiles XLA differentiates.  The budget gate prices
+training as the reference does (`cfg.training=True` doubles the
+activations).
 
 The sharded "ring" backend, the typed/gated stage contracts and
 training through "tiled" are not ported yet and raise
@@ -205,8 +205,6 @@ class EnGNLayer(nn.Module):
             y = fused_engn_layer(graph["blocks"], graph["block_row"],
                                  graph["block_col"], _pad_rows(graph, x),
                                  self.w, q=graph["blocks_meta"]["q"],
-                                 transposed=partial(transposed_blocks,
-                                                    graph),
                                  columns=graph.get("fused_columns"))
             return self.update(x, y[:graph["n"]])
         if linear_sum and self.dasr_order() == "afu":
@@ -285,15 +283,12 @@ class EnGNLayer(nn.Module):
             from repro_torch.kernels.rer_gather import packed_groups_spmm
             y = packed_groups_spmm(
                 graph["packed_groups"], xf, q=graph["blocks_meta"]["q"],
-                op=base_op,
-                transposed=partial(transposed_groups, graph,
-                                   cfg.packed_bucket_floor))
+                op=base_op)
             return _finish(y)
         from repro_torch.kernels.rer_spmm import blocked_spmm
         y = blocked_spmm(graph["blocks"], graph["block_row"],
                          graph["block_col"], xf,
                          q=graph["blocks_meta"]["q"], op=base_op,
-                         transposed=partial(transposed_blocks, graph),
                          counts=graph.get("row_counts"))
         return _finish(y)
 
@@ -316,45 +311,6 @@ def upload_groups(groups, dev: torch.device):
     work table built from the host arrays beside them (`PlanGroups`)."""
     from repro_torch.kernels.rer_gather import PlanGroups
     return PlanGroups(groups, dev)
-
-
-def transposed_blocks(graph: Dict[str, Any]):
-    """The plan's dense carrier of A^T (`rer_spmm.TransposedBlocks`),
-    built on the plan's device at the first backward, then cached."""
-    cache = graph.setdefault("transposed", {})
-    if "blocks" not in cache:
-        from repro_torch.kernels.rer_spmm import transpose_blocks_on
-        cache["blocks"] = transpose_blocks_on(
-            graph["blocks"], graph["block_row"], graph["block_col"],
-            graph["blocks_meta"]["q"])
-    return cache["blocks"]
-
-
-def transposed_groups(graph: Dict[str, Any], bucket_floor: int):
-    """The plan's packed bucket groups of A^T (`transpose_packed_store`
-    grouped as `prepare_packed_groups` groups A), uploaded to the plan's
-    device at the first backward, then cached."""
-    cache = graph.setdefault("transposed", {})
-    if "packed_groups" not in cache:
-        from repro_torch.graphs.partition import transpose_packed_store
-        from repro_torch.kernels.rer_gather import prepare_packed_groups
-        groups = prepare_packed_groups(
-            transpose_packed_store(graph["packed_store"]), bucket_floor)
-        cache["packed_groups"] = upload_groups(groups, graph["device"])
-    return cache["packed_groups"]
-
-
-def transposed_bytes(graph) -> int:
-    """Device bytes of the A^T carriers a plan has built for its
-    backward so far (0 before the first backward); the plan's
-    `footprint_bytes`, as the reference's, does not count them."""
-    cache = plan_carrier(graph).get("transposed", {})
-    total = 0
-    if "blocks" in cache:
-        total += cache["blocks"].nbytes()
-    for gr in cache.get("packed_groups", ()):
-        total += sum(t.numel() * t.element_size() for t in gr.values())
-    return total
 
 
 def prepare_graph(g: COOGraph, cfg: EnGNConfig,
@@ -509,8 +465,6 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
         groups = rer_gather.prepare_packed_groups(packed,
                                                   cfg.packed_bucket_floor)
         d["packed_groups"] = upload_groups(groups, dev)
-        # the host store, for the transposed groups of the backward
-        d["packed_store"] = packed
         tile_bytes = sum(gr.nbytes() for gr in groups)
     # re-check the plan as built (the closed-form gate prices nnz bounds)
     act = 2 if cfg.training else 1

@@ -10,7 +10,10 @@ decided.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Dict, Optional
+
+import torch
 
 
 @dataclasses.dataclass(eq=False)
@@ -51,6 +54,34 @@ class PreparedPlan:
     def device(self):
         """The device the carrier's tensors live on."""
         return self.carrier.get("device")
+
+    def held_bytes(self) -> int:
+        """Bytes of every tensor reachable from the carrier, each storage
+        once: through dicts, lists, tuples and sets and the attributes
+        (`__dict__`) of any other object, so the tiles or groups, their
+        index arrays, the kernels' tables (a `PlanGroups`' work table
+        included) and whatever an object in the carrier caches all count.
+        A backward adds nothing to a plan, so this is the same before and
+        after training.  Host arrays (numpy, the streamed plan's store)
+        are not tensors and do not count."""
+        seen, stores, total, todo = set(), set(), 0, [self.carrier]
+        while todo:
+            obj = todo.pop()
+            if id(obj) in seen or isinstance(obj, (type, types.ModuleType)):
+                continue
+            seen.add(id(obj))
+            if isinstance(obj, torch.Tensor):
+                st = obj.untyped_storage()
+                if st.data_ptr() not in stores:
+                    stores.add(st.data_ptr())
+                    total += st.nbytes()
+                continue
+            if isinstance(obj, dict):
+                todo.extend(obj.values())
+            elif isinstance(obj, (list, tuple, set, frozenset)):
+                todo.extend(obj)
+            todo.extend(getattr(obj, "__dict__", {}).values())
+        return total
 
     def __repr__(self) -> str:
         return (f"PreparedPlan(backend={self.backend!r}, n={self.n}, "

@@ -189,8 +189,7 @@ def _chunk_step_kernel(acc, blocks, xs, *, op: str, impl: str, q: int):
     rows, cols = _chunk_index(q, xs.device)
     x2 = xs.reshape(q * t, d)
     if impl == "cuda":     # forward only: the streamed backward is not ported
-        y = spmm_ops.blocked_spmm(blocks, rows, cols, x2, q=q, op=op,
-                                  transposed=None)
+        y = spmm_ops.blocked_spmm(blocks, rows, cols, x2, q=q, op=op)
     else:
         y = spmm_ops.blocked_spmm_plain(blocks, rows, cols, x2, q=q, op=op)
     y = y[:t]

@@ -20,7 +20,9 @@
 //     per segment; a warp walks its segment as one run of entries, each lane
 //     finding its entry's piece by a binary search, so many small tiles
 //     share a 32-entry load and the hub interval's tens of thousands of
-//     entries spread over hundreds of warps;
+//     entries spread over hundreds of warps (that table walk and the lane
+//     mapping are in rer_gather_walk.cuh, shared with the backward passes
+//     of rer_gather_bwd.cu, which walk the same table);
 //   * `rer_gather_part_launch`: the streamed executor's chunk, (C, S)
 //     entries against a (C, T, F) source stack into one interval's (T, F)
 //     partial; one warp per (tile, 64-slot slice), so a hub tile spreads
@@ -45,11 +47,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rer_gather_walk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kU = 4;        // entries gathered per lane per batch
+using rer_gather_walk::kThreads;
+using rer_gather_walk::kU;
+using rer_gather_walk::kWarps;
+using rer_gather_walk::lanes_for;
 constexpr int kSlice = 64;   // slots per warp in the tile-part form
 
 // Float max by integer atomics: floats without the sign bit order as
@@ -134,14 +139,9 @@ __device__ __forceinline__ void walk(int n_entries, Load load,
   flush();
 }
 
-// A whole aggregate over a plan's bucket groups.  gtab: (G, 4) int64
-// rows, cols, vals device pointers and S of each group; pieces: (P, 6)
-// int32 (group, tile, lo, hi, dst interval, src interval); poff (P,):
-// each piece's first entry within its segment.  Segment s is pieces
-// [seg_ptr[s], seg_ptr[s+1]), walked as one run of entries: each lane
-// finds the piece of its entry by a binary search of poff, so a chunk of
-// 32 entries spans as many small tiles as it needs.  gridDim.y runs over
-// feature passes of fp * kNR features.
+// A whole aggregate over a plan's bucket groups, one warp per segment of
+// the work table (rer_gather_walk.cuh); gridDim.y runs over feature
+// passes of fp * kNR features.
 template <bool kMax, int kNR>
 __global__ void __launch_bounds__(kThreads)
 rer_gather_kernel(const long long* __restrict__ gtab,
@@ -153,25 +153,10 @@ rer_gather_kernel(const long long* __restrict__ gtab,
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (s >= n_seg) return;
-  const int p_lo = seg_ptr[s], p_hi = seg_ptr[s + 1];
-  const int* last = pieces + 6 * (p_hi - 1);
-  const int n_entries = poff[p_hi - 1] + last[3] - last[2];
-  auto load = [&](int e, float* v, int* r, int* c) {
-    int lo = p_lo, hi = p_hi - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (poff[mid] <= e) lo = mid; else hi = mid - 1;
-    }
-    const int* pc = pieces + 6 * lo;
-    const long long* gt = gtab + 4 * pc[0];
-    const size_t slot = (size_t)pc[1] * (size_t)gt[3] + pc[2] + (e - poff[lo]);
-    *v = reinterpret_cast<const float*>(gt[2])[slot];
-    if (*v != 0.f) {
-      *r = pc[4] * t + reinterpret_cast<const int*>(gt[0])[slot];
-      *c = pc[5] * t + reinterpret_cast<const int*>(gt[1])[slot];
-    }
-  };
-  walk<kMax, kNR>(n_entries, load, x, y, f, blockIdx.y * fp * kNR, fp,
+  const rer_gather_walk::Segment sg =
+      rer_gather_walk::segment(gtab, pieces, poff, seg_ptr, s, t);
+  auto load = [&](int e, float* v, int* r, int* c) { sg.load(e, v, r, c); };
+  walk<kMax, kNR>(sg.n_entries, load, x, y, f, blockIdx.y * fp * kNR, fp,
                   lane);
 }
 
@@ -227,30 +212,11 @@ void fill_y(float* y, size_t count, bool neg_inf, cudaStream_t st) {
     cudaMemsetAsync(y, 0, count * sizeof(float), st);
 }
 
-// Lanes per entry fp and features per lane kNR for width f: one pass of
-// fp * kNR features (f <= 32: fp = pow2(f) >= 4, kNR = 1; f <= 64: 32 x 2;
-// wider: 32 x 4 per pass).
-int lanes_for(int f, int* nr) {
-  if (f > 64) {
-    *nr = 4;
-    return 32;
-  }
-  if (f > 32) {
-    *nr = 2;
-    return 32;
-  }
-  *nr = 1;
-  int fp = 4;
-  while (fp < f) fp <<= 1;
-  return fp;
-}
-
 template <bool kMax, int kNR>
 void launch_table(const long long* gtab, const int* pieces, const int* poff,
                   const int* seg_ptr, int n_seg, const float* x, float* y,
                   int t, int f, int fp, cudaStream_t st) {
-  const dim3 grid((unsigned)((n_seg + kWarps - 1) / kWarps),
-                  (unsigned)((f + fp * kNR - 1) / (fp * kNR)));
+  const dim3 grid = rer_gather_walk::grid_for_table(n_seg, f, fp, kNR);
   rer_gather_kernel<kMax, kNR><<<grid, kThreads, 0, st>>>(
       gtab, pieces, poff, seg_ptr, n_seg, x, y, t, f, fp);
 }

@@ -45,6 +45,25 @@
 // in rounding order on finite inputs, and it drops the 0 * inf = NaN a
 // dense product would make of an inf in X; the order of the pieces'
 // atomic adds varies from run to run.
+//
+// B1^T, `rer_spmm_t_launch`: the sum backward dX = A^T G over the SAME
+// forward tiles, so no carrier of A^T is ever built (the reference has
+// none either: XLA differentiates its tiles):
+//
+//   dX[bc_k*T + u, :] += sum_r A_k[r, u] * G[br_k*T + r, :]
+//
+// Bound: bytes, the same tile bytes as the forward.  It keeps the
+// forward's tile stream (span pieces, one CTA per (piece, row slab,
+// feature chunk), two 16 KB cp.async stages under evict-first, the
+// nonzeros of each slab row compacted by ballot); only the inner step
+// differs: every tile of a piece shares its destination interval, so
+// the CTA loads the slab's rows of G once into shared memory, and each
+// nonzero (r, u, a) adds a * G_s[r] into dX[bc_k*T + u] with
+// fire-and-forget atomics (float4 ones where F % 4 == 0, so a row of 64
+// features is 16 of them; scalar ones below, e.g. F = 3).  The source
+// rows belong to other intervals, so no CTA owns its dX rows: dX is
+// zero-filled first and every contribution added in place.  The order
+// of the adds varies from run to run.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -159,6 +178,41 @@ __device__ __forceinline__ void gather_row(const int* lc, const float* lv,
   }
 }
 
+__device__ __forceinline__ void add4(float* p, float a, float4 v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 &&   \
+    (__CUDACC_VER_MAJOR__ > 12 ||                       \
+     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
+  atomicAdd(reinterpret_cast<float4*>(p),
+            make_float4(a * v.x, a * v.y, a * v.z, a * v.w));
+#else
+  atomicAdd(p, a * v.x);
+  atomicAdd(p + 1, a * v.y);
+  atomicAdd(p + 2, a * v.z);
+  atomicAdd(p + 3, a * v.w);
+#endif
+}
+
+// One warp: the nonzeros (lc[e], lv[e]), e < n, of one slab row whose
+// cotangent row is grow[0 : fcn), each added as lv[e] * grow into the dX
+// row lc[e] of dxs.  nv units per row (float4 when vec4, else floats),
+// fp lanes per nonzero, 32 / fp nonzeros a pass.
+__device__ __forceinline__ void scatter_row(const int* lc, const float* lv,
+                                            int n, const float* grow,
+                                            float* dxs, int f, int nv,
+                                            int fp, bool vec4, int lane) {
+  const int groups = 32 / fp, gi = lane / fp, fl = lane % fp;
+  for (int e = gi; e < n; e += groups) {
+    const float a = lv[e];
+    float* drow = dxs + (size_t)lc[e] * f;
+    if (vec4) {
+      for (int j = fl; j < nv; j += fp)
+        add4(drow + 4 * j, a, *reinterpret_cast<const float4*>(grow + 4 * j));
+    } else {
+      for (int j = fl; j < nv; j += fp) atomicAdd(drow + j, a * grow[j]);
+    }
+  }
+}
+
 template <bool kMax, int kNR>
 __global__ void __launch_bounds__(kThreads)
 rer_spmm_kernel(const float* __restrict__ blocks,
@@ -249,6 +303,97 @@ rer_spmm_kernel(const float* __restrict__ blocks,
       if (v != -INFINITY) atomic_max_float(out, v);
     } else if (v != 0.f) {
       atomicAdd(out, v);
+    }
+  }
+}
+
+// B1^T over the forward tiles: the forward's walk, G's slab rows in
+// shared memory in place of the accumulator, nonzeros scattered into dX.
+__global__ void __launch_bounds__(kThreads)
+rer_spmm_t_kernel(const float* __restrict__ blocks,
+                  const int* __restrict__ block_col,
+                  const int4* __restrict__ pieces,
+                  const float* __restrict__ g, float* __restrict__ dx,
+                  int t, int f, int rows, int slab_pad, int fc, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage_s = smem;                                  // kStages slabs
+  int* list_c = reinterpret_cast<int*>(smem + kStages * slab_pad);
+  float* list_v = reinterpret_cast<float*>(list_c + kWarps * kList);
+  float* gs = list_v + kWarps * kList;                    // rows x fc
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* lc = list_c + warp * kList;
+  float* lv = list_v + warp * kList;
+
+  const int4 pc = pieces[blockIdx.x];
+  const int dst = pc.x, k_lo = pc.y, ntiles = pc.z - pc.y;
+  const int r0 = blockIdx.y * rows;
+  const int nrows = min(rows, t - r0);
+  const int f0 = blockIdx.z * fc;
+  const int fcn = min(fc, f - f0);
+  const int slab_n = nrows * t;
+  // float4 units where every row of G, G_s and dX is 16-byte aligned
+  // (F and fc multiples of 4, so fcn is too)
+  const bool vec4 = (f & 3) == 0 && (fc & 3) == 0;
+  const int nv = vec4 ? fcn / 4 : fcn;
+  int fp = 1;
+  while (fp < nv && fp < 32) fp <<= 1;
+
+  // the slab's cotangent rows, once per CTA: every tile of a piece
+  // belongs to the destination interval `dst`
+  const float* gsrc = g + ((size_t)dst * t + r0) * f + f0;
+  for (int i = tid; i < nrows * fc; i += kThreads) {
+    const int r = i / fc, j = i % fc;
+    gs[i] = j < fcn ? gsrc[(size_t)r * f + j] : 0.f;
+  }
+
+  const unsigned long long pol = evict_first_policy();
+  auto load_slab = [&](int it) {
+    float* dstp = stage_s + (it % kStages) * slab_pad;
+    const float* src = blocks + ((size_t)(k_lo + it) * t + r0) * t;
+    if (vec) {
+      for (int i = tid; i < slab_n / 4; i += kThreads)
+        cp_async16(dstp + 4 * i, src + 4 * i, pol);
+    } else {
+      for (int i = tid; i < slab_n; i += kThreads)
+        cp_async4(dstp + i, src + i);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load_slab(s);
+    cp_commit();
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    // slab `it` has landed for every thread (and, the first time, G_s),
+    // and every warp is done with slab it-1, whose stage is refilled
+    cp_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < ntiles) load_slab(it + kStages - 1);
+    cp_commit();
+    const float* slab = stage_s + (it % kStages) * slab_pad;
+    float* dxs = dx + (size_t)block_col[k_lo + it] * t * f + f0;
+    for (int r = warp; r < nrows; r += kWarps) {
+      const float* srow = slab + r * t;
+      for (int c0 = 0; c0 < t; c0 += kList) {
+        const int cend = min(t, c0 + kList);
+        int n = 0;
+        for (int cb = c0; cb < cend; cb += 32) {
+          const int c = cb + lane;
+          const float a = c < cend ? srow[c] : 0.f;
+          const unsigned m = __ballot_sync(0xffffffffu, a != 0.f);
+          if (a != 0.f) {
+            const int p = n + __popc(m & ((1u << lane) - 1u));
+            lc[p] = c;
+            lv[p] = a;
+          }
+          n += __popc(m);
+        }
+        __syncwarp();
+        if (n) scatter_row(lc, lv, n, gs + r * fc, dxs, f, nv, fp, vec4,
+                           lane);
+        __syncwarp();
+      }
     }
   }
 }
@@ -357,4 +502,41 @@ extern "C" int rer_spmm_launch(const void* blocks, const void* block_col,
                                vec, s)
                 : launch<false>(b, bc, pc, n_pieces, fill, xx, yy, q, t, f,
                                 vec, s);
+}
+
+// dX (q*T, F) = A^T G over the forward tiles and the same `pieces` table
+// as rer_spmm_launch; dX is zero-filled here.  `vec`: T % 4 == 0 and the
+// tiles are 16-byte aligned.
+extern "C" int rer_spmm_t_launch(const void* blocks, const void* block_col,
+                                 const void* pieces, int n_pieces,
+                                 const void* g, void* dx, int q, int t,
+                                 int f, int vec, void* stream) {
+  if (q == 0 || t == 0 || f == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(dx, 0, (size_t)q * t * f * sizeof(float), st);
+  if (n_pieces > 0) {
+    int rows = kSlabFloats / t;
+    rows = rows < 1 ? 1 : (rows > kMaxRows ? kMaxRows : rows);
+    rows = rows < t ? rows : t;
+    const int slab_pad = (rows * t + 3) & ~3;
+    const int n_fchunks = (f + kFcMax - 1) / kFcMax;
+    int fc = (f + n_fchunks - 1) / n_fchunks;
+    if ((f & 3) == 0) fc = (fc + 3) & ~3;   // float4 rows in every chunk
+    const size_t smem =
+        sizeof(float) * ((size_t)kStages * slab_pad + 2 * kWarps * kList +
+                         (size_t)rows * fc);
+    static size_t smem_set = 48 * 1024;
+    if (smem > smem_set) {
+      cudaFuncSetAttribute(rer_spmm_t_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+      smem_set = smem;
+    }
+    const dim3 grid((unsigned)n_pieces, (t + rows - 1) / rows, n_fchunks);
+    rer_spmm_t_kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(blocks), static_cast<const int*>(block_col),
+        static_cast<const int4*>(pieces), static_cast<const float*>(g),
+        static_cast<float*>(dx), t, f, rows, slab_pad, fc, vec);
+  }
+  return (int)cudaGetLastError();
 }

@@ -5,9 +5,10 @@ hand-written CUDA kernel `csrc/fused_engn.cu` for CUDA tensors,
 `fused_engn_plain` (per-tile X W, batched tile product, reduce at the
 destination intervals) for CPU tensors.  Under autograd it is a
 `torch.autograd.Function` whose backward is `fused_engn_bwd`:
-dP = A^T G by the `rer_spmm` kernel over the transposed dense carrier,
-then dX = dP W^T and dW = X^T dP, two plain matrix products outside any
-kernel, as the reference leaves them to XLA.
+dP = A^T G by the `rer_spmm` kernel's transposed launcher over the same
+forward tiles (no carrier of A^T is built), then dX = dP W^T and
+dW = X^T dP, two plain matrix products outside any kernel, as the
+reference leaves them to XLA.
 
 Source note.  Replaces `repro/kernels/fused_engn/fused_engn.py::
 fused_extract_aggregate` (`_fused_kernel`).  On the H100 it is bound by
@@ -24,7 +25,7 @@ source for the rest.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,56 +150,54 @@ def _forward(blocks, block_row, block_col, x, w, q,
     return y
 
 
-def fused_engn_bwd_plain(bt, x: torch.Tensor, w: torch.Tensor,
-                         g: torch.Tensor, *, q: int
+def fused_engn_bwd_plain(blocks: torch.Tensor, block_row: torch.Tensor,
+                         block_col: torch.Tensor, x: torch.Tensor,
+                         w: torch.Tensor, g: torch.Tensor, *, q: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dX, dW) in plain PyTorch, on any device."""
-    dp = spmm_ops.blocked_spmm_plain(bt.blocks, bt.block_row, bt.block_col,
-                                     g, q=q)
+    dp = spmm_ops.blocked_spmm_t_plain(blocks, block_row, block_col, g,
+                                       q=q)
     return dp @ w.t(), x.t() @ dp
 
 
-def fused_engn_bwd(bt, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                   *, q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_engn_bwd(blocks: torch.Tensor, block_row: torch.Tensor,
+                   block_col: torch.Tensor, x: torch.Tensor,
+                   w: torch.Tensor, g: torch.Tensor, *, q: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of Y = A (X W) for the cotangent G (q*T, H): dP =
-    A^T G over the transposed dense carrier `bt`
-    (`rer_spmm.TransposedBlocks`) by `blocked_spmm_t`, dX = dP W^T,
-    dW = X^T dP.  CPU tensors take the plain version; CUDA tensors the
-    `rer_spmm` kernel for dP."""
-    dp = spmm_ops.blocked_spmm_t(bt, g, q=q)
+    A^T G over the forward tiles by `rer_spmm.blocked_spmm_t`, dX = dP
+    W^T, dW = X^T dP.  CPU tensors take the plain version; CUDA tensors
+    the `rer_spmm` kernel's transposed launcher for dP."""
+    dp = spmm_ops.blocked_spmm_t(blocks, block_row, block_col, g, q=q)
     return dp @ w.t(), x.t() @ dp
 
 
 class _Fused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, blocks, block_row, block_col, q, transposed,
-                columns):
+    def forward(ctx, x, w, blocks, block_row, block_col, q, columns):
         ctx.save_for_backward(x, w)
-        ctx.q, ctx.transposed = q, transposed
+        ctx.q, ctx.carrier = q, (blocks, block_row, block_col)
         return _forward(blocks, block_row, block_col, x, w, q, columns)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = fused_engn_bwd(ctx.transposed(), x, w, g.contiguous(),
+        dx, dw = fused_engn_bwd(*ctx.carrier, x, w, g.contiguous(),
                                 q=ctx.q)
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def fused_engn_layer(blocks: torch.Tensor, block_row: torch.Tensor,
                      block_col: torch.Tensor, x: torch.Tensor,
                      w: torch.Tensor, *, q: int,
-                     transposed: Optional[Callable[[], object]],
                      columns: Optional[ColumnTable] = None
                      ) -> torch.Tensor:
     """Y (q*T, H) = A (X W) over the dense tiles of A (an interval
     without tiles comes out 0).  CPU tensors take the plain version;
     CUDA tensors the kernel, which walks the tiles by `columns` (the
-    plan's `ColumnTable`; built for the call when None).  When autograd
-    needs dX or dW, the backward runs over the transposed carrier
-    `transposed()` returns (a plan builds it once and caches it); None is
-    for calls that autograd does not differentiate."""
+    plan's `ColumnTable`; built for the call when None).  Under autograd
+    the backward (`fused_engn_bwd`) walks the same tiles."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused_engn for device {x.device}")
     if blocks.requires_grad:
@@ -207,8 +206,4 @@ def fused_engn_layer(blocks: torch.Tensor, block_row: torch.Tensor,
     if not (torch.is_grad_enabled()
             and (x.requires_grad or w.requires_grad)):
         return _forward(blocks, block_row, block_col, x, w, q, columns)
-    if transposed is None:
-        raise ValueError("fused_engn_layer under autograd needs the "
-                         "transposed carrier: pass transposed=")
-    return _Fused.apply(x, w, blocks, block_row, block_col, q, transposed,
-                        columns)
+    return _Fused.apply(x, w, blocks, block_row, block_col, q, columns)

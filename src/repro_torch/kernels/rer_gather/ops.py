@@ -7,21 +7,22 @@ the store to global `(gsrc, gdst, gval)` entries.
 
 Device side: one launch of the hand-written CUDA kernel
 `csrc/rer_gather.cu` covers a whole aggregate for CUDA tensors: every
-bucket group of a plan (`packed_groups_spmm`, its sum backward over the
-transposed store's groups `packed_spmm_t`, and the single-group raw form
-`packed_spmm`), walked through a work table (`work_table`) that cuts the
-real entries into segments of about `SEG_ENTRIES` entries in
-destination order and never names a pad slot.  A plan's groups
-(`PlanGroups`, built where the plan uploads them) carry their table,
-made from the host arrays; any other list of groups builds one at each
-call from the per-tile real counts read back.  CPU tensors take the
-plain versions: `packed_spmm_plain` per group (gather the referenced
-rows, scale, segment-reduce), merged by + / maximum.  The max backward
-runs the two kernels of `csrc/rer_gather_bwd.cu`, which split the
-cotangent evenly over all tied entries of a row, as the reference's
-flat `segment_max` does.  `packed_flat_plain` is the one-launch plain
-form the CPU path of `prepare_graph` carries (autograd differentiates it
-directly).  `packed_tile_part` is the streamed executor's call form:
+bucket group of a plan (`packed_groups_spmm`, and the single-group raw
+form `packed_spmm`), walked through a work table (`work_table`) that
+cuts the real entries into segments of about `SEG_ENTRIES` entries in
+destination order and never names a pad slot.  The backward walks the
+same groups through the same table, one launch per pass, in
+`csrc/rer_gather_bwd.cu`: the sum's dX = A^T G and the max's count
+and scatter (`rer_gather_bwd`); no carrier of A^T is built.  A plan's groups (`PlanGroups`, built where the plan uploads
+them) carry their table, made from the host arrays; any other list of
+groups builds one at each call from the per-tile real counts read back.
+CPU tensors take the plain versions: `packed_spmm_plain` per group
+(gather the referenced rows, scale, segment-reduce), merged by + /
+maximum.  The max backward splits the cotangent evenly over all tied
+entries of a row, as the reference's flat `segment_max` does.
+`packed_flat_plain` is the one-launch plain form the CPU path of
+`prepare_graph` carries (autograd differentiates it directly).
+`packed_tile_part` is the streamed executor's call form:
 one chunk of C packed tiles against the (C, T, F) stack of their source
 intervals, reduced into one destination interval's raw (T, F) partial,
 one warp per (tile, 64-slot slice); its plain version is
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -54,8 +55,10 @@ from repro_torch.kernels._common import (check_range, check_status,
 
 # kernel launches by op and call form, counted where the kernel is
 # launched: "sum"/"max" for bucket groups (one per aggregate), "sum_t"
-# for the sum backward over the transposed store's groups, "tile_part_*"
-# for the streamed executor's chunks
+# for the sum backward over the same groups (`rer_gather_bwd.cu`'s
+# scatter, one per aggregate, launched and counted by
+# `rer_gather_bwd.packed_groups_t`), "tile_part_*" for the streamed
+# executor's chunks
 LAUNCHES = {"sum": 0, "max": 0, "sum_t": 0, "tile_part_sum": 0,
             "tile_part_max": 0}
 
@@ -313,7 +316,7 @@ def _check_groups(groups, dev: torch.device, q: int, t: int) -> None:
         check_range(gr["block_col"], q, "block_col")
 
 
-def _work(groups: Sequence[Dict[str, torch.Tensor]], q: int, t: int,
+def groups_work(groups: Sequence[Dict[str, torch.Tensor]], q: int, t: int,
           dev: torch.device) -> _Work:
     """A plan's table, held to the grid of x; for any other list of
     groups, a table built now, after the groups' checks, from the real
@@ -361,7 +364,7 @@ def _launch(groups, x, q, op, finish) -> torch.Tensor:
         raise ValueError(f"x rows {x.shape[0]} are not q={q} intervals")
     t = x.shape[0] // q
     f = x.shape[1]
-    w = _work(groups, q, t, dev)
+    w = groups_work(groups, q, t, dev)
     y = torch.empty((q * t, f), dtype=torch.float32, device=dev)
     status = _lib().rer_gather_launch(
         w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
@@ -426,18 +429,11 @@ def packed_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     return _aggregate([gr], x, q, op, finish, op)
 
 
-def packed_spmm_t(groups_t: Sequence[Dict[str, torch.Tensor]],
-                  g: torch.Tensor, *, q: int) -> torch.Tensor:
-    """A^T G over the groups of the transposed store: the sum backward
-    of `packed_groups_spmm`, one launch on CUDA."""
-    return _aggregate(groups_t, g, q, "sum", True, "sum_t")
-
-
 class _PackedGroups(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, groups, q, op, transposed):
+    def forward(ctx, x, groups, q, op):
         y = _aggregate(groups, x, q, op, True, op)
-        ctx.groups, ctx.q, ctx.op, ctx.transposed = groups, q, op, transposed
+        ctx.groups, ctx.q, ctx.op = groups, q, op
         if op == "max":
             ctx.save_for_backward(x, y)
         return y
@@ -445,35 +441,27 @@ class _PackedGroups(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        from repro_torch.kernels.rer_gather_bwd import (packed_groups_t,
+                                                        packed_max_count,
+                                                        packed_max_scatter)
         g = g.contiguous()
-        q, groups_t = ctx.q, ctx.transposed()
         if ctx.op == "sum":
-            return packed_spmm_t(groups_t, g, q=q), None, None, None, None
-        from repro_torch.kernels.rer_gather_bwd import (packed_max_count,
-                                                        packed_max_grad)
+            return packed_groups_t(ctx.groups, g, q=ctx.q), None, None, None
         x, y = ctx.saved_tensors
-        dx = None
-        cnt = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-        for gr in ctx.groups:
-            packed_max_count(gr, x, y, cnt, q=q)
-        for gt in groups_t:
-            part = packed_max_grad(gt, x, y, g, cnt, q=q)
-            dx = part if dx is None else dx.add_(part)
-        return dx, None, None, None, None
+        cnt = packed_max_count(ctx.groups, x, y, q=ctx.q)
+        return (packed_max_scatter(ctx.groups, x, y, g, cnt, q=ctx.q), None,
+                None, None)
 
 
 def packed_groups_spmm(groups: Sequence[Dict[str, torch.Tensor]],
-                       x: torch.Tensor, *, q: int, op: str = "sum",
-                       transposed: Optional[Callable[[], Sequence[Dict[
-                           str, torch.Tensor]]]]
+                       x: torch.Tensor, *, q: int, op: str = "sum"
                        ) -> torch.Tensor:
     """The aggregate over a plan's bucket groups (dicts of `rows`,
     `cols`, `vals`, `block_row`, `block_col`): one kernel launch over
     every group on CUDA (the plain per-group partials merged by + /
-    maximum on the CPU), -inf finished once.  When autograd needs dX,
-    the backward runs over the groups `transposed()` returns (the plan
-    builds them from `transpose_packed_store` once); None is for calls
-    that autograd does not differentiate."""
+    maximum on the CPU), -inf finished once.  Under autograd the
+    backward walks the same groups: `rer_gather_bwd.packed_groups_t`
+    for the sum, its count and scatter for the max."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     if any(gr["vals"].requires_grad for gr in groups):
@@ -481,10 +469,7 @@ def packed_groups_spmm(groups: Sequence[Dict[str, torch.Tensor]],
                                   "entries are the graph, a constant")
     if not (torch.is_grad_enabled() and x.requires_grad):
         return _aggregate(groups, x, q, op, True, op)
-    if transposed is None:
-        raise ValueError("packed_groups_spmm under autograd needs the "
-                         "transposed groups: pass transposed=")
-    return _PackedGroups.apply(x, groups, q, op, transposed)
+    return _PackedGroups.apply(x, groups, q, op)
 
 
 def packed_tile_part(rows: torch.Tensor, cols: torch.Tensor,

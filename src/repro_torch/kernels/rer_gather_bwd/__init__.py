@@ -1,7 +1,10 @@
-from repro_torch.kernels.rer_gather_bwd.ops import (packed_max_count,
+from repro_torch.kernels.rer_gather_bwd.ops import (packed_groups_t,
+                                                   packed_groups_t_plain,
+                                                   packed_max_count,
                                                    packed_max_count_plain,
-                                                   packed_max_grad,
-                                                   packed_max_grad_plain)
+                                                   packed_max_scatter,
+                                                   packed_max_scatter_plain)
 
-__all__ = ["packed_max_count", "packed_max_count_plain", "packed_max_grad",
-           "packed_max_grad_plain"]
+__all__ = ["packed_groups_t", "packed_groups_t_plain", "packed_max_count",
+           "packed_max_count_plain", "packed_max_scatter",
+           "packed_max_scatter_plain"]

@@ -1,48 +1,57 @@
-"""The max backward of RER-Gather over packed bucket groups.
+"""The backward of RER-Gather over a plan's packed bucket groups.
 
-Two call forms, each one launch per bucket group, of the hand-written
-CUDA kernels in `csrc/rer_gather_bwd.cu` for CUDA tensors, and their
+Each pass is ONE launch per aggregate of the hand-written CUDA kernels
+in `csrc/rer_gather_bwd.cu`, over the forward groups' own work table
+(`rer_gather.PlanGroups.work`, the forward kernel's), for CUDA tensors;
 plain versions for CPU tensors:
 
-  * `packed_max_count` (over the forward groups) adds, per destination
-    row and feature, the number of entries that tie for the max into an
-    int32 count;
-  * `packed_max_grad` (over the groups of the transposed store) returns
-    one group's partial dX: v * g / count for every winning entry.
+  * `packed_max_count`: per destination row and feature, the number of
+    entries of every group that tie for the max, as int32;
+  * `packed_max_scatter`: dX, v * g / count for every winning entry;
+  * `packed_groups_t`: the sum's dX = A^T G, the same scatter with no
+    counts (counted as rer_gather's "sum_t").
 
-Together they give the gradient of the reference's flat `segment_max`
-(`packed_flat_xla`): the cotangent of a row splits evenly over all its
-tied entries, whichever bucket group holds them.
+Together the max passes give the gradient of the reference's flat
+`segment_max` (`packed_flat_xla`): the cotangent of a row splits evenly
+over all its tied entries, whichever bucket group holds them.  No
+carrier of A^T is built and no per-group partial is allocated.
 
 Source note.  The backward of `repro/kernels/rer_gather/rer_gather.py::
-rer_gather` (`_gather_kernel_max`), which the reference differentiates
-only through XLA.  On the H100 it is bound by bytes: 12 B per entry plus
-the referenced rows of x, y, g and the count.  One CTA per (interval,
-32-wide feature chunk) per group, as the forward; the count uses shared
-integer atomics (exact), the gradient shared float atomics (fp32
-rounding differs from the plain version's order).
+rer_gather` (`_gather_kernel_sum`, `_gather_kernel_max`), which the
+reference differentiates only through XLA.  On the H100 it is bound by
+bytes: 12 B per real entry plus the referenced rows of x, y, g and the
+count.  The kernels walk the forward's segments (one warp per <= 64
+real entries, in destination order, no pad slot read); the count keeps
+the running destination row's y and count in registers and adds into
+the count with integer atomics (exact in any order), the scatter loads
+each entry's g (and y and count) with its x row and adds into dX with
+fire-and-forget float atomics (the order varies from run to run, so dX
+agrees with the plain version to fp32 rounding).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (check_range, check_status,
-                                         check_tensor, stream_handle,
-                                         tile_ptr)
+from repro_torch.kernels._common import (check_status, check_tensor,
+                                         stream_handle)
+from repro_torch.kernels.rer_gather import ops as gather_ops
 
-# kernel launches, counted where launched: "count" per forward group,
-# "max" per transposed group
+# kernel launches, counted where launched: "count" and "max" (the
+# scatter), one each per max aggregate's backward; the sum's scatter is
+# counted in rer_gather.LAUNCHES["sum_t"], beside the forward it
+# differentiates
 LAUNCHES = {"count": 0, "max": 0}
 
-_KEYS = ("rows", "cols", "vals", "block_row", "block_col")
+Groups = Sequence[Dict[str, torch.Tensor]]
 
 
-def _flat(gr: Dict[str, torch.Tensor], t: int):
-    """A group's entries as global (dst, src, val) vertex indices."""
+def group_entries(gr: Dict[str, torch.Tensor], t: int):
+    """A group's (K, S) slots as flat global (dst, src, val) vertex
+    indices and weights, pads included (weight 0)."""
     dst = (gr["block_row"].long()[:, None] * t
            + gr["rows"].long()).reshape(-1)
     src = (gr["block_col"].long()[:, None] * t
@@ -50,32 +59,48 @@ def _flat(gr: Dict[str, torch.Tensor], t: int):
     return dst, src, gr["vals"].reshape(-1)
 
 
+def packed_groups_t_plain(groups: Groups, g: torch.Tensor, *,
+                          q: int) -> torch.Tensor:
+    """dX (q*T, F) = A^T G over a plan's forward groups in plain
+    PyTorch, on any device: dx[src] += val * g[dst] per entry."""
+    dx = torch.zeros_like(g)
+    for gr in groups:
+        dst, src, v = group_entries(gr, g.shape[0] // q)
+        dx.index_add_(0, src, v[:, None] * g[dst])
+    return dx
+
+
 def _win(v, xs, yd):
     return (v != 0.0)[:, None] & (v[:, None] * xs == yd)
 
 
-def packed_max_count_plain(gr: Dict[str, torch.Tensor], x: torch.Tensor,
-                           y: torch.Tensor, cnt: torch.Tensor, *,
-                           q: int) -> torch.Tensor:
-    """cnt[d, f] += #entries (d, s, v) of the group with v != 0 and
-    v * x[s, f] == y[d, f]; returns cnt (updated in place)."""
-    dst, src, v = _flat(gr, x.shape[0] // q)
-    win = _win(v, x[src], y[dst])
-    return cnt.index_add_(0, dst, win.to(cnt.dtype))
+def packed_max_count_plain(groups: Groups, x: torch.Tensor,
+                           y: torch.Tensor, *, q: int) -> torch.Tensor:
+    """cnt (int32, the shape of x): per destination row d and feature f,
+    the entries (d, s, v) of every group with v != 0 and
+    v * x[s, f] == y[d, f]."""
+    t = x.shape[0] // q
+    cnt = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for gr in groups:
+        dst, src, v = group_entries(gr, t)
+        cnt.index_add_(0, dst, _win(v, x[src], y[dst]).to(cnt.dtype))
+    return cnt
 
 
-def packed_max_grad_plain(gr_t: Dict[str, torch.Tensor], x: torch.Tensor,
-                          y: torch.Tensor, g: torch.Tensor,
-                          cnt: torch.Tensor, *, q: int) -> torch.Tensor:
-    """One transposed group's partial dX: dx[s] += v * g[d] / cnt[d]
-    over its winning entries (rows are the source, cols the destination
-    of the forward edge)."""
-    src, dst, v = _flat(gr_t, x.shape[0] // q)
-    win = _win(v, x[src], y[dst])
-    share = g[dst] / torch.clamp_min(cnt[dst], 1).float()
-    part = torch.where(win, v[:, None] * share,
-                       torch.zeros((), device=x.device))
-    return torch.zeros_like(x).index_add_(0, src, part)
+def packed_max_scatter_plain(groups: Groups, x: torch.Tensor,
+                             y: torch.Tensor, g: torch.Tensor,
+                             cnt: torch.Tensor, *, q: int) -> torch.Tensor:
+    """dX: dx[s] += v * (g[d] / cnt[d]) over the winning entries of
+    every group."""
+    t = x.shape[0] // q
+    dx = torch.zeros_like(x)
+    for gr in groups:
+        dst, src, v = group_entries(gr, t)
+        share = g[dst] / torch.clamp_min(cnt[dst], 1).float()
+        dx.index_add_(0, src, torch.where(_win(v, x[src], y[dst]),
+                                          v[:, None] * share,
+                                          torch.zeros((), device=x.device)))
+    return dx
 
 
 _LIB = None
@@ -86,85 +111,104 @@ def _lib():
     if _LIB is None:
         lib = _build.load("rer_gather_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rer_gather_max_count_launch.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.rer_gather_max_count_launch.argtypes = (
+            [p] * 4 + [i] + [p] * 3 + [i] * 3 + [p])
         lib.rer_gather_max_count_launch.restype = i
-        lib.rer_gather_max_grad_launch.argtypes = [p] * 10 + [i] * 4 + [p]
-        lib.rer_gather_max_grad_launch.restype = i
+        lib.rer_gather_bwd_scatter_launch.argtypes = (
+            [p] * 4 + [i] + [p] * 5 + [i] * 4 + [p])
+        lib.rer_gather_bwd_scatter_launch.restype = i
         _LIB = lib
     return _LIB
 
 
-def _check(gr, x, q, tensors):
-    dev = x.device
-    for key in _KEYS:
-        ndim = 2 if key in ("rows", "cols", "vals") else 1
-        dtype = torch.float32 if key == "vals" else torch.int32
-        check_tensor(gr[key], key, dtype, dev, ndim)
-    k, s = gr["rows"].shape
-    if gr["cols"].shape != (k, s) or gr["vals"].shape != (k, s):
-        raise ValueError("rows, cols and vals must share one (K, S) shape")
-    if gr["block_row"].numel() != k or gr["block_col"].numel() != k:
-        raise ValueError(f"{k} packed tiles but block_row/block_col hold "
-                         f"{gr['block_row'].numel()}/"
-                         f"{gr['block_col'].numel()}")
-    if q <= 0 or x.shape[0] % q:
-        raise ValueError(f"x rows {x.shape[0]} are not q={q} intervals")
+def _table(groups: Groups, ref: torch.Tensor, q: int, tensors):
+    """The groups' work table, held to the grid of `ref` (q*T, F), after
+    the checks of the dense operands (name, tensor, dtype)."""
+    dev = ref.device
     for name, tensor, dtype in tensors:
         check_tensor(tensor, name, dtype, dev, 2)
-        if tensor.shape != x.shape:
-            raise ValueError(f"{name} {tuple(tensor.shape)} must match x "
-                             f"{tuple(x.shape)}")
-    t = x.shape[0] // q
-    ptr = tile_ptr(gr["block_row"], q)
-    check_range(gr["block_col"], q, "block_col")
-    check_range(gr["rows"], t, "rows")
-    check_range(gr["cols"], t, "cols")
-    return ptr, s, t, x.shape[1]
+        if tensor.shape != ref.shape:
+            raise ValueError(f"{name} {tuple(tensor.shape)} must match "
+                             f"{tuple(ref.shape)}")
+    if q <= 0 or ref.shape[0] % q:
+        raise ValueError(f"{ref.shape[0]} rows are not q={q} intervals")
+    if not groups:
+        raise ValueError("a backward needs at least one bucket group")
+    return gather_ops.groups_work(groups, q, ref.shape[0] // q, dev)
 
 
-def packed_max_count(gr: Dict[str, torch.Tensor], x: torch.Tensor,
-                     y: torch.Tensor, cnt: torch.Tensor, *,
+def scatter_launch(groups: Groups, g: torch.Tensor, q: int,
+                   x: Optional[torch.Tensor] = None,
+                   y: Optional[torch.Tensor] = None,
+                   cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the scatter kernel once over the groups' work table
+    (counted by the caller): dX of the sum when `cnt` is None, of the
+    max (the winners of x and y, counted in `cnt`) otherwise."""
+    op_max = cnt is not None
+    dense = [("g", g, torch.float32)]
+    if op_max:
+        dense += [("x", x, torch.float32), ("y", y, torch.float32),
+                  ("cnt", cnt, torch.int32)]
+    w = _table(groups, g, q, dense)
+    dx = torch.empty_like(g)
+    status = _lib().rer_gather_bwd_scatter_launch(
+        w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
+        w.seg_ptr.data_ptr(), w.n_seg,
+        x.data_ptr() if op_max else None, y.data_ptr() if op_max else None,
+        g.data_ptr(), cnt.data_ptr() if op_max else None, dx.data_ptr(), q,
+        g.shape[0] // q, g.shape[1], int(op_max), stream_handle(g.device))
+    check_status(status, "rer_gather_bwd scatter")
+    return dx
+
+
+def packed_groups_t(groups: Groups, g: torch.Tensor, *,
+                    q: int) -> torch.Tensor:
+    """dX (q*T, F) = A^T G over a plan's forward groups: the sum
+    backward of `rer_gather.packed_groups_spmm`.  CPU tensors take the
+    plain version; CUDA tensors one launch of the scatter over the
+    groups' work table (no carrier of A^T)."""
+    if g.device.type == "cpu":
+        return packed_groups_t_plain(groups, g, q=q)
+    if g.device.type != "cuda":
+        raise ValueError(f"no rer_gather_bwd for device {g.device}")
+    dx = scatter_launch(groups, g, q)
+    gather_ops.LAUNCHES["sum_t"] += 1
+    return dx
+
+
+def packed_max_count(groups: Groups, x: torch.Tensor, y: torch.Tensor, *,
                      q: int) -> torch.Tensor:
-    """Add one forward group's tied winners into `cnt` (int32, the shape
-    of x) in place and return it.  x is the forward's input and y its
-    finished output, (q*T, F).  CPU tensors take the plain version;
-    CUDA tensors the kernel."""
+    """The tied winners (int32, the shape of x) of a max aggregate over
+    a plan's groups: x is the forward's input and y its finished output,
+    (q*T, F).  CPU tensors take the plain version; CUDA tensors one
+    kernel launch."""
     if x.device.type == "cpu":
-        return packed_max_count_plain(gr, x, y, cnt, q=q)
+        return packed_max_count_plain(groups, x, y, q=q)
     if x.device.type != "cuda":
         raise ValueError(f"no rer_gather_bwd for device {x.device}")
-    check_tensor(x, "x", torch.float32, x.device, 2)
-    ptr, s, t, f = _check(gr, x, q, [("y", y, torch.float32),
-                                     ("cnt", cnt, torch.int32)])
+    w = _table(groups, x, q, [("x", x, torch.float32),
+                              ("y", y, torch.float32)])
+    cnt = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     status = _lib().rer_gather_max_count_launch(
-        gr["rows"].data_ptr(), gr["cols"].data_ptr(), gr["vals"].data_ptr(),
-        gr["block_col"].data_ptr(), ptr.data_ptr(), x.data_ptr(),
-        y.data_ptr(), cnt.data_ptr(), q, s, t, f, stream_handle(x.device))
+        w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
+        w.seg_ptr.data_ptr(), w.n_seg, x.data_ptr(), y.data_ptr(),
+        cnt.data_ptr(), q, x.shape[0] // q, x.shape[1],
+        stream_handle(x.device))
     check_status(status, "rer_gather_bwd count")
     LAUNCHES["count"] += 1
     return cnt
 
 
-def packed_max_grad(gr_t: Dict[str, torch.Tensor], x: torch.Tensor,
-                    y: torch.Tensor, g: torch.Tensor, cnt: torch.Tensor, *,
-                    q: int) -> torch.Tensor:
-    """One transposed group's partial dX (q*T, F) for the cotangent g,
-    with the counts of every forward group in `cnt`.  CPU tensors take
-    the plain version; CUDA tensors the kernel."""
+def packed_max_scatter(groups: Groups, x: torch.Tensor, y: torch.Tensor,
+                       g: torch.Tensor, cnt: torch.Tensor, *,
+                       q: int) -> torch.Tensor:
+    """dX (q*T, F) of a max aggregate over a plan's groups for the
+    cotangent g, with the winners counted in `cnt`.  CPU tensors take
+    the plain version; CUDA tensors one kernel launch."""
     if x.device.type == "cpu":
-        return packed_max_grad_plain(gr_t, x, y, g, cnt, q=q)
+        return packed_max_scatter_plain(groups, x, y, g, cnt, q=q)
     if x.device.type != "cuda":
         raise ValueError(f"no rer_gather_bwd for device {x.device}")
-    check_tensor(x, "x", torch.float32, x.device, 2)
-    ptr, s, t, f = _check(gr_t, x, q, [("y", y, torch.float32),
-                                       ("g", g, torch.float32),
-                                       ("cnt", cnt, torch.int32)])
-    dx = torch.empty_like(x)
-    status = _lib().rer_gather_max_grad_launch(
-        gr_t["rows"].data_ptr(), gr_t["cols"].data_ptr(),
-        gr_t["vals"].data_ptr(), gr_t["block_col"].data_ptr(),
-        ptr.data_ptr(), x.data_ptr(), y.data_ptr(), g.data_ptr(),
-        cnt.data_ptr(), dx.data_ptr(), q, s, t, f, stream_handle(x.device))
-    check_status(status, "rer_gather_bwd grad")
+    dx = scatter_launch(groups, g, q, x, y, cnt)
     LAUNCHES["max"] += 1
     return dx

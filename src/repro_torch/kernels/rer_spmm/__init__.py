@@ -1,7 +1,8 @@
-from repro_torch.kernels.rer_spmm.ops import (TransposedBlocks, blocked_spmm,
+from repro_torch.kernels.rer_spmm.ops import (blocked_spmm,
                                              blocked_spmm_plain,
-                                             blocked_spmm_t, prepare_blocks,
-                                             transpose_blocks_on)
+                                             blocked_spmm_t,
+                                             blocked_spmm_t_plain,
+                                             prepare_blocks)
 
-__all__ = ["TransposedBlocks", "blocked_spmm", "blocked_spmm_plain",
-           "blocked_spmm_t", "prepare_blocks", "transpose_blocks_on"]
+__all__ = ["blocked_spmm", "blocked_spmm_plain", "blocked_spmm_t",
+           "blocked_spmm_t_plain", "prepare_blocks"]

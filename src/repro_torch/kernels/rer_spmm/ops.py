@@ -6,12 +6,13 @@ in plain PyTorch (tile gather + batched tile product + reduce at the
 destination intervals), for CPU tensors.  Under autograd it is a
 `torch.autograd.Function`:
 
-  * sum: dX = A^T G, the same kernel over the transposed carrier
-    (`TransposedBlocks`, `transpose_blocks_on`), launched through
-    `blocked_spmm_t`;
+  * sum: dX = A^T G by `blocked_spmm_t`, the kernel's transposed
+    launcher (`rer_spmm_t_launch`) over the forward tiles;
   * max: `rer_spmm_bwd.blocked_spmm_max_bwd` (`csrc/rer_spmm_bwd.cu`),
     the reference's two-level tie split (within a tile, then across the
-    tiles of an interval), over the forward tiles: no A^T is built.
+    tiles of an interval), over the forward tiles.
+Neither builds a carrier of A^T (nor does the reference: XLA
+differentiates its tiles).
 
 Source note.  Replaces `repro/kernels/rer_spmm/rer_spmm.py::rer_spmm`
 (`_spmm_kernel_sum`, `_spmm_kernel_max`).  On the H100 it is bound by
@@ -22,32 +23,30 @@ slab's nonzeros on chip and gathers only the X rows they name; one CTA
 per (span piece, row slab) with each interval's span cut into balanced
 pieces of at most `PIECE_TILES` tiles (`span_pieces`, built on the host
 once per carrier), merged in Y by atomics where an interval is split.
-See the kernel source for the rest.
+The transposed launcher keeps that tile stream and scatters a * G[r] of
+each nonzero into dX[u] with atomics.  See the kernel source for the
+rest.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional
-
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.graphs.partition import transpose_block_index
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (_memo, check_range, check_status,
                                          check_tensor, stream_handle,
                                          tile_ptr)
 
 # kernel launches, counted where the kernel is launched: "sum"/"max" for
-# the forward, "sum_t" for the sum backward over the transposed carrier
+# the forward, "sum_t" for the sum backward dX = A^T G
 LAUNCHES = {"sum": 0, "max": 0, "sum_t": 0}
 
-# tiles per gathered slab when the transposed carrier is built
-_TRANSPOSE_SLAB = 256
-
-# elements of one (tiles, T, T, F) candidate slab in the plain max
+# elements of one (tiles, T, T, F) candidate slab in the plain max, and
+# of one (tiles, T, F) product slab in the plain A^T G
 _PLAIN_MAX_SLAB = 1 << 26
+_PLAIN_T_SLAB = 1 << 24
 
 # most tiles one CTA of the kernel walks: longer spans are cut into
 # balanced pieces merged by atomics
@@ -102,6 +101,24 @@ def blocked_spmm_plain(blocks: torch.Tensor, block_row: torch.Tensor,
     return y.reshape(q * t, f)
 
 
+def blocked_spmm_t_plain(blocks: torch.Tensor, block_row: torch.Tensor,
+                         block_col: torch.Tensor, g: torch.Tensor, *,
+                         q: int) -> torch.Tensor:
+    """dX (q*T, F) = A^T G over the forward tiles in plain PyTorch, on
+    any device: per tile A_k^T @ G[br_k], added at bc_k, over slabs of
+    tiles (never a (nnzb, T, F) stack of the whole carrier)."""
+    nnzb, t, _ = blocks.shape
+    f = g.shape[1]
+    gi = g.reshape(q, t, f)
+    dx = torch.zeros(q, t, f, dtype=torch.float32, device=g.device)
+    step = max(1, _PLAIN_T_SLAB // max(1, t * f))
+    for k0 in range(0, nnzb, step):
+        part = torch.bmm(blocks[k0:k0 + step].transpose(1, 2),
+                         gi[block_row[k0:k0 + step].long()])
+        dx.index_add_(0, block_col[k0:k0 + step].long(), part)
+    return dx.reshape(q * t, f)
+
+
 def span_pieces(ptr: np.ndarray, piece_tiles: int = PIECE_TILES):
     """Cut each destination interval's tile span `[ptr[i], ptr[i+1])`
     into ceil(span / piece_tiles) pieces of balanced length: an
@@ -144,48 +161,17 @@ def _lib():
         lib.rer_spmm_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, i, i,
                                         p]
         lib.rer_spmm_launch.restype = i
+        lib.rer_spmm_t_launch.argtypes = [p, p, p, i, p, p, i, i, i, i, p]
+        lib.rer_spmm_t_launch.restype = i
         _LIB = lib
     return _LIB
-
-
-class TransposedBlocks(NamedTuple):
-    """The dense blocked carrier of A^T on the device: tiles A_k^T
-    sorted by destination (the forward's source interval), every
-    interval present; `tile_of[k]` is the forward tile of transposed
-    tile k, -1 for a pad (see `graphs.partition.transpose_block_index`)."""
-    blocks: torch.Tensor
-    block_row: torch.Tensor
-    block_col: torch.Tensor
-    tile_of: torch.Tensor
-
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self)
-
-
-def transpose_blocks_on(blocks: torch.Tensor, block_row: torch.Tensor,
-                        block_col: torch.Tensor, q: int) -> TransposedBlocks:
-    """Build the transposed carrier on the forward carrier's device:
-    the tile order comes from the host (two small index arrays read
-    back once), the tiles are gathered and transposed on the device."""
-    dev = blocks.device
-    tile_of, brow, bcol = transpose_block_index(
-        block_row.cpu().numpy(), block_col.cpu().numpy(), q)
-    t = blocks.shape[1]
-    out = torch.zeros((tile_of.size, t, t), dtype=blocks.dtype, device=dev)
-    real = np.nonzero(tile_of >= 0)[0]
-    for c0 in range(0, real.size, _TRANSPOSE_SLAB):
-        dst = torch.from_numpy(real[c0:c0 + _TRANSPOSE_SLAB]).to(dev)
-        src = torch.from_numpy(tile_of[real[c0:c0 + _TRANSPOSE_SLAB]]).to(dev)
-        out[dst] = blocks[src].transpose(1, 2)
-    return TransposedBlocks(out, torch.from_numpy(brow).to(dev),
-                            torch.from_numpy(bcol).to(dev),
-                            torch.from_numpy(tile_of.astype(np.int32)).to(dev))
 
 
 def _launch(blocks: torch.Tensor, block_row: torch.Tensor,
             block_col: torch.Tensor, x: torch.Tensor, q: int,
             op: str) -> torch.Tensor:
-    """Check the arguments and launch the kernel (counted by the caller)."""
+    """Check the arguments and launch the kernel (counted by the
+    caller): the forward for "sum" / "max", dX = A^T x for "t"."""
     dev = x.device
     check_tensor(blocks, "blocks", torch.float32, dev, 3)
     check_tensor(block_row, "block_row", torch.int32, dev, 1)
@@ -203,6 +189,13 @@ def _launch(blocks: torch.Tensor, block_row: torch.Tensor,
     check_range(block_col, q, "block_col")
     vec = t % 4 == 0 and blocks.data_ptr() % 16 == 0
     y = torch.empty((q * t, f), dtype=torch.float32, device=dev)
+    if op == "t":
+        status = _lib().rer_spmm_t_launch(
+            blocks.data_ptr(), block_col.data_ptr(), pieces.data_ptr(),
+            pieces.shape[0], x.data_ptr(), y.data_ptr(), q, t, f, int(vec),
+            stream_handle(dev))
+        check_status(status, "rer_spmm (A^T G)")
+        return y
     status = _lib().rer_spmm_launch(
         blocks.data_ptr(), block_col.data_ptr(), pieces.data_ptr(),
         pieces.shape[0], int(fill), x.data_ptr(), y.data_ptr(), q, t, f,
@@ -211,32 +204,39 @@ def _launch(blocks: torch.Tensor, block_row: torch.Tensor,
     return y
 
 
-def _forward(blocks, block_row, block_col, x, q, op, key) -> torch.Tensor:
+def _forward(blocks, block_row, block_col, x, q, op) -> torch.Tensor:
     if x.device.type == "cpu":
         return blocked_spmm_plain(blocks, block_row, block_col, x, q=q,
                                   op=op)
     if x.device.type != "cuda":
         raise ValueError(f"no rer_spmm for device {x.device}")
     y = _launch(blocks, block_row, block_col, x, q, op)
-    LAUNCHES[key] += 1
+    LAUNCHES[op] += 1
     return y
 
 
-def blocked_spmm_t(bt: TransposedBlocks, g: torch.Tensor, *,
+def blocked_spmm_t(blocks: torch.Tensor, block_row: torch.Tensor,
+                   block_col: torch.Tensor, g: torch.Tensor, *,
                    q: int) -> torch.Tensor:
-    """A^T G over the transposed carrier: the sum backward of
-    `blocked_spmm` (and the A^T half of the fused backward).  CPU
-    tensors take the plain version; CUDA tensors the forward kernel."""
-    return _forward(bt.blocks, bt.block_row, bt.block_col, g, q, "sum",
-                    "sum_t")
+    """dX (q*T, F) = A^T G over the forward carrier (the tiles of A,
+    sorted by destination interval): the sum backward of `blocked_spmm`
+    and the dP of the fused backward.  CPU tensors take the plain
+    version; CUDA tensors the kernel's transposed launcher.  No carrier
+    of A^T is built."""
+    if g.device.type == "cpu":
+        return blocked_spmm_t_plain(blocks, block_row, block_col, g, q=q)
+    if g.device.type != "cuda":
+        raise ValueError(f"no rer_spmm for device {g.device}")
+    dx = _launch(blocks, block_row, block_col, g, q, "t")
+    LAUNCHES["sum_t"] += 1
+    return dx
 
 
 class _BlockedSpmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, blocks, block_row, block_col, q, op, transposed,
-                counts):
-        y = _forward(blocks, block_row, block_col, x, q, op, op)
-        ctx.q, ctx.op, ctx.transposed = q, op, transposed
+    def forward(ctx, x, blocks, block_row, block_col, q, op, counts):
+        y = _forward(blocks, block_row, block_col, x, q, op)
+        ctx.q, ctx.op = q, op
         ctx.carrier, ctx.counts = (blocks, block_row, block_col), counts
         if op == "max":
             ctx.save_for_backward(x, y)
@@ -247,30 +247,24 @@ class _BlockedSpmm(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous()
         if ctx.op == "sum":
-            dx = blocked_spmm_t(ctx.transposed(), g, q=ctx.q)
+            dx = blocked_spmm_t(*ctx.carrier, g, q=ctx.q)
         else:
-            # the max backward walks the forward tiles: no A^T is built
             from repro_torch.kernels.rer_spmm_bwd import blocked_spmm_max_bwd
             x, y = ctx.saved_tensors
             dx = blocked_spmm_max_bwd(*ctx.carrier, x, y, g, q=ctx.q,
                                       counts=ctx.counts)
-        return dx, None, None, None, None, None, None, None
+        return dx, None, None, None, None, None, None
 
 
 def blocked_spmm(blocks: torch.Tensor, block_row: torch.Tensor,
                  block_col: torch.Tensor, x: torch.Tensor, *, q: int,
-                 op: str = "sum",
-                 transposed: Optional[Callable[[], TransposedBlocks]],
-                 counts=None) -> torch.Tensor:
+                 op: str = "sum", counts=None) -> torch.Tensor:
     """Y (q*T, F) = A X over dense tiles sorted by destination interval
     (`block_row` non-decreasing; an interval without tiles comes out 0).
-    CPU tensors take the plain version; CUDA tensors the kernel.  When
-    autograd needs dX of a sum, the backward runs over the transposed
-    carrier that `transposed()` returns (a plan builds it once and caches
-    it); None is for calls that autograd does not differentiate.  The
-    max backward walks the forward tiles (`rer_spmm_bwd`, with the
-    carrier's `RowCounts` `counts` where the plan has them) and never
-    calls `transposed`."""
+    CPU tensors take the plain version; CUDA tensors the kernel.  Under
+    autograd both backwards walk the same tiles: the sum's dX = A^T G by
+    `blocked_spmm_t`, the max's by `rer_spmm_bwd` (with the carrier's
+    `RowCounts` `counts` where the plan has them)."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     if x.device.type not in ("cpu", "cuda"):
@@ -279,9 +273,6 @@ def blocked_spmm(blocks: torch.Tensor, block_row: torch.Tensor,
         raise NotImplementedError("rer_spmm differentiates x only; the "
                                   "tiles are the graph, a constant")
     if not (torch.is_grad_enabled() and x.requires_grad):
-        return _forward(blocks, block_row, block_col, x, q, op, op)
-    if transposed is None and op == "sum":
-        raise ValueError("blocked_spmm under autograd needs the transposed "
-                         "carrier: pass transposed=")
+        return _forward(blocks, block_row, block_col, x, q, op)
     return _BlockedSpmm.apply(x, blocks, block_row, block_col, q, op,
-                              transposed, counts)
+                              counts)

@@ -6,8 +6,8 @@ PyTorch runs eagerly: the step is a plain function, the counterpart of
 the reference's jitted one, over the reference's parameter layout (a
 list of per-layer dicts of tensors).  On the resident backends every
 aggregate in the loss is an autograd Function whose backward is a
-kernel (the sum over the transposed carrier, the max backward kernels),
-so one step's launches are the forward's plus the backward's.
+kernel over the forward carrier (the sums' A^T G, the max backward
+kernels), so one step's launches are the forward's plus the backward's.
 """
 from __future__ import annotations
 

@@ -8,6 +8,7 @@ empty rows.  Max is exactly equal; sums agree to rtol=1e-4, atol=1e-5
 (the two frameworks reduce in different orders).  The kernels
 themselves run only on a card: the `cuda`-marked tests skip without one.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from repro_torch.graphs.partition import (build_tile_store, merge_by_key,
 from repro_torch.kernels import _build, _common
 from repro_torch.kernels.fused_engn import ops as t_fused
 from repro_torch.kernels.rer_gather import ops as t_gather
+from repro_torch.kernels.rer_gather_bwd import ops as t_gather_bwd
 from repro_torch.kernels.rer_spmm import ops as t_spmm
 from repro_torch.kernels.rer_spmm_bwd import ops as t_spmm_bwd
 
@@ -96,7 +98,7 @@ def test_blocked_spmm_plain_matches_reference(op, f, tile, impl):
     _check(got, want, op)
     # the wrapper takes the plain version for CPU tensors
     _check(t_spmm.blocked_spmm(_t(blocks), _t(brow), _t(bcol), _t(x),
-                               q=b.q, op=op, transposed=None), got, "max")
+                               q=b.q, op=op), got, "max")
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -115,6 +117,43 @@ def test_blocked_spmm_plain_without_pad_tiles(op):
                                     _t(b.block_col), _t(x), q=b.q, op=op)
     _check(got, want, op)
     assert not np.asarray(got)[80:].any()     # empty rows are 0
+
+
+def _dense_hub(tile, pads):
+    """The hub graph's dense carrier at tile T, with pad tiles for the
+    intervals that hold none (pads=True) or without them."""
+    b = coo_to_blocked(_hub_graph(), tile)
+    arrs = (t_spmm.prepare_blocks(b.blocks, b.block_row, b.block_col, b.q)
+            if pads else (b.blocks, b.block_row, b.block_col))
+    return b, arrs
+
+
+@pytest.mark.parametrize("f", [3, 13])
+@pytest.mark.parametrize("pads", [False, True])
+@pytest.mark.parametrize("tile", [16, 18])
+def test_blocked_spmm_t_plain_matches_vjp(f, pads, tile):
+    """The sum backward over the forward tiles, dX = A^T G, against
+    jax.vjp of the reference's `blocked_spmm_xla`: a hub interval whose
+    span (32 to 35 tiles) is longer than PIECE_TILES, intervals that no
+    tile names as source and, with pads=False, intervals without a tile
+    (with pads=True an all-zero pad tile); T = 18 is not a multiple of 4.
+    rtol 1e-5, and an absolute 1e-5 of the largest magnitude (sums of
+    hundreds of products taken in another order).  The wrapper takes the
+    plain version for CPU tensors."""
+    b, arrs = _dense_hub(tile, pads)
+    span = np.diff(np.searchsorted(arrs[1], np.arange(b.q + 1)))
+    assert span.max() > t_spmm.PIECE_TILES and (span == 0).any() != pads
+    g = np.random.default_rng(f + tile).standard_normal(
+        (b.padded_vertices, f)).astype(np.float32)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    _, vjp = jax.vjp(lambda xx: j_spmm.blocked_spmm_xla(*jarrs, xx, q=b.q),
+                     jnp.zeros(g.shape, jnp.float32))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = t_spmm.blocked_spmm_t_plain(*map(_t, arrs), _t(g), q=b.q).numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_array_equal(
+        t_spmm.blocked_spmm_t(*map(_t, arrs), _t(g), q=b.q).numpy(), got)
 
 
 # -- rer_gather -----------------------------------------------------------
@@ -338,14 +377,14 @@ def test_plan_groups_carry_the_table_a_read_back_builds(transposed):
     cpu = torch.device("cpu")
     plan = upload_groups(t_gather.prepare_packed_groups(store), cpu)
     assert isinstance(plan, t_gather.PlanGroups)
-    assert t_gather._work(plan, store.q, store.tile, cpu) is plan.work
-    built = t_gather._work(list(plan), store.q, store.tile, cpu)
+    assert t_gather.groups_work(plan, store.q, store.tile, cpu) is plan.work
+    built = t_gather.groups_work(list(plan), store.q, store.tile, cpu)
     for k in ("gtab", "pieces", "poff", "seg_ptr"):
         assert torch.equal(getattr(plan.work, k), getattr(built, k)), k
     assert plan.work.n_seg == built.n_seg
     assert plan.work.q <= store.q and plan.work.t <= store.tile
     with pytest.raises(ValueError, match="intervals"):
-        t_gather._work(plan, plan.work.q - 1, store.tile, cpu)
+        t_gather.groups_work(plan, plan.work.q - 1, store.tile, cpu)
 
 
 # -- fused_engn -----------------------------------------------------------
@@ -367,8 +406,7 @@ def test_fused_engn_plain_matches_reference(f, h, impl):
                                    _t(w), q=b.q)
     _check(got, want, "sum")
     _check(t_fused.fused_engn_layer(_t(blocks), _t(brow), _t(bcol), _t(x),
-                                    _t(w), q=b.q, transposed=None), got,
-           "max")
+                                    _t(w), q=b.q), got, "max")
 
 
 # -- what the wrappers share -----------------------------------------------
@@ -420,12 +458,11 @@ def test_check_tensor_rejects_bad_arguments():
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((32, 4), device="meta")
     with pytest.raises(ValueError, match="no rer_spmm"):
-        t_spmm.blocked_spmm(None, None, None, x, q=2, transposed=None)
+        t_spmm.blocked_spmm(None, None, None, x, q=2)
     with pytest.raises(ValueError, match="no rer_gather"):
         t_gather.packed_spmm(None, None, None, None, None, x, q=2)
     with pytest.raises(ValueError, match="no fused_engn"):
-        t_fused.fused_engn_layer(None, None, None, x, None, q=2,
-                                 transposed=None)
+        t_fused.fused_engn_layer(None, None, None, x, None, q=2)
 
 
 def test_build_dir_is_keyed_by_the_sources():
@@ -454,7 +491,7 @@ def test_rer_spmm_kernel_matches_plain_on_card(op, f):
     b = coo_to_blocked(_graph(seed=f), 32)
     x = torch.randn((b.padded_vertices, f), device=dev)
     args = [_t(a).to(dev) for a in (b.blocks, b.block_row, b.block_col)]
-    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op, transposed=None)
+    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op)
     want = t_spmm.blocked_spmm_plain(*args, x, q=b.q, op=op)
     _check(got.cpu(), want.cpu(), op)
 
@@ -516,11 +553,36 @@ def test_rer_spmm_split_spans_on_card(op, f, pads, tile):
     assert (t_spmm._pieces(args[1], b.q)[0][:, 3] == 1).any()
     x = _t(_hub_x(b.padded_vertices, f, op, f)).to(dev)
     before = t_spmm.LAUNCHES[op]
-    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op, transposed=None)
+    got = t_spmm.blocked_spmm(*args, x, q=b.q, op=op)
     want = t_spmm.blocked_spmm_plain(*args, x, q=b.q, op=op)
     torch.cuda.synchronize()
     assert t_spmm.LAUNCHES[op] == before + 1
     _check_hub(got.cpu(), want.cpu(), op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [3, 64, 100])
+@pytest.mark.parametrize("pads", [False, True])
+@pytest.mark.parametrize("tile", [16, 18])
+def test_rer_spmm_t_split_spans_on_card(f, pads, tile):
+    """B1^T, dX = A^T G over the forward tiles, on the hub graph: a
+    32- to 35-tile span cut into pieces, intervals with no tile or an
+    all-zero pad tile, intervals no tile names as source; F = 3 takes
+    scalar atomics, 64 and 100 float4 ones; T = 18 the 4-byte copies.
+    One launch a call, within 1e-5 of the largest magnitude."""
+    dev = _card()
+    b, arrs = _dense_hub(tile, pads)
+    args = [_t(a).to(dev) for a in arrs]
+    assert (t_spmm._pieces(args[1], b.q)[0][:, 3] == 1).any()
+    g = _t(_hub_x(b.padded_vertices, f, "sum", f + 1)).to(dev)
+    before = t_spmm.LAUNCHES["sum_t"]
+    got = t_spmm.blocked_spmm_t(*args, g, q=b.q)
+    want = t_spmm.blocked_spmm_t_plain(*args, g, q=b.q)
+    torch.cuda.synchronize()
+    assert t_spmm.LAUNCHES["sum_t"] == before + 1
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
 
 
 def _hub_groups(dev, transposed=False, integer=False):
@@ -538,24 +600,62 @@ def _hub_groups(dev, transposed=False, integer=False):
 def test_rer_gather_one_launch_per_aggregate_on_card(op, f, transposed):
     """Every bucket group in one launch: hub tiles of up to 256 entries
     cut across segments, all-pad tiles, empty intervals, ties straddling
-    the segments; forward groups and the transposed store's groups
-    (whose entries come in (col, row) order)."""
+    the segments; the store's groups and the transposed store's (whose
+    entries come in (col, row) order)."""
     dev = _card()
     store, groups, flat = _hub_groups(dev, transposed, op == "max")
     assert len(groups) > 1
     x = _t(_hub_x(store.padded_vertices, f, op, f)).to(dev)
     before = dict(t_gather.LAUNCHES)
-    if transposed and op == "sum":
-        got, key = t_gather.packed_spmm_t(groups, x, q=store.q), "sum_t"
-    else:
-        got = t_gather.packed_groups_spmm(groups, x, q=store.q, op=op,
-                                          transposed=None)
-        key = op
+    got = t_gather.packed_groups_spmm(groups, x, q=store.q, op=op)
     want = t_gather.packed_flat_plain(*flat, x, n=x.shape[0], op=op)
     torch.cuda.synchronize()
-    assert t_gather.LAUNCHES[key] == before[key] + 1
+    assert t_gather.LAUNCHES[op] == before[op] + 1
     assert sum(t_gather.LAUNCHES.values()) == sum(before.values()) + 1
     _check_hub(got.cpu(), want.cpu(), op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("f", [3, 64, 100])
+def test_rer_gather_bwd_one_launch_per_aggregate_on_card(op, f):
+    """The packed backward over the forward groups' work table, on the
+    hub graph, whose hub rows are split across segments and bucket
+    groups: the sum's A^T G in one launch; the max's count (equal to
+    the plain one) and scatter in one launch each, with integer-valued
+    x and weights, so maxima tie across segments and groups."""
+    dev = _card()
+    store, groups, flat = _hub_groups(dev, integer=op == "max")
+    assert len(groups) > 1
+    n = store.padded_vertices
+    x = _t(_hub_x(n, f, op, f)).to(dev)
+    g = _t(_hub_x(n, f, "sum", f + 7)).to(dev)
+    before = {**{"rer_gather_" + k: v for k, v in t_gather.LAUNCHES.items()},
+              **{"bwd_" + k: v for k, v in t_gather_bwd.LAUNCHES.items()}}
+    if op == "sum":
+        got = t_gather_bwd.packed_groups_t(groups, g, q=store.q)
+        want = t_gather_bwd.packed_groups_t_plain(groups, g, q=store.q)
+        torch.cuda.synchronize()
+        assert t_gather.LAUNCHES["sum_t"] == before["rer_gather_sum_t"] + 1
+    else:
+        y = t_gather.packed_flat_plain(*flat, x, n=n, op="max")
+        cnt = t_gather_bwd.packed_max_count(groups, x, y, q=store.q)
+        assert torch.equal(cnt, t_gather_bwd.packed_max_count_plain(
+            groups, x, y, q=store.q))
+        assert int(cnt.max()) > 1                       # ties
+        got = t_gather_bwd.packed_max_scatter(groups, x, y, g, cnt,
+                                              q=store.q)
+        want = t_gather_bwd.packed_max_scatter_plain(groups, x, y, g, cnt,
+                                                     q=store.q)
+        torch.cuda.synchronize()
+        assert t_gather_bwd.LAUNCHES["count"] == before["bwd_count"] + 1
+        assert t_gather_bwd.LAUNCHES["max"] == before["bwd_max"] + 1
+    after = sum(t_gather.LAUNCHES.values()) + sum(
+        t_gather_bwd.LAUNCHES.values())
+    assert after == sum(before.values()) + (1 if op == "sum" else 2)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.cuda
@@ -600,10 +700,11 @@ def test_max_backward_after_split_forward_on_card(fmt):
     """The max backward kernels read only the finished forward output:
     after a forward whose ties straddle pieces (dense) or segments
     (packed), the card's gradient equals the CPU's plain one.  The dense
-    backward runs without the carrier of A^T (`transposed=None`), also
-    on two graphs whose slabs overflow the kernel's shared list: 16 rows
-    of 300 in-edges (R drops to 8) and one star row of 4,200 in-edges
-    (R = 1; that slab walks its span twice)."""
+    backward walks the forward tiles, also on two graphs whose slabs
+    overflow the kernel's shared list: 16 rows of 300 in-edges (R drops
+    to 8) and one star row of 4,200 in-edges (R = 1; that slab walks its
+    span twice).  The packed backward is one count and one scatter
+    launch over the forward groups."""
     dev = _card()
     cases = [(_hub_graph(integer=True), None)]
     if fmt == "dense":
@@ -619,26 +720,28 @@ def test_max_backward_after_split_forward_on_card(fmt):
                 q, n = b.q, b.padded_vertices
 
                 def run(x, arrs=arrs, q=q):
-                    return t_spmm.blocked_spmm(*arrs, x, q=q, op="max",
-                                               transposed=None)
+                    return t_spmm.blocked_spmm(*arrs, x, q=q, op="max")
             else:
                 ps = pack_tile_store(build_tile_store(g, 16))
                 groups = upload_groups(t_gather.prepare_packed_groups(ps), d)
-                groups_t = upload_groups(t_gather.prepare_packed_groups(
-                    transpose_packed_store(ps)), d)
                 q, n = ps.q, ps.padded_vertices
 
-                def run(x, groups=groups, groups_t=groups_t, q=q):
-                    return t_gather.packed_groups_spmm(
-                        groups, x, q=q, op="max", transposed=lambda: groups_t)
+                def run(x, groups=groups, q=q):
+                    return t_gather.packed_groups_spmm(groups, x, q=q,
+                                                       op="max")
             x = _t(_hub_x(n, 24, "max", 5)).to(d).requires_grad_(True)
             gy = _t(np.random.default_rng(6).standard_normal(
                 (n, 24)).astype(np.float32)).to(d)
-            before = t_spmm_bwd.LAUNCHES["max"]
+            before = (t_spmm_bwd.LAUNCHES["max"],
+                      dict(t_gather_bwd.LAUNCHES))
             (run(x) * gy).sum().backward()
-            if d != "cpu" and fmt == "dense":
+            if d != "cpu":
                 torch.cuda.synchronize()
-                assert t_spmm_bwd.LAUNCHES["max"] == before + 1
+                if fmt == "dense":
+                    assert t_spmm_bwd.LAUNCHES["max"] == before[0] + 1
+                else:
+                    assert t_gather_bwd.LAUNCHES == {
+                        k: v + 1 for k, v in before[1].items()}
             grads.append(x.grad.cpu())
         if rows is not None:
             counts = t_spmm_bwd.row_counts(host[0], host[1], q)
@@ -669,9 +772,8 @@ def test_fused_engn_split_columns_on_card(h, tile, f):
         np.float32)).to(dev)
     before = t_fused.LAUNCHES["sum"]
     got = t_fused.fused_engn_layer(
-        *args, x, w, q=b.q, transposed=None,
-        columns=t_fused.column_table(host[2], b.q, dev))
-    again = t_fused.fused_engn_layer(*args, x, w, q=b.q, transposed=None)
+        *args, x, w, q=b.q, columns=t_fused.column_table(host[2], b.q, dev))
+    again = t_fused.fused_engn_layer(*args, x, w, q=b.q)
     want = t_fused.fused_engn_plain(*args, x, w, q=b.q)
     torch.cuda.synchronize()
     assert t_fused.LAUNCHES["sum"] == before + 2
@@ -694,8 +796,7 @@ def test_fused_engn_large_grid_on_card(h):
     x = _t(rng.standard_normal((b.padded_vertices, 40)).astype(
         np.float32)).to(dev)
     w = _t((rng.standard_normal((40, h)) / 8).astype(np.float32)).to(dev)
-    _check_hub(t_fused.fused_engn_layer(*args, x, w, q=b.q,
-                                        transposed=None).cpu(),
+    _check_hub(t_fused.fused_engn_layer(*args, x, w, q=b.q).cpu(),
                t_fused.fused_engn_plain(*args, x, w, q=b.q).cpu(), "sum")
 
 
@@ -707,6 +808,5 @@ def test_fused_engn_kernel_matches_plain_on_card(f, h):
     x = torch.randn((b.padded_vertices, f), device=dev)
     w = torch.randn((f, h), device=dev) * 0.2
     args = [_t(a).to(dev) for a in (b.blocks, b.block_row, b.block_col)]
-    _check(t_fused.fused_engn_layer(*args, x, w, q=b.q,
-                                    transposed=None).cpu(),
+    _check(t_fused.fused_engn_layer(*args, x, w, q=b.q).cpu(),
            t_fused.fused_engn_plain(*args, x, w, q=b.q).cpu(), "sum")

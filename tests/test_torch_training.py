@@ -37,7 +37,9 @@ from repro_torch.data import pipeline as t_pipeline
 from repro_torch.graphs import format as t_format
 from repro_torch.graphs import partition as t_partition
 from repro_torch.interop import load_reference_params
+from repro_torch.core.tiled import dense_footprint_bytes
 from repro_torch.kernels import rer_gather as t_gather
+from repro_torch.kernels import rer_gather_bwd as t_gather_bwd
 from repro_torch.kernels import rer_spmm as t_spmm
 from repro_torch.launch import train as t_train
 from repro_torch.training import optimizer as t_opt
@@ -95,6 +97,7 @@ def test_one_step_gradients_match_jax_grad(model, backend, fmt):
     assert tplan.backend == backend
     if backend == "blocked":
         assert tplan.tile_format == fmt
+    held = tplan.held_bytes()
     ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
           for p in stack_params(tl)]
     xt = torch.from_numpy(x).requires_grad_(True)
@@ -108,11 +111,10 @@ def test_one_step_gradients_match_jax_grad(model, backend, fmt):
                                        err_msg=f"layer {i} {k}")
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=RTOL,
                                atol=ATOL, err_msg="x")
-    if backend in ("blocked", "fused") and fmt != "packed":
-        # built once and cached for a sum backward; the dense max
-        # backward walks the forward tiles and builds no A^T
-        built = t_engn.transposed_bytes(tplan)
-        assert built == 0 if model == "gs_pool" else built > 0
+    # every backward walks the forward carrier: the plan holds no byte
+    # more than prepare_graph gave it (no carrier of A^T)
+    built = tplan.held_bytes() - held
+    assert built == 0
 
 
 # -- the max backward's tie conventions -----------------------------------
@@ -139,9 +141,7 @@ def test_dense_max_tie_split_is_two_level():
     np.testing.assert_array_equal(np.asarray(want)[:3, 0], [0.25, 0.25, 0.5])
     xt = torch.from_numpy(x).requires_grad_(True)
     carrier = [torch.from_numpy(a) for a in (blocks, brow, bcol)]
-    y = t_spmm.blocked_spmm(*carrier, xt, q=b.q, op="max",
-                            transposed=lambda: t_spmm.transpose_blocks_on(
-                                *carrier, b.q))
+    y = t_spmm.blocked_spmm(*carrier, xt, q=b.q, op="max")
     (y * torch.from_numpy(gy)).sum().backward()
     np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
 
@@ -150,8 +150,8 @@ def test_dense_max_tie_split_is_two_level():
 def test_dense_max_backward_builds_no_transposed_carrier(backend):
     """A GS-Pool stack on dense tiles ("fused" runs a max through the
     same dense aggregate) trains without the carrier of A^T: after a
-    backward that matches jax.grad, `transposed_bytes` is still 0, and a
-    max under autograd takes `transposed=None`."""
+    backward that matches jax.grad, the plan holds what prepare_graph
+    gave it, and a raw max under autograd differentiates too."""
     g, x = _graph(seed=2)
     jl, jp, tl = _stacks("gs_pool", DIMS["gs_pool"], backend, "dense")
     cot = np.random.default_rng(9).standard_normal(
@@ -160,20 +160,18 @@ def test_dense_max_backward_builds_no_transposed_carrier(backend):
     jgx = jax.grad(lambda xx: jnp.sum(
         j_models.apply_stack(jl, jp, jplan, xx) * cot))(jnp.asarray(x))
     tplan = rt.prepare_graph(g, tl[0].cfg, device="cpu")
+    held = tplan.held_bytes()
     xt = torch.from_numpy(x).requires_grad_(True)
     (rt.apply_stack(tl, tplan, xt) * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=RTOL,
                                atol=ATOL)
-    assert t_engn.transposed_bytes(tplan) == 0
-    assert "transposed" not in tplan.carrier or not tplan.carrier[
-        "transposed"]
+    assert tplan.held_bytes() == held
     c = tplan.carrier
     xm = torch.from_numpy(np.abs(x[:, :5])).requires_grad_(True)
     xf = torch.zeros((c["blocks_meta"]["padded"], 5))
     xf[:g.num_vertices] = xm
     y = t_spmm.blocked_spmm(c["blocks"], c["block_row"], c["block_col"], xf,
-                            q=c["blocks_meta"]["q"], op="max",
-                            transposed=None)
+                            q=c["blocks_meta"]["q"], op="max")
     y.sum().backward()
     assert xm.grad is not None and bool(torch.isfinite(xm.grad).all())
 
@@ -196,11 +194,8 @@ def test_packed_group_max_tie_split_is_flat(floor):
     groups = t_engn.upload_groups(t_gather.prepare_packed_groups(ps, floor),
                                    torch.device("cpu"))
     assert len(groups) == (2 if floor == 1 else 1)
-    groups_t = t_engn.upload_groups(t_gather.prepare_packed_groups(
-        t_partition.transpose_packed_store(ps), floor), torch.device("cpu"))
     xt = torch.from_numpy(x).requires_grad_(True)
-    y = t_gather.packed_groups_spmm(groups, xt, q=ps.q, op="max",
-                                    transposed=lambda: groups_t)
+    y = t_gather.packed_groups_spmm(groups, xt, q=ps.q, op="max")
     (y * torch.from_numpy(gy)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=1e-6)
 
@@ -222,14 +217,50 @@ def test_packed_groups_grad_matches_flat_reference(op, floor):
     cpu = torch.device("cpu")
     groups = t_engn.upload_groups(t_gather.prepare_packed_groups(ps, floor),
                                    cpu)
-    groups_t = t_engn.upload_groups(t_gather.prepare_packed_groups(
-        t_partition.transpose_packed_store(ps), floor), cpu)
     xt = torch.from_numpy(x).requires_grad_(True)
-    y = t_gather.packed_groups_spmm(groups, xt, q=ps.q, op=op,
-                                    transposed=lambda: groups_t)
+    y = t_gather.packed_groups_spmm(groups, xt, q=ps.q, op=op)
     (y * torch.from_numpy(gy)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("floor", [1, 8])
+def test_packed_backward_plain_over_forward_groups(op, floor):
+    """The plain versions the packed backward kernels are held to, over
+    the FORWARD groups, on integer-valued x (many ties): the sum's
+    A^T G (`packed_groups_t_plain`) against jax.vjp of the reference's
+    `packed_flat_xla`; the max's counts exactly equal to the tied
+    entries of the reference's flat entries and its scatter against
+    jax.grad of `packed_flat_xla` (the file's RTOL/ATOL)."""
+    g, _ = _graph(seed=4)
+    ps = t_partition.pack_tile_store(t_partition.build_tile_store(g, 16))
+    n_pad = ps.padded_vertices
+    rng = np.random.default_rng(10 + floor)
+    x = rng.integers(-2, 3, (n_pad, 6)).astype(np.float32)
+    gy = rng.standard_normal((n_pad, 6)).astype(np.float32)
+    gsrc, gdst, gval = j_gather.flat_entries(ps)
+    groups = t_engn.upload_groups(t_gather.prepare_packed_groups(ps, floor),
+                                   torch.device("cpu"))
+    assert len(groups) > 1
+    y, vjp = jax.vjp(lambda xx: j_gather.packed_flat_xla(
+        gsrc, gdst, gval, xx, n=n_pad, op=op), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(gy))[0])
+    if op == "sum":
+        got = t_gather_bwd.packed_groups_t_plain(
+            groups, torch.from_numpy(gy), q=ps.q)
+    else:
+        y = np.asarray(y)
+        win = (gval != 0)[:, None] & (gval[:, None] * x[gsrc] == y[gdst])
+        cnt_want = np.zeros(x.shape, np.int32)
+        np.add.at(cnt_want, gdst, win.astype(np.int32))
+        assert cnt_want.max() > 1                     # ties
+        xt, yt = torch.from_numpy(x), torch.from_numpy(np.array(y))
+        cnt = t_gather_bwd.packed_max_count_plain(groups, xt, yt, q=ps.q)
+        np.testing.assert_array_equal(cnt.numpy(), cnt_want)
+        got = t_gather_bwd.packed_max_scatter_plain(
+            groups, xt, yt, torch.from_numpy(gy), cnt, q=ps.q)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -245,9 +276,7 @@ def test_dense_grad_matches_reference_with_ties(op):
         blocks, brow, bcol, xx, q=b.q, op=op) * gy))(jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     carrier = [torch.from_numpy(a) for a in (blocks, brow, bcol)]
-    y = t_spmm.blocked_spmm(*carrier, xt, q=b.q, op=op,
-                            transposed=lambda: t_spmm.transpose_blocks_on(
-                                *carrier, b.q))
+    y = t_spmm.blocked_spmm(*carrier, xt, q=b.q, op=op)
     (y * torch.from_numpy(gy)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
@@ -260,39 +289,148 @@ def test_the_graph_is_a_constant_of_the_backward():
     z = torch.zeros(1, dtype=torch.int32)
     tiles = torch.zeros((1, 16, 16), requires_grad=True)
     with pytest.raises(NotImplementedError, match="constant"):
-        t_spmm.blocked_spmm(tiles, z, z, x, q=2, transposed=list)
+        t_spmm.blocked_spmm(tiles, z, z, x, q=2)
     from repro_torch.kernels import fused_engn as t_fused
     with pytest.raises(NotImplementedError, match="constant"):
-        t_fused.fused_engn_layer(tiles, z, z, x, torch.zeros((4, 3)), q=2,
-                                 transposed=list)
+        t_fused.fused_engn_layer(tiles, z, z, x, torch.zeros((4, 3)), q=2)
     gr = {"rows": torch.zeros((1, 8), dtype=torch.int32),
           "cols": torch.zeros((1, 8), dtype=torch.int32),
           "vals": torch.zeros((1, 8), requires_grad=True),
           "block_row": z, "block_col": z}
     with pytest.raises(NotImplementedError, match="constant"):
-        t_gather.packed_groups_spmm([gr], x, q=2, transposed=list)
+        t_gather.packed_groups_spmm([gr], x, q=2)
+
+
+def _no_transpose(monkeypatch):
+    """Make every function that builds a carrier of A^T raise."""
+    def refuse(*a, **k):
+        raise AssertionError("a backward built a carrier of A^T")
+    for name in ("transpose_blocks", "transpose_block_index",
+                 "transpose_tile_store", "transpose_packed_store"):
+        monkeypatch.setattr(t_partition, name, refuse)
 
 
 @pytest.mark.parametrize("kind", ["blocked", "fused", "packed"])
-def test_a_differentiated_call_needs_the_transposed_carrier(kind):
-    """Under autograd a missing `transposed=` raises: the carrier of
-    A^T is never rebuilt silently at every backward."""
-    x = torch.zeros((32, 4), requires_grad=True)
-    z = torch.zeros(1, dtype=torch.int32)
-    tiles = torch.zeros((1, 16, 16))
-    from repro_torch.kernels import fused_engn as t_fused
-    with pytest.raises(ValueError, match="transposed="):
-        if kind == "blocked":
-            t_spmm.blocked_spmm(tiles, z, z, x, q=2, transposed=None)
-        elif kind == "fused":
-            t_fused.fused_engn_layer(tiles, z, z, x, torch.zeros((4, 3)),
-                                     q=2, transposed=None)
-        else:
-            gr = {"rows": torch.zeros((1, 8), dtype=torch.int32),
-                  "cols": torch.zeros((1, 8), dtype=torch.int32),
-                  "vals": torch.zeros((1, 8)), "block_row": z,
-                  "block_col": z}
-            t_gather.packed_groups_spmm([gr], x, q=2, transposed=None)
+def test_a_differentiated_call_builds_no_transposed_carrier(kind,
+                                                            monkeypatch):
+    """A sum under autograd (dense tiles, the fused layer, a plan's
+    bucket groups) differentiates over its forward carrier: its gradient
+    equals jax.grad of the reference, and no `transpose_*` runs."""
+    g, x = _graph(seed=6)
+    b = t_format.coo_to_blocked(g, 16)
+    blocks, brow, bcol = j_spmm.prepare_blocks(b.blocks, b.block_row,
+                                               b.block_col, b.q)
+    rng = np.random.default_rng(11)
+    xp = rng.standard_normal((b.padded_vertices, 5)).astype(np.float32)
+    w = rng.standard_normal((5, 3)).astype(np.float32)
+    gy = rng.standard_normal((b.padded_vertices,
+                              3 if kind == "fused" else 5)
+                             ).astype(np.float32)
+    if kind == "packed":
+        ps = t_partition.pack_tile_store(t_partition.build_tile_store(g, 16))
+        flat = j_gather.flat_entries(ps)
+        groups = t_engn.upload_groups(t_gather.prepare_packed_groups(ps),
+                                       torch.device("cpu"))
+
+        def j_fn(xx, ww):
+            return j_gather.packed_flat_xla(*flat, xx, n=xx.shape[0])
+
+        def t_fn(xx, ww):
+            return t_gather.packed_groups_spmm(groups, xx, q=ps.q)
+    elif kind == "blocked":
+        def j_fn(xx, ww):
+            return j_spmm.blocked_spmm_xla(blocks, brow, bcol, xx, q=b.q)
+
+        def t_fn(xx, ww):
+            return t_spmm.blocked_spmm(
+                *map(torch.from_numpy, (blocks, brow, bcol)), xx, q=b.q)
+    else:
+        from repro.kernels.fused_engn import ops as j_fused
+        from repro_torch.kernels import fused_engn as t_fused
+
+        def j_fn(xx, ww):
+            return j_fused.fused_engn_layer(blocks, brow, bcol, xx, ww,
+                                            q=b.q, impl="xla")
+
+        def t_fn(xx, ww):
+            return t_fused.fused_engn_layer(
+                *map(torch.from_numpy, (blocks, brow, bcol)), xx, ww, q=b.q)
+    jgx, jgw = jax.grad(lambda xx, ww: jnp.sum(j_fn(xx, ww) * gy),
+                        argnums=(0, 1))(jnp.asarray(xp), jnp.asarray(w))
+    _no_transpose(monkeypatch)
+    xt = torch.from_numpy(xp).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    (t_fn(xt, wt) * torch.from_numpy(gy)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=RTOL,
+                               atol=ATOL)
+    if kind == "fused":
+        np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jgw),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _full_grid_graph(n=96, tile=16, seed=0):
+    """A GCN-normalised graph with at least one edge in every (dst, src)
+    interval pair, so the gate's min(q^2, E) dense price is the
+    carrier's true size (no pad tile, every grid cell a tile)."""
+    rng = np.random.default_rng(seed)
+    q = -(-n // tile)
+    cells = np.arange(q * q)
+    src = np.concatenate([(cells % q) * tile + rng.integers(0, tile, q * q),
+                          rng.integers(0, n, 4 * n)]) % n
+    dst = np.concatenate([(cells // q) * tile
+                          + rng.integers(0, tile, q * q),
+                          rng.integers(0, n, 4 * n)]) % n
+    key, val = j_partition.merge_by_key(
+        dst.astype(np.int64) * n + src, np.ones(src.size, np.float32))
+    g = t_format.COOGraph(n, (key % n).astype(np.int32),
+                          (key // n).astype(np.int32), val)
+    return g.gcn_normalized()
+
+
+@pytest.mark.parametrize("kind", ["blocked", "fused", "packed"])
+def test_a_training_plan_admitted_under_a_budget_stays_in_it(kind):
+    """Fault C1 of the port: a GCN training plan admitted by the budget
+    gate at `dense_footprint_bytes(training=True)` (dense tiles, fused)
+    or the packed price (a plan of bucket groups, as the card's), trains
+    one step, and afterwards holds no tensor byte it did not hold after
+    prepare_graph and stays within the budget: no backward builds a
+    carrier of A^T outside the gate."""
+    g = _full_grid_graph()
+    dims = [8, 8, 4]
+    backend = "fused" if kind == "fused" else "blocked"
+    fmt = "packed" if kind == "packed" else "dense"
+    tl = rt.make_gnn_stack("gcn", dims, backend=backend, tile=16,
+                           device="cpu")
+    cfg = tl[0].cfg
+    cfg.tile_format, cfg.training, cfg.auto_spill = fmt, True, False
+    budget = dense_footprint_bytes(g.num_vertices, g.num_edges, cfg.in_dim,
+                                   cfg.out_dim, backend, tile=16,
+                                   tile_format=fmt, training=True)
+    cfg.device_budget_bytes = budget
+    plan = rt.prepare_graph(g, cfg, device="cpu")
+    assert plan.backend == backend and plan.tile_format == fmt
+    q = plan.meta["q"]
+    if kind == "packed":
+        # the card's carrier, bucket groups with their work table
+        ps = t_partition.pack_tile_store(t_partition.build_tile_store(g, 16))
+        c = {k: v for k, v in plan.carrier.items() if k != "packed_flat"}
+        c["packed_groups"] = t_engn.upload_groups(
+            t_gather.prepare_packed_groups(ps, cfg.packed_bucket_floor),
+            torch.device("cpu"))
+        plan = rt.PreparedPlan(backend=backend, n=plan.n, carrier=c,
+                               tile_format=fmt)
+    else:
+        assert plan.carrier["blocks"].shape[0] == q * q    # the true price
+    held = plan.held_bytes()
+    assert held <= budget
+    x = torch.from_numpy(random_features(g.num_vertices, dims[0], seed=2))
+    cot = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (g.num_vertices, dims[-1])).astype(np.float32))
+    ps_ = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
+           for p in stack_params(tl)]
+    (rt.apply_stack(tl, plan, x, params=ps_) * cot).sum().backward()
+    assert all(p.grad is not None for d in ps_ for p in d.values())
+    assert plan.held_bytes() == held <= budget
 
 
 # -- optimizer, clip, schedules, data ------------------------------------------
@@ -625,14 +763,45 @@ def test_card_packed_group_max_backward_matches_flat(floor):
      * gy.to(dev)).sum().backward()
     groups = t_engn.upload_groups(t_gather.prepare_packed_groups(ps, floor),
                                    dev)
-    groups_t = t_engn.upload_groups(t_gather.prepare_packed_groups(
-        t_partition.transpose_packed_store(ps), floor), dev)
     xt = torch.from_numpy(x).to(dev).requires_grad_(True)
-    (t_gather.packed_groups_spmm(groups, xt, q=ps.q, op="max",
-                                 transposed=lambda: groups_t)
+    (t_gather.packed_groups_spmm(groups, xt, q=ps.q, op="max")
      * gy.to(dev)).sum().backward()
     np.testing.assert_allclose(xt.grad.cpu().numpy(), xf.grad.cpu().numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_card_dense_training_plan_stays_in_budget():
+    """Fault C1 on the card: a GCN dense training plan admitted by the
+    gate at `dense_footprint_bytes(training=True)` (a tile in every grid
+    cell, so the price is the carrier's true size: 64 MiB of tiles)
+    keeps the memory allocated over its first forward and backward
+    within the budget; a carrier of A^T would add another 64 MiB."""
+    dev = _card()
+    g = _full_grid_graph(n=4096, tile=256)
+    (layer,) = rt.make_gnn_stack("gcn", [64, 4], backend="blocked",
+                                 tile=256)
+    cfg = layer.cfg
+    cfg.tile_format, cfg.training, cfg.auto_spill = "dense", True, False
+    budget = dense_footprint_bytes(g.num_vertices, g.num_edges, 64, 4,
+                                   "blocked", tile=256, training=True)
+    cfg.device_budget_bytes = budget
+    x = torch.from_numpy(random_features(g.num_vertices, 64,
+                                         seed=2)).to(dev)
+    cot = torch.ones((g.num_vertices, 4), device=dev)
+    (x[:8] @ layer.w).sum().item()             # cuBLAS' workspace first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plan = rt.prepare_graph(g, cfg)
+    assert plan.carrier["blocks"].shape[0] == 16 * 16
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()["rer_spmm_sum_t"]
+    (rt.apply_stack([layer], plan, x) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["rer_spmm_sum_t"] == before + 1
+    assert layer.w.grad is not None
+    assert torch.cuda.max_memory_allocated() - base <= budget
 
 
 @pytest.mark.cuda
