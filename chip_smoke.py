@@ -15,17 +15,21 @@ prints no result.  Phases, each of which fails the run if it fails:
    `torch.equal`, sum variants `allclose(rtol=1e-4, atol=1e-5)`, since
    their reduction order differs), then timed with CUDA events beside
    its bound, a `torch.sparse.mm` yardstick and, for the rows
-   redesigned since commit 7d3f40b (`rer_spmm_sum_t`, `rer_gather_sum_t`,
-   `rer_gather_bwd_count`, `rer_gather_bwd_max`), that commit's time on
-   the same card type (printed, not recorded).  A `rer_gather` row times
+   redesigned since commit 7d0e51a (the three `feature_update_relu_*`
+   stages, `chunk_queue_sum`, `chunk_queue_sum_relu`), that commit's
+   time on the same card type (printed, not recorded).  A `rer_gather` row times
    the whole aggregate of a plan's bucket groups per width (one launch),
    the function `torch.sparse.mm` computes; its bound counts 12 B per
    real entry and X and Y once (an older count, every group array with
    its pads once per width, is printed beside it).  The streamed
    executor's kernels: `chunk_queue` on the synthD stand-in at 262,144
    vertices and layer-1 width (F=50), with and without its relu
-   epilogue, and `rer_gather`'s tile-part form on a stated sample of one
-   forward's calls on the 65,536-vertex graph;
+   epilogue (both recorded; relu is a launch argument of the same
+   kernel, which no path asks for, so the relu record reads the
+   kernel's launches on the tiled path), its bound printed beside what
+   the gathers would move if every X row came from HBM, and
+   `rer_gather`'s tile-part form on a stated sample of one forward's
+   calls on the 65,536-vertex graph;
 4. path: the inference path a user runs — `make_gnn_stack` ->
    `prepare_graph` -> `apply_stack` on `cuda` — for the quickstart (cora
    GCN [1433, 64, 7] on "fused", T=256) and pubmed GCN / GS-Pool
@@ -97,12 +101,14 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
 TRAIN_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
-# times of the rows redesigned since commit 7d3f40b: this script at that
+# times of the rows redesigned since commit 7d0e51a: this script at that
 # commit on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
 # beside this run's times and kept out of the kernels' record
-BEFORE = "7d3f40b"
-BEFORE_MS = {"rer_spmm_sum_t": 0.8415, "rer_gather_sum_t": 0.0723,
-             "rer_gather_bwd_count": 1.7088, "rer_gather_bwd_max": 2.8755}
+BEFORE = "7d0e51a"
+BEFORE_MS = {"feature_update_relu_gs_pool_extract": 0.0824,
+             "feature_update_relu_gs_pool_update": 0.0923,
+             "feature_update_relu_gcn_afu": 0.0820,
+             "chunk_queue_sum": 0.5449, "chunk_queue_sum_relu": 0.5842}
 
 
 def _smi() -> str:
@@ -435,8 +441,14 @@ def main() -> int:
         tq = queue_ops.build_tile_queue(packed_big, device=dev)
         x_big = feats(g_big.num_vertices, f_syn)
         a_big = csr(g_big)
-        q_bytes = nb(tq.tile_ptr, tq.tile_src, tq.entry_ptr, tq.rows,
-                     tq.cols, tq.vals, x_big, x_big)
+        # what the kernel reads once: the entries, its work table, X; and
+        # Y written once
+        q_bytes = nb(tq.wrows, tq.wsrc, tq.wvals, tq.pieces, x_big, x_big)
+        gathered = tq.entries * f_syn * 4
+        print(f"chunk_queue: {tq.pieces.shape[0]} pieces, {tq.n_split} "
+              f"split intervals; the gathers move {gathered / 1e6:.1f} MB "
+              f"({gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate) if "
+              f"no X row is reused from L2 (not a bound)")
         for act in (None, "relu"):
             kernel_case(
                 "chunk_queue_sum" + ("_relu" if act else ""),
@@ -449,7 +461,7 @@ def main() -> int:
                 exact=False, nbytes=q_bytes, ops=2 * tq.entries * f_syn,
                 library=(None if act else
                          lambda: torch.sparse.mm(a_big, x_big)),
-                record=act is None)
+                counter="chunk_queue_sum")
         del tq, x_big, a_big, packed_big
 
         # rer_gather's tile-part form, on the first 32 column chunks

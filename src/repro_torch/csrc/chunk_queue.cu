@@ -14,143 +14,211 @@
 // S, a (K, S) queue; after the degree sort the hub tile sets S for all
 // tiles, and on the synthD stand-in that layout is 13.7 GB at 65,536
 // vertices where the real entries are 12.3 MB.  This kernel walks the
-// entries ragged: `entry_ptr` (K+1) over the packed store's flat,
-// dst-sorted (row_local, col_local, val) arrays, 12 B per real entry.
+// entries ragged, 12 B per real entry, over its own copy of the packed
+// store's flat, dst-sorted entries (see the work table below).
 //
-// Bound on the H100: bytes.  Each entry costs its 12 B and one F-wide
-// row of X; the work is 2 operations per entry and feature.  Design:
-//   * the work is cut into segments of at most a few thousand entries,
-//     each inside one destination interval (`segments`, built on the
-//     host with the queue): after the degree sort the hub interval holds
-//     a fifth of all entries, and one CTA walking it alone took most of
-//     the sweep, so its span is split across many CTAs;
-//   * one CTA per (segment, 32-wide feature chunk) keeps a T x 32
-//     accumulator in shared memory; a segment that is its interval's
-//     only one stores its block (with relu, when asked); the segments of
-//     a split interval add theirs into the zeroed output with global
-//     atomics, and relu then runs as a second pass;
-//   * an interval's tiles, and so their entries, are contiguous: the
-//     CTA's eight warps split the segment 32 entries at a time whatever
-//     the tile sizes (most tiles hold a few entries, the hub's tens of
-//     thousands); each lane finds its entry's tile by a binary search of
-//     `entry_ptr` over the interval's span;
-//   * each warp broadcasts its 32 entries with __shfl_sync and each
-//     lane reads its feature of the referenced X row directly, so only
-//     the rows the entries name are read (the reference's one-hot MXU
-//     gather is a TPU workaround);
-//   * the warps merge into the accumulator with shared-memory float
-//     atomics: the order of the adds varies from run to run, so sums
-//     agree with the plain version to fp32 rounding, not bitwise;
+// Bound on the H100: bytes and gather latency.  Each entry costs its 12 B
+// and one F-wide row of X; the work is 2 operations per entry and
+// feature.  Design, destination-stationary:
+//   * a work table built on the host with the queue
+//     (`chunk_queue/ops.py::queue_work`): the walker's own copy of the
+//     entries, each interval's sorted by local row (local row, global
+//     source row, value: 12 B per entry, so no tile lookup on the card),
+//     and each interval's span cut into pieces of at most a few thousand
+//     entries, longest first (the hub's pieces start first and the small
+//     intervals fill the last wave); one CTA per (piece, feature pass)
+//     keeps the interval's T x F block (F <= 64: up to 64 KB) in shared
+//     memory;
+//   * the CTA's eight warps split the piece into contiguous runs, and
+//     each runs RER-Gather's walker (`rer_gather_walk::walk`): an entry's
+//     (row, source, value) is read once for all features up to 64 (lanes
+//     over features as `queue_lanes` maps them: F = 50 is 16 lanes x 4
+//     features, two entries a warp instruction; wider F takes passes of
+//     128), kU entries' X rows are in flight per lane, and the running
+//     row's sum stays in registers until the row changes.  Row-sorted, a
+//     warp meets each of its rows in one run, so it flushes (a shared
+//     atomic add) about once per row instead of once per (tile, row);
+//   * an interval in one piece stores its block once, with relu when
+//     asked; a piece of a split interval covers a contiguous range of
+//     rows and adds only those into a zeroed scratch block (the launcher
+//     zeroes only the split intervals' blocks) with global atomics, and
+//     the last piece to arrive (a per-interval arrival counter) applies
+//     relu and stores the interval: Y is never zero-filled and never
+//     passed over a second time;
+//   * the entry copy is read with streaming loads and Y written with
+//     streaming stores, so the L2 keeps X, which the gathers reuse;
 //   * only rows below n are written, so X and Y keep their n rows.
-// Not done yet (later speed work): the reference's double-buffered copy
-// of the next entries (cp.async / TMA with mbarriers).
+// Numerics: the order of the atomic adds varies from run to run, so sums
+// agree with the plain version to fp32 rounding, not bitwise.
 #include <cuda_runtime.h>
+
+#include "rer_gather_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFc = 32;  // features per CTA: one per lane
+using rer_gather_walk::kThreads;
+using rer_gather_walk::kWarps;
+using rer_gather_walk::lanes_for;
+using rer_gather_walk::walk;
 
+// dynamic shared memory a CTA may take (227 KB, less a margin for the
+// static arrival flag)
+constexpr int kSmemMax = 232448 - 128;
+
+// pieces: (P, 5) int32 rows (dst interval, first entry, end entry, split
+// slot or -1, pieces of the interval) over wrows, wsrc, wvals: the
+// entries row-sorted within each interval (local row, global source row,
+// value).  part: (n_split, T, F) zeroed scratch of the split intervals,
+// arrive: (n_split, passes) zeroed counters.
+template <int kNR>
 __global__ void __launch_bounds__(kThreads)
-chunk_queue_kernel(const int* __restrict__ tile_ptr,
-                   const int* __restrict__ tile_src,
-                   const int* __restrict__ entry_ptr,
-                   const int* __restrict__ rows, const int* __restrict__ cols,
-                   const float* __restrict__ vals,
-                   const int* __restrict__ segments,
+chunk_queue_kernel(const int* __restrict__ pieces,
+                   const int* __restrict__ wrows,
+                   const int* __restrict__ wsrc,
+                   const float* __restrict__ wvals,
                    const float* __restrict__ x, float* __restrict__ y,
-                   int n, int t, int f, int n_fchunks, int relu) {
-  extern __shared__ float acc_s[];  // t x kFc
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int* seg = segments + 4 * (blockIdx.x / n_fchunks);
-  const int dst = seg[0], e_lo = seg[1], e_hi = seg[2], split = seg[3];
-  const int f0 = (blockIdx.x % n_fchunks) * kFc;
-  const int fcol = f0 + lane;
-  const bool live = fcol < f;
+                   float* __restrict__ part, int* __restrict__ arrive, int n,
+                   int t, int f, int fp, int relu) {
+  extern __shared__ float acc_s[];  // t x wf
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* pc = pieces + 5 * blockIdx.x;
+  const int dst = pc[0], lo = pc[1], hi = pc[2], slot = pc[3];
+  const int fb = blockIdx.y * fp * kNR;
+  const int wf = min(fp * kNR, f - fb);
 
-  for (int e = tid; e < t * kFc; e += kThreads) acc_s[e] = 0.f;
+  for (int i = tid; i < t * wf; i += kThreads) acc_s[i] = 0.f;
   __syncthreads();
 
-  const int k_lo = tile_ptr[dst], k_hi = tile_ptr[dst + 1];
-  for (int e0 = e_lo + warp * 32; e0 < e_hi; e0 += kWarps * 32) {
-    const int e = e0 + lane;
-    int r = 0, src_row = 0;
-    float v = 0.f;
-    if (e < e_hi) {
-      // the tile holding entry e: the last k of the span whose first
-      // entry is at or before e (empty tiles share a start and lose)
-      int lo = k_lo, hi = k_hi - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (entry_ptr[mid] <= e) lo = mid; else hi = mid - 1;
+  // warp w walks [lo + w * step, +step) of the piece
+  const int step = ((hi - lo + kWarps - 1) / kWarps + 31) & ~31;
+  const int wlo = lo + warp * step;
+  const int wn = min(hi, wlo + step) - wlo;
+  if (wn > 0) {
+    auto load = [&](int e0, float* v, int* r, int* c) {
+      if (e0 + lane < wn) {
+        const int e = wlo + e0 + lane;
+        *v = __ldcs(wvals + e);
+        *r = __ldcs(wrows + e);
+        *c = __ldcs(wsrc + e);
       }
-      r = rows[e];
-      src_row = tile_src[lo] * t + cols[e];
-      v = vals[e];
-    }
-    const int cnt = min(32, e_hi - e0);  // the same for the whole warp
-    for (int j = 0; j < cnt; ++j) {
-      const float vj = __shfl_sync(0xffffffffu, v, j);
-      const int rj = __shfl_sync(0xffffffffu, r, j);
-      const int sj = __shfl_sync(0xffffffffu, src_row, j);
-      if (live)
-        atomicAdd(&acc_s[rj * kFc + lane], vj * x[(size_t)sj * f + fcol]);
-    }
+    };
+    auto sink = [&](int row, int fi, float v) {
+      atomicAdd(acc_s + row * wf + (fi - fb), v);
+    };
+    walk<false, kNR>(wn, load, sink, x, f, fb, fp, lane);
   }
   __syncthreads();
 
-  for (int e = tid; e < t * kFc; e += kThreads) {
-    const int row = dst * t + e / kFc, col = f0 + e % kFc;
-    if (col >= f || row >= n) continue;
-    const float v = acc_s[e];
-    if (split) {
-      if (v != 0.f) atomicAdd(&y[(size_t)row * f + col], v);
-    } else {
-      y[(size_t)row * f + col] = relu ? fmaxf(v, 0.f) : v;
+  const int row0 = dst * t;
+  const int count = min(t, n - row0) * wf;
+  if (slot < 0) {
+    for (int i = tid; i < count; i += kThreads) {
+      const int r = i / wf, c = i - r * wf;
+      const float v = acc_s[i];
+      __stcs(y + (size_t)(row0 + r) * f + fb + c, relu ? fmaxf(v, 0.f) : v);
     }
+    return;
+  }
+  // this piece's rows: from its first entry's to its last's
+  float* blk = part + (size_t)slot * t * f;
+  const int r_lo = wrows[lo];
+  const int span = (wrows[hi - 1] + 1 - r_lo) * wf;
+  for (int i = tid; i < span; i += kThreads) {
+    const int r = r_lo + i / wf, c = i % wf;
+    const float v = acc_s[r * wf + c];
+    if (v != 0.f) atomicAdd(blk + (size_t)r * f + fb + c, v);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(arrive + slot * gridDim.y + blockIdx.y, 1) == pc[4] - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < count; i += kThreads) {
+    const int r = i / wf, c = i - r * wf;
+    const float v = __ldcg(blk + (size_t)r * f + fb + c);
+    __stcs(y + (size_t)(row0 + r) * f + fb + c, relu ? fmaxf(v, 0.f) : v);
   }
 }
 
-__global__ void relu_kernel(float* __restrict__ y, size_t count) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x)
-    y[i] = fmaxf(y[i], 0.f);
+// Lanes per entry and features per lane: `lanes_for`'s, but 32 < F <= 64
+// takes 16 lanes x 4 features, two entries per warp instruction, which
+// halves the shuffles and row tests per entry (measured 6% faster at
+// F = 50 and 10% at F = 64 than 32 x 2, NVIDIA H100 80GB HBM3 at 700 W).
+int queue_lanes(int f, int* nr) {
+  if (f > 32 && f <= 64) {
+    *nr = 4;
+    return 16;
+  }
+  return lanes_for(f, nr);
+}
+
+template <int kNR>
+void launch(const int* pieces, int n_pieces, const int* wrows,
+            const int* wsrc, const float* wvals, const float* x, float* y,
+            float* part, int* arrive, int n, int t, int f, int fp,
+            int passes, size_t smem, int relu, cudaStream_t st) {
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(chunk_queue_kernel<kNR>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    cudaFuncSetAttribute(chunk_queue_kernel<kNR>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+    smem_set = smem;
+  }
+  const dim3 grid((unsigned)n_pieces, (unsigned)passes);
+  chunk_queue_kernel<kNR><<<grid, kThreads, smem, st>>>(
+      pieces, wrows, wsrc, wvals, x, y, part, arrive, n, t, f, fp, relu);
 }
 
 }  // namespace
 
-// y must hold zeros where `any_split` is set (split intervals add into
-// it); otherwise every row below n is stored.
-extern "C" int chunk_queue_launch(const void* tile_ptr, const void* tile_src,
-                                  const void* entry_ptr, const void* rows,
-                                  const void* cols, const void* vals,
-                                  const void* segments, int n_segments,
-                                  int any_split, const void* x, void* y,
-                                  int n, int t, int f, int relu,
-                                  void* stream) {
-  if (n_segments == 0 || n == 0 || t == 0 || f == 0)
+// scratch: n_split * T * F floats then n_split * F ints (at least one
+// counter per pass), zeroed here up to what this launch uses.  Every row
+// of Y below n is stored.
+extern "C" int chunk_queue_launch(const void* pieces, int n_pieces,
+                                  const void* wrows, const void* wsrc,
+                                  const void* wvals, const void* x, void* y,
+                                  void* scratch, int n_split, int n, int t,
+                                  int f, int relu, void* stream) {
+  if (n_pieces == 0 || n == 0 || t == 0 || f == 0)
     return (int)cudaGetLastError();
-  const int n_fchunks = (f + kFc - 1) / kFc;
-  const size_t smem = (size_t)t * kFc * sizeof(float);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(chunk_queue_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+  int nr;
+  const int fp = queue_lanes(f, &nr);
+  // a pass's block must fit the CTA: a tall tile takes narrower passes
+  auto block = [&](int w) {
+    return (size_t)t * (w < f ? w : f) * sizeof(float);
+  };
+  while (nr > 1 && block(fp * nr) > kSmemMax) nr >>= 1;
+  const size_t smem = block(fp * nr);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int passes = (f + fp * nr - 1) / (fp * nr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)n_segments * n_fchunks);
-  chunk_queue_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const int*>(tile_ptr), static_cast<const int*>(tile_src),
-      static_cast<const int*>(entry_ptr), static_cast<const int*>(rows),
-      static_cast<const int*>(cols), static_cast<const float*>(vals),
-      static_cast<const int*>(segments), static_cast<const float*>(x),
-      static_cast<float*>(y), n, t, f, n_fchunks, relu);
-  if (relu && any_split) {
-    const size_t count = (size_t)n * f;
-    const unsigned blocks = (unsigned)((count + 255) / 256 < 4096
-                                           ? (count + 255) / 256 : 4096);
-    relu_kernel<<<blocks, 256, 0, st>>>(static_cast<float*>(y), count);
-  }
+  float* part = static_cast<float*>(scratch);
+  int* arrive = reinterpret_cast<int*>(part + (size_t)n_split * t * f);
+  if (n_split > 0)
+    cudaMemsetAsync(scratch, 0,
+                    ((size_t)n_split * t * f + (size_t)n_split * passes) *
+                        sizeof(float),
+                    st);
+  const int* pc = static_cast<const int*>(pieces);
+  const int* wr = static_cast<const int*>(wrows);
+  const int* ws = static_cast<const int*>(wsrc);
+  const float* wv = static_cast<const float*>(wvals);
+  const float* xx = static_cast<const float*>(x);
+  float* yy = static_cast<float*>(y);
+  if (nr == 1)
+    launch<1>(pc, n_pieces, wr, ws, wv, xx, yy, part, arrive, n, t, f, fp,
+              passes, smem, relu, st);
+  else if (nr == 2)
+    launch<2>(pc, n_pieces, wr, ws, wv, xx, yy, part, arrive, n, t, f, fp,
+              passes, smem, relu, st);
+  else
+    launch<4>(pc, n_pieces, wr, ws, wv, xx, yy, part, arrive, n, t, f, fp,
+              passes, smem, relu, st);
   return (int)cudaGetLastError();
 }

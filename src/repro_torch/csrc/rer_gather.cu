@@ -22,7 +22,8 @@
 //     share a 32-entry load and the hub interval's tens of thousands of
 //     entries spread over hundreds of warps (that table walk and the lane
 //     mapping are in rer_gather_walk.cuh, shared with the backward passes
-//     of rer_gather_bwd.cu, which walk the same table);
+//     of rer_gather_bwd.cu, which walk the same table; the warp walker
+//     `walk` is there too, shared with chunk_queue.cu);
 //   * `rer_gather_part_launch`: the streamed executor's chunk, (C, S)
 //     entries against a (C, T, F) source stack into one interval's (T, F)
 //     partial; one warp per (tile, 64-slot slice), so a hub tile spreads
@@ -52,9 +53,9 @@
 namespace {
 
 using rer_gather_walk::kThreads;
-using rer_gather_walk::kU;
 using rer_gather_walk::kWarps;
 using rer_gather_walk::lanes_for;
+using rer_gather_walk::walk;
 constexpr int kSlice = 64;   // slots per warp in the tile-part form
 
 // Float max by integer atomics: floats without the sign bit order as
@@ -69,75 +70,21 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
-// One warp walks n entries, 32 at a time: load(e, &v, &row, &src) gives
-// entry e's weight, its Y row and its X row (v == 0: skip; rows and cols
-// are read only where v != 0).  Lane = (group g, feature fl); features
-// fb + fl + fp * n, n < kNR.
-template <bool kMax, int kNR, typename Load>
-__device__ __forceinline__ void walk(int n_entries, Load load,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ y, int f, int fb,
-                                     int fp, int lane) {
-  const int g = lane / fp, fl = lane % fp;
-  const int per = fp;  // entries per group in a 32-entry chunk
-  int cur = -1;
-  float acc[kNR];
-#pragma unroll
-  for (int n = 0; n < kNR; ++n) acc[n] = kMax ? -INFINITY : 0.f;
-
-  auto flush = [&]() {
-    if (cur < 0) return;
-#pragma unroll
-    for (int n = 0; n < kNR; ++n) {
-      const int fi = fb + fl + fp * n;
-      if (fi >= f) continue;
-      float* out = y + (size_t)cur * f + fi;
-      if (kMax) {
-        if (acc[n] != -INFINITY) atomic_max_float(out, acc[n]);
-      } else if (acc[n] != 0.f) {
-        atomicAdd(out, acc[n]);
-      }
-      acc[n] = kMax ? -INFINITY : 0.f;
-    }
-  };
-
-  for (int e0 = 0; e0 < n_entries; e0 += 32) {
-    float v = 0.f;
-    int r = 0, c = 0;
-    if (e0 + lane < n_entries) load(e0 + lane, &v, &r, &c);
-    if (__ballot_sync(0xffffffffu, v != 0.f) == 0u) continue;
-    for (int i0 = 0; i0 < per; i0 += kU) {
-      float vv[kU], xv[kU][kNR];
-      int rr[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int j = g * per + i0 + u;
-        vv[u] = __shfl_sync(0xffffffffu, v, j);
-        rr[u] = __shfl_sync(0xffffffffu, r, j);
-        const int cj = __shfl_sync(0xffffffffu, c, j);
-        const float* xr = x + (size_t)cj * f;
-#pragma unroll
-        for (int n = 0; n < kNR; ++n) {
-          const int fi = fb + fl + fp * n;
-          xv[u][n] = (vv[u] != 0.f && fi < f) ? xr[fi] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        if (vv[u] == 0.f) continue;
-        if (rr[u] != cur) {
-          flush();
-          cur = rr[u];
-        }
-#pragma unroll
-        for (int n = 0; n < kNR; ++n)
-          acc[n] = kMax ? fmaxf(acc[n], vv[u] * xv[u][n])
-                        : fmaf(vv[u], xv[u][n], acc[n]);
-      }
-    }
+// B2's sink: the running row's sum or max straight into Y, by
+// fire-and-forget atomics.
+template <bool kMax>
+struct YSink {
+  float* y;
+  int f;
+  __device__ __forceinline__ void operator()(int row, int fi,
+                                             float v) const {
+    float* out = y + (size_t)row * f + fi;
+    if (kMax)
+      atomic_max_float(out, v);
+    else
+      atomicAdd(out, v);
   }
-  flush();
-}
+};
 
 // A whole aggregate over a plan's bucket groups, one warp per segment of
 // the work table (rer_gather_walk.cuh); gridDim.y runs over feature
@@ -155,9 +102,11 @@ rer_gather_kernel(const long long* __restrict__ gtab,
   if (s >= n_seg) return;
   const rer_gather_walk::Segment sg =
       rer_gather_walk::segment(gtab, pieces, poff, seg_ptr, s, t);
-  auto load = [&](int e, float* v, int* r, int* c) { sg.load(e, v, r, c); };
-  walk<kMax, kNR>(sg.n_entries, load, x, y, f, blockIdx.y * fp * kNR, fp,
-                  lane);
+  auto load = [&](int e0, float* v, int* r, int* c) {
+    if (e0 + lane < sg.n_entries) sg.load(e0 + lane, v, r, c);
+  };
+  walk<kMax, kNR>(sg.n_entries, load, YSink<kMax>{y, f}, x, f,
+                  blockIdx.y * fp * kNR, fp, lane);
 }
 
 // The streamed chunk: warp w takes tile w / n_slices, slots
@@ -176,14 +125,17 @@ rer_gather_part_kernel(const int* __restrict__ rows,
   const int tile = w / n_slices, lo = (w % n_slices) * kSlice;
   const size_t base = (size_t)tile * s + lo;
   const int src = tile * t;
-  auto load = [&](int e, float* v, int* r, int* c) {
+  const int n_entries = min(kSlice, s - lo);
+  auto load = [&](int e0, float* v, int* r, int* c) {
+    const int e = e0 + lane;
+    if (e >= n_entries) return;
     *v = vals[base + e];
     if (*v != 0.f) {
       *r = rows[base + e];
       *c = src + cols[base + e];
     }
   };
-  walk<kMax, kNR>(min(kSlice, s - lo), load, xs, y, f,
+  walk<kMax, kNR>(n_entries, load, YSink<kMax>{y, f}, xs, f,
                   blockIdx.y * fp * kNR, fp, lane);
 }
 

@@ -1,5 +1,7 @@
 // The work-table walk of RER-Gather, shared by the forward
-// (rer_gather.cu) and its backward passes (rer_gather_bwd.cu).
+// (rer_gather.cu) and its backward passes (rer_gather_bwd.cu), and the
+// warp walker `walk` of the forward, shared with the chunk-queue walker
+// (chunk_queue.cu).
 //
 // A plan's bucket groups are described by:
 //   gtab    (G, 4) int64: the rows, cols and vals device pointers and the
@@ -18,6 +20,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace rer_gather_walk {
 
@@ -94,6 +97,77 @@ inline int lanes_for(int f, int* nr) {
 inline dim3 grid_for_table(int n_seg, int f, int fp, int nr) {
   return dim3((unsigned)((n_seg + kWarps - 1) / kWarps),
               (unsigned)((f + fp * nr - 1) / (fp * nr)));
+}
+
+// One warp walks n_entries entries, 32 at a time, and reduces each
+// destination row's products in registers, flushing to `sink` only when
+// the row changes (the entries of a tile are row-sorted).  The whole warp
+// calls load(e0, &v, &row, &src) for the chunk [e0, e0 + 32): each lane
+// fills entry e0 + lane's weight, Y row and X row (v stays 0 past the end
+// or where the entry is skipped; row and src are read only where v != 0),
+// so a Load may use warp collectives.  Lane = (group g, feature fl), as
+// `lanes_for` maps them; features fb + fl + fp * n, n < kNR; kU entries'
+// X values are in flight per lane.  sink(row, feature, value) takes a
+// row's finished sum or max; a row with nothing (0 for a sum, -inf for a
+// max) is not flushed.
+template <bool kMax, int kNR, typename Load, typename Sink>
+__device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
+                                     const float* __restrict__ x, int f,
+                                     int fb, int fp, int lane) {
+  const int g = lane / fp, fl = lane % fp;
+  const int per = fp;  // entries per group in a 32-entry chunk
+  int cur = -1;
+  float acc[kNR];
+#pragma unroll
+  for (int n = 0; n < kNR; ++n) acc[n] = kMax ? -INFINITY : 0.f;
+
+  auto flush = [&]() {
+    if (cur < 0) return;
+#pragma unroll
+    for (int n = 0; n < kNR; ++n) {
+      const int fi = fb + fl + fp * n;
+      if (fi >= f) continue;
+      if (kMax ? acc[n] != -INFINITY : acc[n] != 0.f) sink(cur, fi, acc[n]);
+      acc[n] = kMax ? -INFINITY : 0.f;
+    }
+  };
+
+  for (int e0 = 0; e0 < n_entries; e0 += 32) {
+    float v = 0.f;
+    int r = 0, c = 0;
+    load(e0, &v, &r, &c);
+    if (__ballot_sync(0xffffffffu, v != 0.f) == 0u) continue;
+    for (int i0 = 0; i0 < per; i0 += kU) {
+      float vv[kU], xv[kU][kNR];
+      int rr[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int j = g * per + i0 + u;
+        vv[u] = __shfl_sync(0xffffffffu, v, j);
+        rr[u] = __shfl_sync(0xffffffffu, r, j);
+        const int cj = __shfl_sync(0xffffffffu, c, j);
+        const float* xr = x + (size_t)cj * f;
+#pragma unroll
+        for (int n = 0; n < kNR; ++n) {
+          const int fi = fb + fl + fp * n;
+          xv[u][n] = (vv[u] != 0.f && fi < f) ? xr[fi] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (vv[u] == 0.f) continue;
+        if (rr[u] != cur) {
+          flush();
+          cur = rr[u];
+        }
+#pragma unroll
+        for (int n = 0; n < kNR; ++n)
+          acc[n] = kMax ? fmaxf(acc[n], vv[u] * xv[u][n])
+                        : fmaf(vv[u], xv[u][n], acc[n]);
+      }
+    }
+  }
+  flush();
 }
 
 }  // namespace rer_gather_walk

@@ -13,19 +13,26 @@ packed tiles:
 * `TileQueue` (`build_tile_queue`): the tiles dst-sorted with each
   destination interval's span, for the hand-written CUDA kernel
   `csrc/chunk_queue.cu` (`tile_queue_aggregate`, sum with an optional
-  relu).  `tile_queue_plain` is its plain version.
+  relu), and the kernel's work table (`queue_work`), built with it on
+  the host.  `tile_queue_plain` is its plain version.
 
 Divergence of layout (not of result) from the reference: its
 `TileQueue` pads every tile to one store-wide pow2 bucket, a `(K, S)`
 layout whose size the hub tile sets; here the entries stay ragged, with
-`entry_ptr` over the packed store's flat entries (12 B per real entry).
-`n`, `tile`, `q`, `bucket`, `tile_ptr` and `tile_src` are the
-reference's, exactly.
+`entry_ptr` over the packed store's flat entries (12 B per real entry),
+and the kernel walks its own row-sorted copy of them (12 B per real
+entry more).  `n`, `tile`, `q`, `bucket`, `tile_ptr` and `tile_src` are
+the reference's, exactly.
 
 Source note.  `tile_queue_aggregate` replaces `repro/kernels/chunk_queue/
 chunk_queue.py::chunk_queue_spmm` (`_queue_kernel`).  On the H100 it is
-bound by bytes: 12 B per entry plus one referenced feature row.  See the
-kernel source for its design.
+bound by bytes and gather latency: 12 B per entry plus one referenced
+feature row.  Destination-stationary: one CTA per piece of an interval
+keeps the interval's block in shared memory, its warps run RER-Gather's
+walker over the piece; see the kernel source for its design.
+
+Both builders follow the port's device rule: `device=None` is `cuda`,
+and raises without a card.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.partition import PackedTileStore, pow2_bucket
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (check_status, check_tensor,
@@ -49,6 +57,8 @@ LAUNCHES = {"sum": 0, "sum_relu": 0}
 # most entries one CTA of the walker reduces: a longer interval span
 # (the hub's, after the degree sort) is split across CTAs
 SEGMENT = 4096
+# dynamic shared memory a walker CTA may take (csrc/chunk_queue.cu)
+_SMEM_MAX = 232448 - 128
 
 _INT8 = ("int8 queue values are not ported yet (ROADMAP A7)")
 
@@ -95,13 +105,13 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def build_chunk_queue(packed: PackedTileStore, *, slab: Optional[int] = None,
                       value_dtype: str = "fp32",
-                      device="cpu") -> ChunkQueue:
+                      device: DeviceLike = None) -> ChunkQueue:
     """Stage a packed store's merged entries as a slab queue on
-    `device`.  `slab=None` takes the whole stream as one slab; otherwise
-    entries pad up to `steps * slab`."""
+    `device` (None: `cuda`).  `slab=None` takes the whole stream as one
+    slab; otherwise entries pad up to `steps * slab`."""
     if value_dtype != "fp32":
         raise NotImplementedError(_INT8)
-    device = torch.device(device)
+    device = resolve_device(device)
     n = packed.num_vertices
     gsrc, gdst, gval = flat_entries(packed)
     m = int(gsrc.size)
@@ -176,7 +186,8 @@ def chunk_queue_aggregate(queue: ChunkQueue, x: torch.Tensor, *,
 @dataclasses.dataclass(frozen=True)
 class TileQueue:
     """The packed tiles dst-sorted, with each destination interval's
-    span of tiles and each tile's span of ragged entries."""
+    span of tiles and each tile's span of ragged entries, and the
+    walker's work table (`queue_work`)."""
     n: int
     tile: int
     q: int
@@ -187,10 +198,16 @@ class TileQueue:
     rows: torch.Tensor         # (M,) int32 row_local, dst-sorted tiles
     cols: torch.Tensor         # (M,) int32 col_local
     vals: torch.Tensor         # (M,) float32
-    # the walker's work split: per CTA (interval, first entry, end entry,
-    # whether the interval has more than one segment)
-    segments: torch.Tensor     # (G, 4) int32
-    any_split: bool
+    # the walker's work table: per CTA (interval, first entry, end entry,
+    # split slot or -1, pieces of the interval), longest first, over the
+    # walker's copy of the entries, row-sorted within each interval (the
+    # interval spans are the tile order's): local row, global source row
+    # (tile_src * tile + col) and value
+    pieces: torch.Tensor       # (P, 5) int32
+    wrows: torch.Tensor        # (M,) int32
+    wsrc: torch.Tensor         # (M,) int32
+    wvals: torch.Tensor        # (M,) float32
+    n_split: int               # intervals split over several pieces
 
     @property
     def entries(self) -> int:
@@ -200,15 +217,20 @@ class TileQueue:
         return int(sum(a.numel() * a.element_size()
                        for a in (self.tile_ptr, self.tile_src,
                                  self.entry_ptr, self.rows, self.cols,
-                                 self.vals, self.segments)))
+                                 self.vals, self.pieces, self.wrows,
+                                 self.wsrc, self.wvals)))
 
 
 def queue_segments(tile_ptr: np.ndarray, entry_ptr: np.ndarray,
                    segment: int = SEGMENT) -> np.ndarray:
-    """(G, 4) int32 rows (interval, lo, hi, split): each interval's entry
-    span [entry_ptr[tile_ptr[i]], entry_ptr[tile_ptr[i+1]]) cut into
-    pieces of at most `segment` entries; an empty interval keeps one
-    empty piece, so its output block is still written."""
+    """(P, 5) int32 rows (interval, lo, hi, slot, count): each interval's
+    entry span [entry_ptr[tile_ptr[i]], entry_ptr[tile_ptr[i+1]]) cut
+    into `count` pieces of at most `segment` entries; an empty interval
+    keeps one empty piece, so its output block is still written.  A split
+    interval (count > 1) has a slot, numbered in interval order, and -1
+    otherwise.  Rows are ordered longest piece first (stable: an
+    interval's pieces stay in entry order), so the longest CTAs start
+    first and the short ones fill the last wave."""
     bounds = entry_ptr[tile_ptr].astype(np.int64)          # (q+1,)
     lens = np.diff(bounds)
     pieces = np.maximum(1, -(-lens // segment))
@@ -217,18 +239,53 @@ def queue_segments(tile_ptr: np.ndarray, entry_ptr: np.ndarray,
     k = np.arange(interval.size, dtype=np.int64) - first[interval]
     lo = bounds[:-1][interval] + k * segment
     hi = np.minimum(lo + segment, bounds[1:][interval])
-    split = pieces[interval] > 1
-    return np.ascontiguousarray(
-        np.stack([interval, lo, hi, split], axis=1).astype(np.int32))
+    split = pieces > 1
+    slot_of = np.where(split, np.cumsum(split) - 1, -1)
+    rows = np.stack([interval, lo, hi, slot_of[interval], pieces[interval]],
+                    axis=1)
+    rows = rows[np.argsort(-(hi - lo), kind="stable")]
+    return np.ascontiguousarray(rows.astype(np.int32))
+
+
+def queue_work(tile_ptr: np.ndarray, tile_src: np.ndarray,
+               entry_ptr: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+               vals: np.ndarray, tile: int):
+    """The walker's work table, from the queue's host arrays: `pieces`
+    (`queue_segments`) over the walker's copy of the entries, each
+    interval's entries sorted by local row (stably: a row's entries keep
+    their tile order), as (wrows, wsrc, wvals): local row, global source
+    row tile_src * tile + col, value.  A warp then meets each row in one
+    run, and a piece of a split interval covers a contiguous range of
+    rows.  Returns (pieces, wrows, wsrc, wvals, n_split).  The interval
+    spans are the same in both orders, so `queue_segments` over other
+    piece sizes fits the same copy."""
+    k = entry_ptr.size - 1
+    q = tile_ptr.size - 1
+    tile_of = np.repeat(np.arange(k, dtype=np.int64), np.diff(entry_ptr))
+    dst_of = np.repeat(np.arange(q, dtype=np.int64),
+                       np.diff(tile_ptr))[tile_of]
+    order = np.lexsort((rows, dst_of))
+    wsrc = tile_src[tile_of[order]].astype(np.int64) * tile + cols[order]
+    pieces = queue_segments(tile_ptr, entry_ptr)
+    return (pieces, np.ascontiguousarray(rows[order]),
+            np.ascontiguousarray(wsrc.astype(np.int32)),
+            np.ascontiguousarray(vals[order]), split_count(pieces))
+
+
+def split_count(pieces: np.ndarray) -> int:
+    """Intervals split over several pieces of a `queue_segments` table."""
+    return int(pieces[:, 3].max()) + 1 if pieces.size else 0
 
 
 def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
-                     device="cpu") -> TileQueue:
-    """Host-side layout for the walker, uploaded to `device`: dst-sort
-    the store's tiles, record each destination interval's span and each
-    tile's span of entries.  Index ranges are checked here, on the host,
-    once: the kernel reads out of bounds otherwise."""
-    device = torch.device(device)
+                     device: DeviceLike = None) -> TileQueue:
+    """Host-side layout for the walker, uploaded to `device` (None:
+    `cuda`): dst-sort the store's tiles, record each destination
+    interval's span and each tile's span of entries, and build the
+    walker's work table (`queue_work`).  Index
+    ranges are checked here, on the host, once: the kernel reads out of
+    bounds otherwise."""
+    device = resolve_device(device)
     q, t = packed.q, packed.tile
     nnz = packed.tile_nnz()
     bucket = pow2_bucket(int(nnz.max()) if nnz.size else 0, bucket_floor)
@@ -241,25 +298,26 @@ def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
     entry_ptr = np.zeros(order.size + 1, np.int64)
     np.cumsum(counts, out=entry_ptr[1:])
     m = int(entry_ptr[-1])
-    if m >= 2 ** 31:
-        raise ValueError(f"{m} entries exceed the kernel's int32 offsets")
+    if m >= 2 ** 31 or q * t >= 2 ** 31:
+        raise ValueError(f"{m} entries or {q * t} rows exceed the kernel's "
+                         f"int32 offsets")
     # entry e of queue tile c sits at store offset start[order[c]] + (e -
     # entry_ptr[c]): one vectorised gather, no Python loop over tiles
     take = (np.repeat(packed.entry_ptr[:-1][order] - entry_ptr[:-1], counts)
             + np.arange(m, dtype=np.int64))
     rows, cols = packed.row_local[take], packed.col_local[take]
+    vals = packed.val[take]
     for name, a, hi in (("rows", rows, t), ("cols", cols, t),
                         ("tile_src", tile_src, max(q, 1))):
         if a.size and (int(a.min()) < 0 or int(a.max()) >= hi):
             raise ValueError(f"{name} holds values outside [0, {hi})")
-    segments = queue_segments(tile_ptr, entry_ptr)
+    pieces, wrows, wsrc, wvals, n_split = queue_work(
+        tile_ptr, tile_src, entry_ptr, rows, cols, vals, t)
     return TileQueue(packed.num_vertices, t, q, bucket,
-                     _upload(tile_ptr, device), _upload(tile_src, device),
-                     _upload(entry_ptr.astype(np.int32), device),
-                     _upload(rows, device), _upload(cols, device),
-                     _upload(packed.val[take], device),
-                     _upload(segments, device),
-                     bool(segments[:, 3].any()))
+                     *(_upload(a, device) for a in (
+                         tile_ptr, tile_src, entry_ptr.astype(np.int32),
+                         rows, cols, vals, pieces, wrows, wsrc, wvals)),
+                     n_split)
 
 
 def tile_queue_plain(tq: TileQueue, x: torch.Tensor,
@@ -293,8 +351,8 @@ def _lib():
     if _LIB is None:
         lib = _build.load("chunk_queue")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.chunk_queue_launch.argtypes = [p, p, p, p, p, p, p, i, i, p,
-                                           p, i, i, i, i, p]
+        lib.chunk_queue_launch.argtypes = [p, i, p, p, p, p, p, p, i, i, i,
+                                           i, i, p]
         lib.chunk_queue_launch.restype = i
         _LIB = lib
     return _LIB
@@ -313,23 +371,29 @@ def tile_queue_aggregate(tq: TileQueue, x: torch.Tensor, *,
     refuse_grad("chunk_queue", x)
     dev = x.device
     check_tensor(x, "x", torch.float32, dev, 2)
-    for name in ("tile_ptr", "tile_src", "entry_ptr", "rows", "cols"):
+    for name in ("wrows", "wsrc"):
         check_tensor(getattr(tq, name), name, torch.int32, dev, 1)
-    check_tensor(tq.vals, "vals", torch.float32, dev, 1)
-    check_tensor(tq.segments, "segments", torch.int32, dev, 2)
+    check_tensor(tq.wvals, "wvals", torch.float32, dev, 1)
+    check_tensor(tq.pieces, "pieces", torch.int32, dev, 2)
+    if tq.pieces.shape[1] != 5:
+        raise ValueError("the work table does not match the kernel's")
     if x.shape[0] != tq.n:
         raise ValueError(f"x has {x.shape[0]} rows, the queue {tq.n}")
     f = x.shape[1]
-    # split intervals add their pieces into zeros; the others store
-    y = (torch.zeros if tq.any_split else torch.empty)(
-        (tq.n, f), dtype=torch.float32, device=dev)
+    if tq.tile * min(f, 32) * 4 > _SMEM_MAX:
+        raise ValueError(f"a {tq.tile}-row interval block of {min(f, 32)} "
+                         f"features exceeds the walker's shared memory")
+    y = torch.empty((tq.n, f), dtype=torch.float32, device=dev)
+    # the split intervals' blocks and their arrival counters, zeroed by
+    # the launcher; every other block is stored once by its CTA
+    scratch = torch.empty(tq.n_split * (tq.tile * f + f),
+                          dtype=torch.float32, device=dev)
     relu = activation == "relu"
     status = _lib().chunk_queue_launch(
-        tq.tile_ptr.data_ptr(), tq.tile_src.data_ptr(),
-        tq.entry_ptr.data_ptr(), tq.rows.data_ptr(), tq.cols.data_ptr(),
-        tq.vals.data_ptr(), tq.segments.data_ptr(), tq.segments.shape[0],
-        int(tq.any_split), x.data_ptr(), y.data_ptr(), tq.n, tq.tile, f,
-        int(relu), stream_handle(dev))
+        tq.pieces.data_ptr(), tq.pieces.shape[0], tq.wrows.data_ptr(),
+        tq.wsrc.data_ptr(), tq.wvals.data_ptr(), x.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), tq.n_split, tq.n, tq.tile, f, int(relu),
+        stream_handle(dev))
     check_status(status, "chunk_queue")
     LAUNCHES["sum_relu" if relu else "sum"] += 1
     return y

@@ -13,9 +13,12 @@ reference wires it into none).
 Source note.  Replaces `repro/kernels/feature_update/feature_update.py::
 fused_linear_act_kernel` (wrapper `ops.py::fused_linear_act`).  On the
 H100 it is bound by operations at the update stage's shapes (about 30
-fp32 operations per byte of X at H = 64): a tiled fp32 GEMM on the CUDA
-cores, 64 x 64 output tiles, a 16-deep K loop through shared memory,
-4 x 4 outputs per thread, bias and activation applied in registers.
+fp32 operations per byte of X at H = 64): a CUDA-core SGEMM, BM x 64
+output tiles with BM chosen from N and the SM count, RM contiguous rows
+x 8 columns per thread fed by 16-byte shared reads, X and W staged
+through three cp.async k stages, bias and activation applied in
+registers.  No library GEMM runs on a CUDA tensor.  See the kernel
+source for its design.
 """
 from __future__ import annotations
 

@@ -149,33 +149,175 @@ def test_tile_queue_is_the_reference_stripped_of_padding(n, tile, floor):
             np.testing.assert_array_equal(ragged[ptr[c]:ptr[c + 1]],
                                           padded[c, :nnz[c]])
             assert not padded[c, nnz[c]:].any()
+    # the walker's copy: each interval's entries sorted by local row, a
+    # row's entries in tile order, with their global source rows
+    tile_of = np.repeat(np.arange(nnz.size), nnz)
+    dst = np.repeat(np.arange(tq.q), np.diff(tq.tile_ptr.numpy()))[tile_of]
+    order = np.lexsort((tq.rows.numpy(), dst))
+    src = (tq.tile_src.numpy()[tile_of] * tile + tq.cols.numpy())
+    np.testing.assert_array_equal(tq.wrows.numpy(), tq.rows.numpy()[order])
+    np.testing.assert_array_equal(tq.wsrc.numpy(), src[order])
+    np.testing.assert_array_equal(tq.wvals.numpy(), tq.vals.numpy()[order])
+    for name, dtype in (("wrows", np.int32), ("wsrc", np.int32),
+                        ("wvals", np.float32)):
+        assert getattr(tq, name).numpy().dtype == dtype
     # 12 B per real entry beside the uniform pad the reference stages
     assert tq.device_bytes() < jq.device_bytes()
 
 
+def _hub_store():
+    """A packed store whose first interval (the hub) holds 600 entries,
+    with an empty interval among the rest."""
+    rng = np.random.default_rng(4)
+    n, t = 96, 8
+    hub_dst = rng.integers(0, t, 600)
+    dst = np.concatenate([hub_dst, rng.integers(2 * t, n, 300)])
+    src = rng.integers(0, n, dst.size)
+    key = np.unique(dst.astype(np.int64) * n + src)
+    g = COOGraph(n, (key % n).astype(np.int32), (key // n).astype(np.int32),
+                 rng.integers(1, 4, key.size).astype(np.float32))
+    return g, t_part.pack_tile_store(t_part.build_tile_store(g, t))
+
+
+def _hub_queue(segment):
+    g, packed = _hub_store()
+    return g, _with_pieces(t_queue.build_tile_queue(packed, device="cpu"),
+                           segment)
+
+
+def _with_pieces(tq, segment):
+    """The queue with its work table cut in pieces of at most `segment`
+    entries (the walker's copy fits any cut)."""
+    seg = t_queue.queue_segments(tq.tile_ptr.cpu().numpy(),
+                                 tq.entry_ptr.cpu().numpy(), segment)
+    return dataclasses.replace(
+        tq, pieces=torch.from_numpy(seg).to(tq.pieces.device),
+        n_split=t_queue.split_count(seg))
+
+
 @pytest.mark.parametrize("segment", [1, 7, 64, 4096])
 def test_queue_segments_cover_each_interval_once(segment):
-    """The walker's work split: every interval's entry span is cut into
-    pieces of at most `segment` entries, in order, covering it exactly;
-    an interval is flagged split iff it has more than one piece."""
-    packed = t_part.pack_tile_store(t_part.build_tile_store(
-        _int_graph(n=90, e=900, seed=4), 8))
-    tq = t_queue.build_tile_queue(packed, device="cpu")
+    """The walker's work table: every interval's entry span is cut into
+    pieces of at most `segment` entries that cover it exactly, in entry
+    order; an empty interval keeps one empty piece (its block is still
+    written); a split interval has a slot of its own and the count of its
+    pieces; rows run longest first; the builder cuts at SEGMENT; rows
+    ascend within each interval of the walker's copy."""
+    _, tq = _hub_queue(segment)
     tile_ptr, entry_ptr = tq.tile_ptr.numpy(), tq.entry_ptr.numpy()
     seg = t_queue.queue_segments(tile_ptr, entry_ptr, segment)
-    assert seg.dtype == np.int32 and seg.shape[1] == 4
+    assert seg.dtype == np.int32 and seg.shape[1] == 5
     assert seg.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(tq.pieces.numpy(), seg)
+    built = t_queue.build_tile_queue(_hub_store()[1], device="cpu")
+    np.testing.assert_array_equal(built.pieces.numpy(),
+                                  t_queue.queue_segments(tile_ptr, entry_ptr))
+    assert built.n_split == t_queue.split_count(built.pieces.numpy())
+    size = seg[:, 2] - seg[:, 1]
+    assert (np.diff(size) <= 0).all()                 # longest first
     bounds = entry_ptr[tile_ptr]
+    slots = []
     for i in range(tq.q):
         mine = seg[seg[:, 0] == i]
         assert len(mine) >= 1
         assert mine[0, 1] == bounds[i] and mine[-1, 2] == bounds[i + 1]
         np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
         assert ((mine[:, 2] - mine[:, 1]) <= segment).all()
-        assert (mine[:, 3] == (len(mine) > 1)).all()
-    np.testing.assert_array_equal(
-        tq.segments.numpy(), t_queue.queue_segments(tile_ptr, entry_ptr))
-    assert tq.any_split == bool(tq.segments.numpy()[:, 3].any())
+        assert (mine[:, 4] == len(mine)).all()
+        if len(mine) > 1:
+            assert len(set(mine[:, 3].tolist())) == 1 and mine[0, 3] >= 0
+            slots.append(int(mine[0, 3]))
+        else:
+            assert mine[0, 3] == -1
+    assert slots == list(range(len(slots))) and tq.n_split == len(slots)
+    # every entry once; the hub split whenever it outgrows a piece; an
+    # empty interval present
+    covered = np.concatenate([np.arange(lo, hi) for _, lo, hi, _, _ in seg])
+    np.testing.assert_array_equal(np.sort(covered),
+                                  np.arange(entry_ptr[-1]))
+    assert (np.diff(bounds) == 0).any()
+    assert (seg[seg[:, 0] == 0, 4] > 1).all() == (bounds[1] > segment)
+    # rows ascend within each interval of the walker's copy, so a piece
+    # covers a contiguous range of rows
+    wrows = tq.wrows.numpy()
+    for i in range(tq.q):
+        assert (np.diff(wrows[bounds[i]:bounds[i + 1]]) >= 0).all()
+
+
+WARPS = 8                  # warps of a walker CTA (csrc/chunk_queue.cu)
+
+
+def _walk_like_the_kernel(tq, x):
+    """The CUDA walker's order of work in numpy: per piece, eight warps
+    over contiguous runs of the row-sorted copy, each flushing a row's
+    sum into the CTA's block when the row changes; an unsplit interval
+    stores its block, a piece of a split interval adds only its own rows
+    (first entry's to last entry's) into its slot's block, and the last
+    piece to arrive stores the interval.  Exercises the host table the
+    kernel runs on the card."""
+    t, f = tq.tile, x.shape[1]
+    wrows, wsrc = tq.wrows.numpy(), tq.wsrc.numpy()
+    wvals = tq.wvals.numpy()
+    y = np.full((tq.q * t, f), np.nan, np.float32)
+    part = np.zeros((tq.n_split, t, f), np.float32)
+    arrived = np.zeros(tq.n_split, np.int64)
+    flushes = 0
+    for dst, lo, hi, slot, count in tq.pieces.numpy():
+        acc = np.zeros((t, f), np.float32)
+        step = (-(-(hi - lo) // WARPS) + 31) // 32 * 32
+        for w in range(WARPS):
+            cur, run = -1, np.zeros(f, np.float32)
+            for e in range(lo + w * step, min(hi, lo + (w + 1) * step)):
+                if wrows[e] != cur:
+                    if cur >= 0:
+                        acc[cur] += run
+                        flushes += 1
+                    cur, run = wrows[e], np.zeros(f, np.float32)
+                run += wvals[e] * x[wsrc[e]]
+            if cur >= 0:
+                acc[cur] += run
+                flushes += 1
+        if slot < 0:
+            y[dst * t:(dst + 1) * t] = acc
+            continue
+        r_lo, r_hi = wrows[lo], wrows[hi - 1] + 1
+        assert not acc[:r_lo].any() and not acc[r_hi:].any()
+        part[slot, r_lo:r_hi] += acc[r_lo:r_hi]
+        arrived[slot] += 1
+        if arrived[slot] == count:
+            y[dst * t:(dst + 1) * t] = part[slot]
+    return y[:tq.n], flushes
+
+
+@pytest.mark.parametrize("segment", [7, 64, 4096])
+def test_queue_work_walk_matches_plain(segment):
+    """Walking the work table as the kernel does (every piece and warp,
+    a row flushed when it changes, split intervals merged over their
+    pieces' row ranges) sums what `tile_queue_plain` sums and writes
+    every row once, the hub split."""
+    g, tq = _hub_queue(segment)
+    x = _int_features(g.num_vertices, 5)
+    got, flushes = _walk_like_the_kernel(tq, x)
+    want = t_queue.tile_queue_plain(tq, torch.from_numpy(x)).numpy()
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got, want)
+    # a warp flushes a row once per run: never more than once per
+    # (tile, row) pair, as walking the tile order would
+    runs = np.unique(np.repeat(np.arange(tq.entry_ptr.numel() - 1),
+                               np.diff(tq.entry_ptr.numpy())) * tq.tile
+                     + tq.rows.numpy()).size
+    assert flushes <= runs
+
+
+def test_queue_builders_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    packed = t_part.pack_tile_store(t_part.build_tile_store(_int_graph(),
+                                                            16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_queue.build_tile_queue(packed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_queue.build_chunk_queue(packed)
 
 
 def _fit(fit, budget, dim):
@@ -571,25 +713,47 @@ def _card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("activation", [None, "relu"])
-@pytest.mark.parametrize("f", [5, 50, 70])
+@pytest.mark.parametrize("f", [3, 5, 50, 64, 70, 128])
 def test_chunk_queue_kernel_matches_plain_on_card(activation, f):
+    """Every width `lanes_for` maps differently, with the default pieces
+    and with every long interval (the hub's first) split in pieces of 64
+    entries, whose blocks meet in the scratch and get relu from the last
+    piece to arrive."""
     dev = _card()
     g, _ = _real_graph(n=900)
     x = torch.from_numpy(np.random.default_rng(f).standard_normal(
         (900, f)).astype(np.float32)).to(dev)
-    tq = t_queue.build_tile_queue(
-        t_part.pack_tile_store(t_part.build_tile_store(g, 64)), device=dev)
-    if f == 70:                    # every long interval split in pieces
-        seg = t_queue.queue_segments(tq.tile_ptr.cpu().numpy(),
-                                     tq.entry_ptr.cpu().numpy(), 64)
-        tq = dataclasses.replace(tq, segments=torch.from_numpy(seg).to(dev),
-                                 any_split=True)
-    before = dict(t_queue.LAUNCHES)
-    got = t_queue.tile_queue_aggregate(tq, x, activation=activation)
-    want = t_queue.tile_queue_plain(tq, x, activation)
+    packed = t_part.pack_tile_store(t_part.build_tile_store(g, 64))
+    built = t_queue.build_tile_queue(packed, device=dev)
+    for segment in (t_queue.SEGMENT, 64):
+        tq = _with_pieces(built, segment)
+        assert (tq.n_split > 0) == (segment == 64)
+        before = dict(t_queue.LAUNCHES)
+        got = t_queue.tile_queue_aggregate(tq, x, activation=activation)
+        want = t_queue.tile_queue_plain(tq, x, activation)
+        torch.cuda.synchronize()
+        key = "sum_relu" if activation else "sum"
+        assert t_queue.LAUNCHES[key] == before[key] + 1
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [33, 128])
+def test_chunk_queue_tall_tile_on_card(f):
+    """A 512-row interval at F = 128 takes passes of 64 features (a
+    128-wide block would not fit a CTA's shared memory); at F = 33 one
+    pass of the 16-lane mapping."""
+    dev = _card()
+    g, _ = _real_graph(n=1100)
+    x = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (1100, f)).astype(np.float32)).to(dev)
+    tq = _with_pieces(t_queue.build_tile_queue(
+        t_part.pack_tile_store(t_part.build_tile_store(g, 512)),
+        device=dev), 256)
+    got = t_queue.tile_queue_aggregate(tq, x, activation="relu")
+    want = t_queue.tile_queue_plain(tq, x, "relu")
     torch.cuda.synchronize()
-    key = "sum_relu" if activation else "sum"
-    assert t_queue.LAUNCHES[key] == before[key] + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
 
