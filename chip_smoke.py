@@ -68,9 +68,30 @@ prints no result.  Phases, each of which fails the run if it fails:
    make one count and one scatter launch per layer a step, GCN packed
    one sum-backward launch per layer; then `run_gnn` through
    `FaultTolerantRunner` and `CheckpointManager`, and again from its
-   checkpoint.
+   checkpoint;
+8. staged models (R-GCN, Gated-GCN): first B1 once per relation
+   (`rer_spmm_sum_typed_aifb` / `_pubmed`: every relation's calls of one
+   forward against the plain version, in the record; each relation's
+   time, bound and `torch.sparse.mm` on its A, printed); then inference
+   through the entry points: the AIFB stand-in (8,285 V, 29,043 E, 45
+   relations) R-GCN [91, 16, 4] on "segment", "blocked" dense (B1 once
+   per relation a layer) and packed; the BGS stand-in (333,845 V,
+   2,166,243 E, 103 relations) R-GCN [207, 16, 2] on "segment" and
+   "blocked" packed; merged pubmed Gated-GCN [500, 64, 3] on "segment"
+   and "blocked" packed, each against "segment" (`allclose(rtol=1e-4,
+   atol=1e-5)`), each with its plan bytes beside what the budget gate
+   priced; the gated dense plan at pubmed refused before it allocates;
+9. staged tiled: R-GCN at AIFB under a 4 MB budget and Gated-GCN at
+   pubmed under 32 MB, each spilled to "tiled" and held against its
+   resident result, with its `TiledStats`;
+10. staged training: `build_gnn` on uncut pubmed, 20 steps, R-GCN (3-type
+   colouring) on "segment" and "blocked" dense (6 B1 and 6 B1^T launches
+   a step) and packed, Gated-GCN on "segment" and "blocked" packed:
+   losses against "segment" (rtol=1e-3, atol=1e-4), one step's gradients
+   against "segment"'s, the plan's bytes unchanged by training.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7) and read just after (a record's launches are its
+calls of 6, 7, 8, 9, 10; in 8 and 9 the first forward of each run)
+and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
 phase's, `fused_engn_sum_train` the training phase's); each run must
 have launched its
@@ -1093,8 +1114,391 @@ def main() -> int:
           f"{second['losses']}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+    # -- the staged models: R-GCN and Gated-GCN --------------------------------
+    # AIFB and BGS stand-ins at full size (Table 5: 8,285 V / 29,043 E / 45
+    # relations; 333,845 V / 2,166,243 E / 103 relations), R-GCN at
+    # Schlichtkrull et al.'s entity-classification width (hidden 16);
+    # Gated-GCN on the merged pubmed graph [500, 64, 3].  Every inference
+    # run is held against "segment" on the card; the tiled runs against
+    # the resident result; the training runs' losses against "segment".
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.core.engn import fold_rel_norm
+    from repro_torch.core.tiled import (DeviceBudgetExceeded,
+                                        dense_footprint_bytes)
+
+    def typed_dataset(name):
+        g, f, c = make_dataset(name, seed=0)
+        return g, random_features(g.num_vertices, f, seed=1), f, c
+
+    aifb, bgs = typed_dataset("aifb"), typed_dataset("bgs")
+    for name, (g, _, f, c) in (("aifb", aifb), ("bgs", bgs)):
+        print(f"graph {name}: |V|={g.num_vertices} |E|={g.num_edges} "
+              f"relations={g.num_relations} F={f} classes={c}")
+
+    def staged_stack(model, dims, backend, fmt="auto", rels=1, budget=None):
+        layers = rt.make_gnn_stack(model, dims, backend=backend,
+                                   num_relations=rels, tile=256)
+        for layer in layers:
+            layer.cfg.tile_format = fmt
+            layer.cfg.device_budget_bytes = budget
+        return layers
+
+    def gate_price(g, cfg, h):
+        """What the budget gate prices for the plan (the reference's
+        closed form, which counts untyped tiles)."""
+        return dense_footprint_bytes(g.num_vertices, g.num_edges,
+                                     cfg.in_dim, h, cfg.backend,
+                                     tile=cfg.tile, has_val=g.val is not None,
+                                     tile_format=cfg.tile_format)
+
+    def typed_b1_rows(label, plan, g, widths, phase):
+        """B1 once per relation at one typed dense plan's shapes (the
+        payload widths of both layers): one record over every relation
+        (one forward's calls), then each relation's own time, bound and
+        `torch.sparse.mm` on that relation's A, printed."""
+        gf = fold_rel_norm(g)
+        n = g.num_vertices
+        blks = plan.carrier["typed_blocks"]
+        pad = plan.carrier["blocks_meta"]["padded"]
+        calls, libs, per_rel = [], [], []
+        nbytes = ops = 0
+        for blk in blks:
+            m = gf.rel == blk["rel"]
+            a = csr(COOGraph(n, gf.src[m], gf.dst[m], gf.weights()[m]))
+            nnz = int(torch.count_nonzero(blk["blocks"]))
+            xs_r = [feats(pad, w) for w in widths]
+            rc = [(lambda b=blk, x=x: spmm_ops.blocked_spmm(
+                       b["blocks"], b["block_row"], b["block_col"], x,
+                       q=b["q"], op="sum"),
+                   lambda b=blk, x=x: spmm_ops.blocked_spmm_plain(
+                       b["blocks"], b["block_row"], b["block_col"], x,
+                       q=b["q"], op="sum")) for x in xs_r]
+            rb = sum(nb(blk["blocks"], blk["block_row"], blk["block_col"],
+                        x, x) for x in xs_r)
+            ro = sum(2 * nnz * x.shape[1] for x in xs_r)
+            rl = (lambda a=a, xs_r=xs_r: [torch.sparse.mm(a, x[:n])
+                                          for x in xs_r])
+            calls += rc
+            libs.append(rl)
+            nbytes += rb
+            ops += ro
+            per_rel.append((blk["rel"], int(blk["blocks"].shape[0]), nnz,
+                            rc, rb, ro, rl))
+        kernel_case(
+            f"rer_spmm_sum_typed_{label}", "src/repro_torch/csrc/rer_spmm.cu",
+            "src/repro/kernels/rer_spmm/rer_spmm.py:74", calls, exact=False,
+            nbytes=nbytes, ops=ops, library=lambda: [f() for f in libs],
+            counter="rer_spmm_sum", phases=(phase,))
+        table = []
+        for rel, tiles, nnz, rc, rb, ro, rl in per_rel:
+            t_b, t_o = rb / HBM_BYTES_PER_S * 1e3, ro / FP32_OPS_PER_S * 1e3
+            table.append({"rel": rel, "tiles": tiles, "nnz": nnz,
+                          "ms": cuda_ms(lambda rc=rc: [k() for k, _ in rc]),
+                          "bound_ms": max(t_b, t_o),
+                          "bound_by": "bytes" if t_b >= t_o else "operations",
+                          "library_ms": cuda_ms(rl)})
+        tot = {k: sum(r[k] for r in table)
+               for k in ("tiles", "ms", "bound_ms", "library_ms")}
+        print(f"typed B1 {label} [{smi}]: {len(table)} relations, "
+              f"{tot['tiles']} tiles, widths {widths}; summed over the "
+              f"relations {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+              f"ms, torch.sparse.mm {tot['library_ms']:.4f} ms")
+        print(f"typed B1 {label} per relation: {json.dumps(table)}")
+
+    with torch.inference_mode():
+        layers = staged_stack("rgcn", [aifb[2], 16, aifb[3]], "blocked",
+                              "dense", rels=aifb[0].num_relations)
+        plan = rt.prepare_graph(aifb[0], layers[0].cfg)
+        typed_b1_rows("aifb", plan, aifb[0], [16, aifb[3]], "staged")
+        del layers, plan
+    tr, _, _ = build_run("rgcn", "blocked", "dense")
+    with torch.inference_mode():
+        typed_b1_rows("pubmed", tr.plan, tr.graph, [64, c_tr],
+                      "staged_training")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # inference: each graph's "segment" run first, its twins with the
+    # same weights
+    g_pub, x_pub_np = pubmed[0], pubmed[1]
+    aifb_dims = [aifb[2], 16, aifb[3]]
+    bgs_dims = [bgs[2], 16, bgs[3]]
+    gated_dims = [f_pub, 64, c_pub]
+    staged_runs = [
+        ("aifb rgcn segment", aifb[0], aifb[1], "rgcn", aifb_dims,
+         "segment", "auto", ()),
+        ("aifb rgcn blocked dense", aifb[0], aifb[1], "rgcn", aifb_dims,
+         "blocked", "dense", ("rer_spmm_sum",)),
+        ("aifb rgcn blocked packed", aifb[0], aifb[1], "rgcn", aifb_dims,
+         "blocked", "packed", ()),
+        ("bgs rgcn segment", bgs[0], bgs[1], "rgcn", bgs_dims, "segment",
+         "auto", ()),
+        ("bgs rgcn blocked packed", bgs[0], bgs[1], "rgcn", bgs_dims,
+         "blocked", "packed", ()),
+        ("pubmed gated_gcn segment", g_pub, x_pub_np, "gated_gcn",
+         gated_dims, "segment", "auto", ()),
+        ("pubmed gated_gcn blocked packed", g_pub, x_pub_np, "gated_gcn",
+         gated_dims, "blocked", "packed", ()),
+    ]
+    staged_counts = {k: 0 for k in K.launch_counts()}
+    staged_table, resident = [], {}
+    for label, g, x_np, model, dims, backend, fmt, kerns in staged_runs:
+        with torch.inference_mode():
+            x = torch.from_numpy(x_np).to(dev)
+            layers = staged_stack(model, dims, backend, fmt,
+                                  rels=g.num_relations)
+            key = (label.split()[0], model)
+            if backend == "segment":
+                resident[key] = {"state": [ly.state_dict() for ly in layers]}
+            for ly, st in zip(layers, resident[key]["state"]):
+                ly.load_state_dict(st)
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            plan = rt.prepare_graph(g, layers[0].cfg)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t
+            plan_b = torch.cuda.memory_allocated() - mem0
+            held = plan.held_bytes()
+            K.reset_launch_counts()
+            y = rt.apply_stack(layers, plan, x)
+            torch.cuda.synchronize()
+            grew = {k: v for k, v in K.launch_counts().items() if v}
+            for k, v in grew.items():
+                staged_counts[k] += v
+            for kern in kerns:
+                if grew.get(kern, 0) <= 0:
+                    raise AssertionError(f"{label}: {kern} was not launched")
+            if model == "rgcn" and fmt == "dense":
+                want = 2 * len(plan.carrier["typed_blocks"])
+                if grew.get("rer_spmm_sum") != want:
+                    raise AssertionError(f"{label}: {grew} launches, not one "
+                                         f"B1 per relation a layer ({want})")
+            if y.shape != (g.num_vertices, dims[-1]) or not bool(
+                    torch.isfinite(y).all()):
+                raise AssertionError(f"{label}: output {tuple(y.shape)}, "
+                                     f"finite {bool(torch.isfinite(y).all())}")
+            if backend == "segment":
+                resident[key]["y"] = y.cpu()
+                err = 0.0
+            else:
+                y_ref = resident[key]["y"].to(dev)
+                err = float((y - y_ref).abs().max())
+                if not torch.allclose(y, y_ref, rtol=RTOL, atol=ATOL):
+                    raise AssertionError(f"{label}: differs from the segment "
+                                         f"backend (max abs err {err})")
+            times = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(5):
+                t = time.perf_counter()
+                rt.apply_stack(layers, plan, x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - mem0
+            row = {"run": label, "plan": f"{plan.backend}/{plan.tile_format}",
+                   "forward_ms": statistics.median(times),
+                   "launches_per_forward": grew, "prepare_s": prep_s,
+                   "plan_mib": plan_b / 2**20, "held_bytes": held,
+                   "gate_price_bytes": gate_price(g, layers[0].cfg, dims[1]),
+                   "peak_mib": peak / 2**20, "max_abs_err_vs_segment": err}
+            staged_table.append(row)
+            print(f"path {label} [{smi}]: plan {row['plan']}, forward "
+                  f"{row['forward_ms']:.3f} ms (median of 5, host clock), "
+                  f"launches/forward {grew}, prepare {prep_s:.2f} s, plan "
+                  f"{row['plan_mib']:.1f} MiB (held {held} B; the gate "
+                  f"prices {row['gate_price_bytes']} B), peak "
+                  f"{row['peak_mib']:.1f} MiB over the run's start, max abs "
+                  f"err vs segment {err:.3g}")
+            del layers, plan, y, x
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the gated dense formulation at pubmed: refused before allocating
+    with torch.inference_mode():
+        layers = staged_stack("gated_gcn", gated_dims, "blocked", "dense")
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        try:
+            rt.prepare_graph(g_pub, layers[0].cfg)
+            raise AssertionError("the gated dense plan at pubmed was not "
+                                 "refused")
+        except DeviceBudgetExceeded as exc:
+            if torch.cuda.memory_allocated() != mem0:
+                raise AssertionError("the gated dense refusal allocated "
+                                     f"{torch.cuda.memory_allocated() - mem0}"
+                                     " B first")
+            print(f"path pubmed gated_gcn blocked dense: refused before "
+                  f"allocating ({exc})")
+        del layers
+    print(f"staged-path launches: {staged_counts}")
+    print(f"staged runs: {json.dumps(staged_table)}")
+
+    # tiled: each spilled to "tiled" by a budget, held against its
+    # resident ("segment") result
+    staged_tiled = [
+        ("aifb rgcn blocked 4 MB budget", aifb[0], aifb[1], "rgcn",
+         aifb_dims, 4_000_000, ("aifb", "rgcn"),
+         ("rer_gather_tile_part_sum",)),
+        ("pubmed gated_gcn blocked 32 MB budget", g_pub, x_pub_np,
+         "gated_gcn", gated_dims, 32_000_000, ("pubmed", "gated_gcn"), ()),
+    ]
+    staged_tiled_counts = {k: 0 for k in K.launch_counts()}
+    for label, g, x_np, model, dims, budget, key, kerns in staged_tiled:
+        with torch.inference_mode():
+            x = torch.from_numpy(x_np).to(dev)
+            layers = staged_stack(model, dims, "blocked", "auto",
+                                  rels=g.num_relations, budget=budget)
+            for ly, st in zip(layers, resident[key]["state"]):
+                ly.load_state_dict(st)
+            t = time.perf_counter()
+            plan = rt.prepare_graph(g, layers[0].cfg)
+            prep_s = time.perf_counter() - t
+            if plan.backend != "tiled":
+                raise AssertionError(f"{label}: plan landed on "
+                                     f"{plan.backend!r}, not 'tiled'")
+            ex = plan.carrier["tiled_exec"]
+            K.reset_launch_counts()
+            t = time.perf_counter()
+            y = rt.apply_stack(layers, plan, x)
+            first_ms = (time.perf_counter() - t) * 1e3
+            grew = {k: v for k, v in K.launch_counts().items() if v}
+            for k, v in grew.items():
+                staged_tiled_counts[k] += v
+            for kern in kerns:
+                if grew.get(kern, 0) <= 0:
+                    raise AssertionError(f"{label}: {kern} was not launched")
+            stats = dataclasses.asdict(ex.stats)
+            y_ref = resident[key]["y"]
+            err = float((y - y_ref).abs().max())
+            if not torch.allclose(y, y_ref, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"{label}: differs from the resident "
+                                     f"result (max abs err {err})")
+            times = []
+            for _ in range(2):
+                t = time.perf_counter()
+                rt.apply_stack(layers, plan, x)
+                times.append((time.perf_counter() - t) * 1e3)
+            times.append(first_ms)
+            print(f"path {label} [{smi}]: backend {plan.backend}, format "
+                  f"{plan.tile_format}, tile {plan.meta['tile']}, chunk "
+                  f"{plan.meta['chunk']}, prepare {prep_s:.2f} s, forward "
+                  f"{statistics.median(times):.1f} ms (median of 3, host "
+                  f"clock: {[round(v, 1) for v in times]}), launches/forward "
+                  f"{grew}, max abs err vs resident {err:.3g}")
+            print(f"  TiledStats/forward {json.dumps(stats)}")
+            del layers, plan, ex, y, x
+    print(f"staged-tiled launches: {staged_tiled_counts}")
+    del resident
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: build_gnn on uncut pubmed, 20 steps; R-GCN on the 3-type
+    # colouring (rel = (src + dst) % 3)
+    staged_train = [
+        ("pubmed rgcn segment", "rgcn", "segment", "auto", ()),
+        ("pubmed rgcn blocked dense", "rgcn", "blocked", "dense",
+         ("rer_spmm_sum", "rer_spmm_sum_t")),
+        ("pubmed rgcn blocked packed", "rgcn", "blocked", "packed", ()),
+        ("pubmed gated_gcn segment", "gated_gcn", "segment", "auto", ()),
+        ("pubmed gated_gcn blocked packed", "gated_gcn", "blocked",
+         "packed", ()),
+    ]
+    K.reset_launch_counts()
+    staged_train_table = []
+    for label, model, backend, fmt, kerns in staged_train:
+        mem0 = torch.cuda.memory_allocated()
+        tr, state, data = build_run(model, backend, fmt)
+        held = tr.plan.held_bytes()
+        price = gate_price(tr.graph, tr.layers[0].cfg, tr.hidden)
+        gerr = None
+        if backend != "segment":
+            batch0 = next(data)
+            data.seek(0)
+            twin = rt.prepare_graph(tr.graph, dataclasses.replace(
+                tr.layers[0].cfg, backend="segment"), out_dim=tr.hidden)
+            got = grads_of(tr, state["params"], batch0)
+            want = grads_of(tr, state["params"], batch0, plan=twin)
+            del twin
+            gerr = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            for a, b in zip(got, want):
+                scale = max(1e-30, float(b.abs().max()))
+                if not torch.allclose(a, b, rtol=RTOL, atol=RTOL * scale):
+                    raise AssertionError(f"{label}: one step's gradients "
+                                         f"differ from segment's (max abs "
+                                         f"err {gerr})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = K.launch_counts()
+        ps, opt, losses, times = state["params"], state["opt"], [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            ps, opt, m = tr.step(ps, opt, next(data))
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - mem0
+        grew = {k: v - before[k] for k, v in K.launch_counts().items()
+                if v > before[k]}
+        per_step = {k: v / TRAIN_STEPS for k, v in grew.items()}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        for kern in kerns:
+            if grew.get(kern, 0) <= 0:
+                raise AssertionError(f"{label}: {kern} was not launched")
+        if model == "rgcn" and fmt == "dense":
+            want = 2 * len(tr.plan.carrier["typed_blocks"])
+            if (per_step.get("rer_spmm_sum"), per_step.get(
+                    "rer_spmm_sum_t")) != (want, want):
+                raise AssertionError(f"{label}: {per_step} launches/step, "
+                                     f"not {want} B1 and {want} B1^T")
+        after = tr.plan.held_bytes()
+        if after != held:
+            raise AssertionError(f"{label}: the plan held {held} B before "
+                                 f"training and {after} B after")
+        if backend == "segment":
+            seg_losses[model] = losses
+            lerr = 0.0
+        else:
+            ref = np.asarray(seg_losses[model])
+            lerr = float(np.abs(np.asarray(losses) - ref).max())
+            if not np.allclose(losses, ref, rtol=TRAIN_RTOL,
+                               atol=TRAIN_ATOL):
+                raise AssertionError(f"{label}: loss trajectory {losses} "
+                                     f"differs from segment {ref.tolist()}")
+        row = {"run": label,
+               "plan": f"{tr.plan.backend}/{tr.plan.tile_format}",
+               "ms_per_step": statistics.median(times[1:]),
+               "first_step_ms": times[0], "launches_per_step": per_step,
+               "plan_and_state_mib": (base - mem0) / 2**20,
+               "peak_mib": peak / 2**20, "held_bytes_before": held,
+               "held_bytes_after": after, "gate_price_bytes": price,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "max_loss_err_vs_segment": lerr,
+               "max_grad_err_vs_segment": gerr}
+        staged_train_table.append(row)
+        print(f"train {label} [{smi}]: plan {row['plan']}, median "
+              f"{row['ms_per_step']:.3f} ms/step (host clock, steps 2-"
+              f"{TRAIN_STEPS}; first {times[0]:.1f} ms), launches/step "
+              f"{per_step}, plan + state {row['plan_and_state_mib']:.1f} "
+              f"MiB, peak {row['peak_mib']:.1f} MiB, held_bytes {held} B "
+              f"before and {after} B after training (the gate prices "
+              f"{price} B), loss {losses[0]:.4f} -> {losses[-1]:.4f}, max "
+              f"loss err vs segment {lerr:.3g}"
+              + (f", max grad err vs segment {gerr:.3g}" if gerr is not None
+                 else ""))
+        del tr, state, data, ps, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    staged_train_counts = K.launch_counts()
+    print(f"staged-training launches: {staged_train_counts}")
+    print(f"staged training runs: {json.dumps(staged_train_table)}")
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
-              "b4": b4_counts, "training": train_counts}
+              "b4": b4_counts, "training": train_counts,
+              "staged": staged_counts, "staged_tiled": staged_tiled_counts,
+              "staged_training": staged_train_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

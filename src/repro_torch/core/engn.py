@@ -33,10 +33,21 @@ reference's, whose tiles XLA differentiates.  The budget gate prices
 training as the reference does (`cfg.training=True` doubles the
 activations).
 
-The sharded "ring" backend, the typed/gated stage contracts and
-training through "tiled" are not ported yet and raise
-`NotImplementedError` naming their ROADMAP item; nothing falls back to
-another backend.
+The typed and gated stage contracts (R-GCN, Gated-GCN: `stage_spec`)
+run on "segment", "blocked" and, for inference, "tiled".  Typed dense
+tiles keep one `rer_spmm` plan per relation, each launched on its own
+contiguous H-wide payload slice; typed packed plans carry the flat
+entries with a relation column, and gated packed plans the flat entries
+on every device, as the reference's do (plain PyTorch gathers on the
+card: the reference's are XLA, not Pallas).  Gated dense tiles run the
+reference's (nnzb, T, T, F) formulation, which on `cuda` is priced
+first and refused with `DeviceBudgetExceeded` over the budget or the
+card's free memory (ROADMAP B6).  The reference's `aggregate_fn`
+refusal has no counterpart: `forward` takes no `aggregate_fn`.
+
+The sharded "ring" backend and training through "tiled" are not ported
+yet and raise `NotImplementedError` naming their ROADMAP item; nothing
+falls back to another backend.
 """
 from __future__ import annotations
 
@@ -62,8 +73,6 @@ _NOT_PORTED = {
     "train_tiled": "training through the streamed 'tiled' backend is not "
                    "ported yet (ROADMAP A5, A7); run inference under "
                    "torch.no_grad() or torch.inference_mode()",
-    "staged": "the typed/gated stage contracts (R-GCN, Gated-GCN) are not "
-              "ported yet (ROADMAP A3)",
     "int8": "int8 tile values are not ported yet (ROADMAP A7)",
 }
 
@@ -166,6 +175,17 @@ class EnGNLayer(nn.Module):
         """The canonical per-edge message: edge_val * extraction(x_src)."""
         return edge_val[:, None] * self.feature_extraction(x_src)
 
+    # -- stage contract ------------------------------------------------------
+    def stage_spec(self) -> Optional[Dict[str, Any]]:
+        """None for the default contract (message = edge_val *
+        feature_extraction(x_src)).  A model whose messages read the edge
+        type or the destination endpoint returns its spec:
+        {"kind": "typed", "num_relations": R, "channels": H, "normalize":
+        bool} with `src_payload(x) -> (N, R*H)` (R-GCN), or {"kind":
+        "gated"} with `gate_dst` / `gate_src` (Gated-GCN).  Both
+        aggregate by sum."""
+        return None
+
     # -- DASR (S5.2): choose sigma(A(XW)) vs sigma((AX)W) -----------------
     def dasr_order(self) -> str:
         cfg = self.cfg
@@ -188,6 +208,9 @@ class EnGNLayer(nn.Module):
         dict; x: (N, F) features (moved to the layer's device; a tiled
         plan keeps them on the host and returns a CPU tensor)."""
         graph = plan_carrier(graph)
+        spec = self.stage_spec()
+        if spec is not None:
+            return self._apply_staged(graph, x, spec)
         backend = graph.get("backend", self.cfg.backend)
         if backend == "tiled":
             return self._apply_tiled(graph, x)
@@ -211,15 +234,144 @@ class EnGNLayer(nn.Module):
             return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
         return self.update(x, agg(self.feature_extraction(x)))      # A(XW)
 
-    # -- streamed out-of-core path (core/tiled.py) -------------------------
-    def _apply_tiled(self, graph, x) -> torch.Tensor:
-        """The layer through the streamed executor: extraction runs on
-        each source interval as it is loaded, aggregation follows the
-        adaptive tile schedule, and the update streams per destination
-        interval.  Takes host or device x and returns a CPU float32
-        tensor: the graph and the features stay on the host by design,
-        every reduce and stage function runs on the executor's device."""
+    # -- staged models (typed and gated stage contracts) ------------------
+    def _apply_staged(self, graph, x, spec) -> torch.Tensor:
         cfg = self.cfg
+        backend = graph.get("backend", cfg.backend)
+        if cfg.aggregate_op != "sum":
+            raise ValueError(
+                f"the {spec['kind']!r} stage contract aggregates by sum "
+                f"(Eq. 3-4); got aggregate_op={cfg.aggregate_op!r}")
+        if backend == "fused":
+            raise ValueError(
+                "the fused Fig. 8 kernel serves the default contract "
+                "only; use blocked/tiled for staged models")
+        if backend == "ring":
+            raise NotImplementedError(_NOT_PORTED[backend])
+        if spec["kind"] == "typed":
+            return self._staged_typed(graph, x, spec, backend)
+        if spec["kind"] == "gated":
+            return self._staged_gated(graph, x, backend)
+        raise ValueError(spec["kind"])
+
+    def _staged_typed(self, graph, x, spec, backend) -> torch.Tensor:
+        """Relation-typed messages (R-GCN, Eq. 3): the per-vertex payload
+        is the (N, R*H) stack of every relation's projection; each typed
+        carrier (tile, flat entry) takes its own relation's H-wide slice
+        and the aggregate is a plain sum.  The per-(dst, rel)
+        normalisation is folded into the carrier's weights by
+        `prepare_graph` (`rel_normed`), or computed here on a raw
+        segment dict."""
+        n = graph["n"]
+        r, h = spec["num_relations"], spec["channels"]
+        if backend == "tiled":
+            ex = self._tiled_executor(graph, x)
+            agg = ex.aggregate(x, "sum", order="auto",
+                               extract_fn=self.src_payload,
+                               extract_dim=r * h, out_dim_hint=h,
+                               rel_channels=h)
+            return ex.stream_map(self.update, x, agg)
+        x = torch.as_tensor(x, dtype=self.cfg.dtype, device=self.device)
+        if backend == "segment":
+            src, dst, val = _segment_edges(graph, x.device)
+            rel = graph["rel"].long()
+            if spec.get("normalize") and not graph.get("rel_normed"):
+                key = dst * r + rel
+                cnt = torch.zeros(n * r, device=x.device).index_add_(
+                    0, key, torch.ones_like(val))
+                val = val / torch.clamp_min(cnt[key], 1.0)
+            if self.dasr_order() == "afu":
+                # aggregate per (dst, rel) first, then one batched
+                # projection: Eq. 7's cheaper order when F < H
+                agg_r = segment_aggregate(x[src] * val[:, None],
+                                          dst * r + rel, n * r, "sum")
+                agg = torch.einsum("nrf,rfh->nh",
+                                   agg_r.reshape(n, r, x.shape[1]), self.wr)
+            else:
+                ev = self.extract(x[src], x[dst], val, rel)
+                agg = segment_aggregate(ev, dst, n, "sum")
+            return self.update(x, agg)
+        if backend != "blocked":
+            raise ValueError(backend)
+        xw = self.src_payload(x)                          # (n, r*h)
+        if "typed_flat" in graph:
+            gsrc, gdst, gval, grel = graph["typed_flat"]
+            ev = gval[:, None] * xw.reshape(n * r, h)[gsrc.long() * r
+                                                       + grel.long()]
+            return self.update(x, segment_aggregate(ev, gdst, n, "sum"))
+        from repro_torch.kernels.rer_spmm import blocked_spmm
+        pad_n = graph["blocks_meta"]["padded"]
+        # one contiguous (pad_n, H) slice per relation, the rows B1 reads;
+        # its gradient reaches the payload (and W_r) through the unbind
+        parts = (_pad_rows(graph, xw).reshape(pad_n, r, h)
+                 .permute(1, 0, 2).contiguous().unbind(0))
+        y = None
+        for blk in graph["typed_blocks"]:      # relations with tiles only
+            part = blocked_spmm(blk["blocks"], blk["block_row"],
+                                blk["block_col"], parts[blk["rel"]],
+                                q=blk["q"], op="sum")
+            y = part if y is None else y + part
+        agg = (y[:n] if y is not None
+               else torch.zeros((n, h), dtype=x.dtype, device=x.device))
+        return self.update(x, agg)
+
+    def _staged_gated(self, graph, x, backend) -> torch.Tensor:
+        """Dst+src sigmoid-gated messages (Gated-GCN, Eq. 4): message =
+        val * sigmoid(ph[dst] + pc[src]) * x[src], ph = gate_dst(x),
+        pc = gate_src(x), both per vertex."""
+        n = graph["n"]
+        if backend == "tiled":
+            ex = self._tiled_executor(graph, x)
+            ph = ex.stream_map(self.gate_dst, x)
+            pc = ex.stream_map(self.gate_src, x)
+            agg = ex.gated_aggregate(ph, pc, x)
+            return ex.stream_map(self.update, x, agg)
+        x = torch.as_tensor(x, dtype=self.cfg.dtype, device=self.device)
+        if backend == "segment":
+            src, dst, val = _segment_edges(graph, x.device)
+            ev = self.extract(x[src], x[dst], val, None)
+            return self.update(x, segment_aggregate(ev, dst, n, "sum"))
+        if backend != "blocked":
+            raise ValueError(backend)
+        ph, pc = self.gate_dst(x), self.gate_src(x)
+        meta = graph["blocks_meta"]
+        pad_n = meta["padded"]
+        pad = partial(_pad_rows, graph)
+        if "packed_flat" in graph:
+            gsrc, gdst, gval = graph["packed_flat"]
+            gsrc, gdst = gsrc.long(), gdst.long()
+            xf, phf, pcf = pad(x), pad(ph), pad(pc)
+            z = torch.sigmoid(phf[gdst] + pcf[gsrc])
+            ev = gval[:, None] * z * xf[gsrc]
+            return self.update(x, segment_aggregate(ev, gdst, pad_n,
+                                                    "sum")[:n])
+        if "packed_groups" in graph:
+            raise ValueError(
+                "the gated contract needs the flat packed carrier; the "
+                "bucket-group layout does not carry endpoint projections "
+                "(prepare the plan with the layer's own config)")
+        q, t = meta["q"], meta["tile"]
+        blocks = graph["blocks"]
+        brow, bcol = graph["block_row"].long(), graph["block_col"].long()
+        f = x.shape[1]
+        if x.device.type == "cuda":
+            check_gated_dense(gated_dense_bytes(blocks.shape[0], t, f),
+                              self.cfg.device_budget_bytes,
+                              torch.cuda.mem_get_info(x.device)[0])
+        xt, pht, pct = (pad(a).reshape(q, t, -1) for a in (x, ph, pc))
+        z = torch.sigmoid(pht[brow][:, :, None, :] + pct[bcol][:, None, :, :])
+        b = blocks[..., None]
+        contrib = torch.where(b != 0.0, b * z * xt[bcol][:, None, :, :], 0.0)
+        part = contrib.sum(dim=2)                        # (nnzb, T, F)
+        agg = torch.zeros((q, t, f), dtype=x.dtype, device=x.device)
+        agg = agg.index_add(0, brow, part).reshape(pad_n, f)[:n]
+        return self.update(x, agg)
+
+    # -- streamed out-of-core path (core/tiled.py) -------------------------
+    def _tiled_executor(self, graph, x) -> TiledExecutor:
+        """The plan's executor, after the checks every tiled layer makes:
+        it streams to the layer's device, and nothing asks for a
+        gradient (the streamed backward is ROADMAP A5)."""
         ex: TiledExecutor = graph["tiled_exec"]
         if ex.device != self.device:
             raise ValueError(f"the tiled plan streams to {ex.device}, the "
@@ -228,6 +380,17 @@ class EnGNLayer(nn.Module):
                 any(p.requires_grad for p in self.parameters())
                 or (isinstance(x, torch.Tensor) and x.requires_grad)):
             raise NotImplementedError(_NOT_PORTED["train_tiled"])
+        return ex
+
+    def _apply_tiled(self, graph, x) -> torch.Tensor:
+        """The layer through the streamed executor: extraction runs on
+        each source interval as it is loaded, aggregation follows the
+        adaptive tile schedule, and the update streams per destination
+        interval.  Takes host or device x and returns a CPU float32
+        tensor: the graph and the features stay on the host by design,
+        every reduce and stage function runs on the executor's device."""
+        cfg = self.cfg
+        ex = self._tiled_executor(graph, x)
         order = tile_schedule_order(cfg.in_dim, cfg.out_dim)
         linear_sum = (cfg.aggregate_op == "sum"
                       and type(self).feature_extraction
@@ -272,7 +435,8 @@ class EnGNLayer(nn.Module):
             return y[:n] / torch.clamp_min(graph["in_counts"], 1.0)[:, None]
         xf = _pad_rows(graph, feat)
         if "packed_flat" in graph:
-            # CPU plans: one flat gather + segment reduce
+            # CPU plans (a gated plan's flat entries, on any device, are
+            # read by `_staged_gated`): one flat gather + segment reduce
             from repro_torch.kernels.rer_gather import packed_flat_plain
             y = packed_flat_plain(*graph["packed_flat"], xf,
                                   n=xf.shape[0], op=base_op)
@@ -291,6 +455,16 @@ class EnGNLayer(nn.Module):
                          q=graph["blocks_meta"]["q"], op=base_op,
                          counts=graph.get("row_counts"))
         return _finish(y)
+
+
+def _segment_edges(graph: Dict[str, Any], dev: torch.device):
+    """(src, dst, val) of a segment carrier as index and float32 tensors,
+    val 1 where the graph is unweighted."""
+    src, dst = graph["src"].long(), graph["dst"].long()
+    val = graph.get("val")
+    val = (torch.ones(src.shape[0], device=dev) if val is None
+           else val.float())
+    return src, dst, val
 
 
 def _pad_rows(graph: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -313,6 +487,62 @@ def upload_groups(groups, dev: torch.device):
     return PlanGroups(groups, dev)
 
 
+def fold_rel_norm(g: COOGraph) -> COOGraph:
+    """Fold R-GCN's per-(dst, rel) mean normalisation 1/|N_r(dst)| into
+    the edge weights (Eq. 3).  The count does not depend on the
+    features, so folded on the host it makes the typed aggregate a plain
+    sum on every backend."""
+    if g.rel is None:
+        raise ValueError("fold_rel_norm needs a relation-typed graph")
+    key = g.dst.astype(np.int64) * g.num_relations + g.rel
+    cnt = np.bincount(key, minlength=g.num_vertices * g.num_relations)
+    val = (g.weights() / np.maximum(cnt[key], 1)).astype(np.float32)
+    return COOGraph(g.num_vertices, g.src, g.dst, val, g.rel,
+                    g.num_relations)
+
+
+def _maybe_fold_rel_norm(g: COOGraph, cfg: EnGNConfig, rel_normed: bool):
+    """(graph, rel_normed) after applying the config's normalisation at
+    most once across the prepare_* call chain."""
+    if (cfg.rel_normalize and not rel_normed and g.rel is not None
+            and g.num_relations > 1):
+        return fold_rel_norm(g), True
+    return g, rel_normed
+
+
+# (nnzb, T, T, F) float32 tensors the gated dense formulation holds at
+# once under autograd: the gate, its weighted product, that times x, and
+# the masked contribution
+_GATED_DENSE_LIVE = 4
+
+
+def gated_dense_bytes(nnzb: int, tile: int, f: int) -> int:
+    """Device bytes the gated dense formulation (`_staged_gated` on dense
+    tiles) materialises: `_GATED_DENSE_LIVE` (nnzb, T, T, F) float32
+    tensors."""
+    return _GATED_DENSE_LIVE * 4 * nnzb * tile * tile * f
+
+
+def check_gated_dense(nbytes: int, budget: Optional[int],
+                      free: Optional[int]) -> None:
+    """Refuse a gated dense aggregate on the card whose formulation needs
+    more than the device budget or the card's free memory, before
+    anything is allocated.  No route is taken in its place: the gated
+    walk of B1's dense tiles is ROADMAP B6; packed tiles
+    (`tile_format="packed"` or "auto") run the gated contract today."""
+    over = []
+    if budget and nbytes > budget:
+        over.append(f"the device budget ({budget} B)")
+    if free is not None and nbytes > free:
+        over.append(f"the card's free memory ({free} B)")
+    if over:
+        raise DeviceBudgetExceeded(
+            f"the gated contract on dense tiles materialises (nnzb, T, T, "
+            f"F) tensors, {nbytes} B, over {' and '.join(over)}; a gated "
+            f"walk of the dense tiles is not built yet (ROADMAP B6): use "
+            f"tile_format='packed' or 'auto'")
+
+
 def prepare_graph(g: COOGraph, cfg: EnGNConfig,
                   out_dim: Optional[int] = None,
                   device: DeviceLike = None) -> PreparedPlan:
@@ -324,8 +554,7 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
     dev = resolve_device(device)
     backend = cfg.backend
     h = out_dim if out_dim is not None else cfg.out_dim
-    if cfg.stage_contract is not None or cfg.rel_normalize:
-        raise NotImplementedError(_NOT_PORTED["staged"])
+    g, rel_normed = _maybe_fold_rel_norm(g, cfg, False)
     if cfg.device_budget_bytes and backend not in ("tiled", "ring"):
         need = dense_footprint_bytes(g.num_vertices, g.num_edges,
                                      cfg.in_dim, h, backend,
@@ -343,7 +572,8 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
                     f"tiles out-of-core)")
             backend = "tiled"
     if backend == "tiled":
-        return prepare_tiled(g, cfg, out_dim, device=dev)
+        return prepare_tiled(g, cfg, out_dim, device=dev,
+                             rel_normed=rel_normed)
     if backend == "ring":
         raise NotImplementedError(_NOT_PORTED[backend])
     d: Dict[str, Any] = {"n": g.num_vertices, "backend": backend,
@@ -356,10 +586,13 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
         if g.rel is not None:
             d["rel"] = _upload(g.rel, dev)
             d["num_relations"] = g.num_relations
-            d["rel_normed"] = False
+            d["rel_normed"] = rel_normed
         return wrap_plan(d)
     if backend not in ("blocked", "fused"):
         raise ValueError(backend)
+    if (backend == "blocked" and cfg.stage_contract == "typed"
+            and g.rel is not None and g.num_relations > 1):
+        return _prepare_blocked_typed(g, cfg, d, h, dev)
     # the adaptive order (Table 3) is recorded for the I/O analysis; the
     # kernels walk dst-sorted tiles whatever it says
     order = tile_schedule_order(cfg.in_dim, h)
@@ -380,11 +613,18 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
             bucket_floor=cfg.packed_bucket_floor)
         if choice.fmt == "packed":
             return _prepare_packed(g, cfg, d, h, store, packed, choice,
-                                   order, dev)
+                                   order, dev, rel_normed)
     from repro_torch.kernels.rer_spmm import prepare_blocks
     b = coo_to_blocked(g, cfg.tile, order="column")
     blocks, brow, bcol = prepare_blocks(b.blocks, b.block_row, b.block_col,
                                         b.q)
+    if (backend == "blocked" and cfg.stage_contract == "gated"
+            and dev.type == "cuda"):
+        # priced before the tiles go up: nothing is allocated on a refusal
+        check_gated_dense(gated_dense_bytes(blocks.shape[0], b.tile,
+                                            cfg.in_dim),
+                          cfg.device_budget_bytes,
+                          torch.cuda.mem_get_info(dev)[0])
     d["blocks"] = _upload(blocks, dev)
     d["block_row"] = _upload(brow, dev)
     d["block_col"] = _upload(bcol, dev)
@@ -406,16 +646,22 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
 def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
                   out_dim: Optional[int] = None,
                   impl: Optional[str] = None,
-                  device: DeviceLike = None) -> PreparedPlan:
+                  device: DeviceLike = None,
+                  rel_normed: bool = False) -> PreparedPlan:
     """The `PreparedPlan` of the streamed out-of-core backend: the Q x Q
     tile store stays in host memory, tile and chunk fitted to the
     device budget at the layer's wider feature width, streaming to
     `device` (`cuda` unless the caller passes "cpu")."""
     dev = resolve_device(device)
     h = out_dim if out_dim is not None else cfg.out_dim
-    if cfg.stage_contract is not None or cfg.rel_normalize:
-        raise NotImplementedError(_NOT_PORTED["staged"])
+    g, _ = _maybe_fold_rel_norm(g, cfg, rel_normed)
+    # the typed contract streams the (N, R*H) stacked payload, the gated
+    # one a 2F-wide (pc || x) stream
     dim_hint = max(cfg.in_dim, h) * (2 if cfg.training else 1)
+    if cfg.stage_contract == "typed":
+        dim_hint = max(dim_hint, cfg.num_relations * h)
+    elif cfg.stage_contract == "gated":
+        dim_hint = max(dim_hint, 2 * cfg.in_dim)
     value_dtype = (cfg.tile_value_dtype if cfg.tile_format != "dense"
                    else "fp32")
     if value_dtype == "int8":
@@ -451,13 +697,16 @@ def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
 
 
 def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
-                    dev) -> PreparedPlan:
+                    dev, rel_normed=False) -> PreparedPlan:
     """Packed carriers: pow2-bucket groups for the `rer_gather` kernel on
-    CUDA, flat entry arrays for the plain version on the CPU."""
+    CUDA, flat entry arrays for the plain version on the CPU.  The gated
+    contract takes the flat entries on every device: its gate gathers
+    both endpoints' projections per entry, which the groups do not
+    carry (as in the reference)."""
     from repro_torch.kernels import rer_gather
     if cfg.tile_value_dtype == "int8":
         raise NotImplementedError(_NOT_PORTED["int8"])
-    if dev.type == "cpu":
+    if dev.type == "cpu" or cfg.stage_contract == "gated":
         flat = rer_gather.flat_entries(packed)
         d["packed_flat"] = tuple(_upload(a, dev) for a in flat)
         tile_bytes = sum(a.nbytes for a in flat)
@@ -475,10 +724,57 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
                 f"packed blocked plan needs ~{need} device bytes, budget "
                 f"is {cfg.device_budget_bytes} (auto_spill=True streams "
                 f"tiles out-of-core instead)")
-        return prepare_tiled(g, cfg, h, device=dev)
+        return prepare_tiled(g, cfg, h, device=dev, rel_normed=rel_normed)
     d["blocks_meta"] = {
         "q": store.q, "padded": store.padded_vertices,
         "order": order, "tile": store.tile,
         "tile_format": "packed", "format_choice": choice,
         "device_bytes": tile_bytes, "value_dtype": "fp32"}
+    return wrap_plan(d)
+
+
+def _prepare_blocked_typed(g: COOGraph, cfg: EnGNConfig, d: Dict[str, Any],
+                           h: int, dev: torch.device) -> PreparedPlan:
+    """Carriers of the typed contract on "blocked".  tile_format "dense"
+    keeps one `rer_spmm` plan per relation that has edges (each
+    contracts its own H-wide slice of the stacked payload: the bitwise
+    dense oracle, and one B1 launch per relation); "packed" / "auto"
+    carry the flat merged entries with a per-entry relation column, one
+    gather and one segment sum in all."""
+    from repro_torch.graphs.partition import build_tile_store, pack_tile_store
+    n, r, t = g.num_vertices, g.num_relations, cfg.tile
+    order = tile_schedule_order(cfg.in_dim, h)
+    q = -(-n // t)
+    if cfg.tile_format == "dense":
+        from repro_torch.kernels.rer_spmm import prepare_blocks
+        w = g.weights()
+        d["typed_blocks"] = []
+        for rr in range(r):
+            m = g.rel == rr
+            if not m.any():
+                continue
+            b = coo_to_blocked(COOGraph(n, g.src[m], g.dst[m], w[m]), t,
+                               order="column")
+            blocks, brow, bcol = prepare_blocks(b.blocks, b.block_row,
+                                                b.block_col, b.q)
+            d["typed_blocks"].append(
+                {"rel": rr, "q": b.q, "blocks": _upload(blocks, dev),
+                 "block_row": _upload(brow, dev),
+                 "block_col": _upload(bcol, dev)})
+        d["blocks_meta"] = {"q": q, "padded": q * t, "order": order,
+                            "tile": t, "tile_format": "dense",
+                            "format_choice": None, "num_relations": r}
+        return wrap_plan(d)
+    from repro_torch.kernels.rer_gather import flat_entries
+    ps = pack_tile_store(build_tile_store(g, t))
+    gsrc, gdst, gval = flat_entries(ps)
+    tile_of = np.repeat(np.arange(ps.nnzb, dtype=np.int64),
+                        np.diff(ps.entry_ptr))
+    grel = ps.block_rel[tile_of].astype(np.int32)
+    d["typed_flat"] = tuple(_upload(a, dev)
+                            for a in (gsrc, gdst, gval, grel))
+    d["blocks_meta"] = {"q": ps.q, "padded": ps.padded_vertices,
+                        "order": order, "tile": ps.tile,
+                        "tile_format": "packed", "format_choice": None,
+                        "num_relations": r}
     return wrap_plan(d)

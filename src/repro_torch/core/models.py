@@ -1,13 +1,20 @@
 """GNN models of the paper's Table 1 on the EnGN processing model.
 
-| model     | feature_extraction          | aggregate | update                 |
-|-----------|-----------------------------|-----------|------------------------|
-| GCN       | XW (norm folded in weights) | sum       | ReLU                   |
-| GS-Pool   | ReLU(W_pool x_u + b)        | max       | ReLU(W concat(agg, h)) |
-| GRN       | W h_u                       | sum       | GRU(h_v, agg)          |
+| model     | feature_extraction               | aggregate | update                  |
+|-----------|----------------------------------|-----------|-------------------------|
+| GCN       | XW (norm folded in weights)      | sum       | ReLU                    |
+| GS-Pool   | ReLU(W_pool x_u + b)             | max       | ReLU(W concat(agg, h))  |
+| R-GCN     | W_r h_u per relation (typed)     | sum       | ReLU(sum_r V_r + W_0 h) |
+| Gated-GCN | sigmoid(W_H h_v + W_C h_u) h_u   | sum       | ReLU(W V_temp)          |
+| GRN       | W h_u                            | sum       | GRU(h_v, agg)           |
 
-R-GCN and Gated-GCN ride the typed/gated stage contracts and come with
-the next slice of the port (ROADMAP A3); `make_gnn` names that item.
+R-GCN and Gated-GCN ride the typed and gated stage contracts
+(`stage_spec()` with `src_payload` / `gate_dst` / `gate_src`) on
+"segment", "blocked" and, for inference, "tiled"; "fused" serves the
+default contract only and refuses them, as the reference does.  Their
+parameters are the reference's by name and shape (`w0`, `wr` of shape
+(R, F, H); `w_h`, `w_c`, `w`), so `interop.load_reference_params`
+carries them across unchanged.
 """
 from __future__ import annotations
 
@@ -58,6 +65,89 @@ class GSPoolLayer(EnGNLayer):
         return torch.relu(torch.cat([agg, x_self], dim=-1) @ self.w)
 
 
+class RGCNLayer(EnGNLayer):
+    """Relational GCN (Eq. 3): one aggregation per relation type, summed
+    through per-relation weights, plus a self-loop W_0 h."""
+
+    def __init__(self, cfg: EnGNConfig, num_relations: int,
+                 name: str = "rgcn", **kw):
+        # copy-on-configure: the typed stage contract is part of this
+        # layer's identity, not the caller's shared cfg
+        cfg = dataclasses.replace(
+            cfg, stage_contract="typed", num_relations=num_relations,
+            rel_normalize=True)
+        super().__init__(cfg, name, **kw)
+        self.num_relations = num_relations
+
+    def init_params(self, gen):
+        cfg = self.cfg
+        return {
+            "w0": _glorot(gen, (cfg.in_dim, cfg.out_dim), cfg.dtype),
+            "wr": _glorot(gen, (cfg.num_relations, cfg.in_dim, cfg.out_dim),
+                          cfg.dtype),
+        }
+
+    def stage_spec(self):
+        return {"kind": "typed", "num_relations": self.num_relations,
+                "channels": self.cfg.out_dim, "normalize": True}
+
+    def src_payload(self, x):
+        """The (N, R*H) stack of every relation's projection; each typed
+        carrier (tile, flat entry) selects its own H slice."""
+        r, h = self.num_relations, self.cfg.out_dim
+        return torch.einsum("nf,rfh->nrh", x, self.wr).reshape(
+            x.shape[0], r * h)
+
+    def extract(self, x_src, x_dst, edge_val, rel):
+        """The reference per-edge message: W_rel x_src scaled by the
+        (already rel-normalised) edge value."""
+        r, h = self.num_relations, self.cfg.out_dim
+        pay = self.src_payload(x_src).reshape(-1, r, h)
+        sel = torch.gather(pay, 1, rel.long()[:, None, None].expand(-1, 1, h))
+        return edge_val[:, None] * sel[:, 0, :]
+
+    def update(self, x_self, agg):
+        return torch.relu(x_self @ self.w0 + agg)
+
+
+class GatedGCNLayer(EnGNLayer):
+    """Gated-GCN (Eq. 4): edge gate eta_uv = sigmoid(W_H h_v + W_C h_u),
+    message = eta . h_u, sum-aggregate, ReLU(W .) update."""
+
+    def __init__(self, cfg: EnGNConfig, name: str = "gated_gcn", **kw):
+        # copy-on-configure: never mutate the caller's (possibly shared) cfg
+        cfg = dataclasses.replace(
+            cfg, stage_contract="gated",
+            stage_order="fau")  # gate depends on both endpoints: no reorder
+        super().__init__(cfg, name, **kw)
+
+    def init_params(self, gen):
+        cfg = self.cfg
+        return {
+            "w_h": _glorot(gen, (cfg.in_dim, cfg.in_dim), cfg.dtype),
+            "w_c": _glorot(gen, (cfg.in_dim, cfg.in_dim), cfg.dtype),
+            "w": _glorot(gen, (cfg.in_dim, cfg.out_dim), cfg.dtype),
+        }
+
+    def stage_spec(self):
+        return {"kind": "gated"}
+
+    def gate_dst(self, x):
+        return x @ self.w_h
+
+    def gate_src(self, x):
+        return x @ self.w_c
+
+    def extract(self, x_src, x_dst, edge_val, rel):
+        """The reference per-edge message: eta_uv . h_u, weighted by the
+        edge value."""
+        eta = torch.sigmoid(self.gate_dst(x_dst) + self.gate_src(x_src))
+        return edge_val[:, None] * eta * x_src
+
+    def update(self, x_self, agg):
+        return torch.relu(agg @ self.w)
+
+
 class GRNLayer(EnGNLayer):
     """Graph recurrent network (Eq. 5): h' = GRU(h_v, sum_u W h_u)."""
 
@@ -84,32 +174,33 @@ class GRNLayer(EnGNLayer):
 MODEL_REGISTRY = {
     "gcn": GCNLayer,
     "gs_pool": GSPoolLayer,
+    "rgcn": RGCNLayer,
+    "gated_gcn": GatedGCNLayer,
     "grn": GRNLayer,
 }
-_NEXT_SLICE = ("rgcn", "gated_gcn")
 
 
 def make_gnn(model: str, in_dim: int, out_dim: int, backend: str = "segment",
-             tile: int = 256, stage_order: str = "auto",
-             device: DeviceLike = None,
+             num_relations: int = 1, tile: int = 256,
+             stage_order: str = "auto", device: DeviceLike = None,
              generator: Optional[torch.Generator] = None) -> EnGNLayer:
-    if model in _NEXT_SLICE:
-        raise NotImplementedError(
-            f"{model!r} needs the typed/gated stage contracts, which are "
-            f"not ported yet (ROADMAP A3)")
     cfg = EnGNConfig(in_dim=in_dim, out_dim=out_dim, backend=backend,
                      tile=tile, stage_order=stage_order)
+    if model == "rgcn":
+        return RGCNLayer(cfg, num_relations, device=device,
+                         generator=generator)
     return MODEL_REGISTRY[model](cfg, device=device, generator=generator)
 
 
 def make_gnn_stack(model: str, dims, backend: str = "segment",
-                   tile: int = 256, device: DeviceLike = None,
-                   seed: int = 0):
+                   num_relations: int = 1, tile: int = 256,
+                   device: DeviceLike = None, seed: int = 0):
     """A multi-layer GNN: dims = [F_in, H_1, ..., H_out], its weights
     drawn in layer order from one generator seeded with `seed`."""
     gen = torch.Generator().manual_seed(seed)
     return [make_gnn(model, dims[i], dims[i + 1], backend=backend,
-                     tile=tile, device=device, generator=gen)
+                     num_relations=num_relations, tile=tile, device=device,
+                     generator=gen)
             for i in range(len(dims) - 1)]
 
 

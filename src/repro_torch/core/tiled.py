@@ -36,10 +36,17 @@ packed chunks and the queue on `cuda` (plain versions on the CPU);
 "plain" runs the plain versions; "cuda" runs the kernels, dense chunks
 through `rer_spmm` as one-interval launches.
 
+Staged models stream too, for inference: `aggregate(rel_channels=H)`
+runs R-GCN's typed sum in one sweep (each staged tile takes its own
+relation's H-wide slice of the (C, T, R*H) payload stack once, before
+the chunk product or B2's tile part), and `gated_aggregate` Gated-GCN's
+gated sum (ph resident per destination interval, (pc || x) streamed;
+plain PyTorch on every device, as the reference's are XLA).
+
 Not ported yet, each raising `NotImplementedError` naming its ROADMAP
 item: int8 tile values (A7), the transposed views and the streamed
-backward (A5/A7), typed and gated streaming (A3), `apply_updates` (A10),
-the measured tile-format autotune (B queue).
+backward, typed and gated included (A5/A7), `apply_updates` (A10), the
+measured tile-format autotune (B queue).
 """
 from __future__ import annotations
 
@@ -63,7 +70,6 @@ _TRAINING = ("the streamed backward (transposed tile views, the max "
              "(ROADMAP A5, A7)")
 _NOT_PORTED = {
     "int8": "int8 tile values are not ported yet (ROADMAP A7)",
-    "staged": "typed and gated streaming are not ported yet (ROADMAP A3)",
     "updates": "incremental graph updates are not ported yet (ROADMAP A10)",
 }
 
@@ -197,6 +203,49 @@ def _chunk_step_kernel(acc, blocks, xs, *, op: str, impl: str, q: int):
         return acc.add_(y)
     covered = (blocks != 0.0).any(dim=0).any(dim=1)
     return torch.where(covered[:, None], torch.maximum(acc, y), acc)
+
+
+def _select_rel(xs, rels, *, r: int, h: int):
+    """Per-tile relation slice of a stacked source payload: xs is the
+    (C, T, R*H) interval stack, rels the chunk's (C,) tile edge types;
+    returns the contiguous (C, T, H) stack each tile's product reads.
+    The relation picks its slice once per staged tile, never in the
+    inner loop."""
+    c, t, ds = xs.shape
+    if ds != r * h:
+        raise ValueError((ds, r, h))
+    idx = torch.arange(c, device=xs.device)
+    return xs.reshape(c, t, r, h)[idx, :, rels].contiguous()
+
+
+def _chunk_step_gated(acc, blocks, stream, res):
+    """Gated forward chunk step on dense tiles: stream is the (C, T, 2F)
+    (pc || x) source stack, res the resident (T, F) ph of the
+    destination interval; accumulates sum val * sigmoid(ph[dst] +
+    pc[src]) * x[src].  Materialises (C, T, T, F), as the reference."""
+    f = res.shape[-1]
+    pc, xs = stream[..., :f], stream[..., f:]
+    z = torch.sigmoid(res[None, :, None, :] + pc[:, None, :, :])
+    b = blocks[..., None]
+    contrib = torch.where(b != 0.0, b * z * xs[:, None, :, :], 0.0)
+    return acc.add_(contrib.sum(dim=(0, 2)))
+
+
+def _packed_step_gated(acc, rows, cols, vals, stream, res):
+    """Packed twin of `_chunk_step_gated`: gather both streamed halves at
+    the entries' columns, recompute the gate, segment-sum over the
+    resident interval's rows."""
+    c, s = rows.shape
+    t, f = res.shape
+    gcols = (torch.arange(c, device=stream.device)[:, None] * t
+             + cols.long()).reshape(c * s)
+    flat = stream.reshape(c * t, stream.shape[-1])[gcols]
+    rowsf = rows.reshape(c * s).long()
+    v = vals.reshape(c * s)
+    z = torch.sigmoid(res[rowsf] + flat[:, :f])
+    contrib = torch.where((v != 0.0)[:, None], v[:, None] * z * flat[:, f:],
+                          0.0)
+    return acc.index_add_(0, rowsf, contrib)
 
 
 def _tile_part_sum(blk, xj):
@@ -347,6 +396,8 @@ class TiledExecutor:
         self.value_dtype = value_dtype
         self.stats = TiledStats(store_builds=1)
         self._xcache: OrderedDict = OrderedDict()
+        # H of a typed aggregate in flight (`aggregate(rel_channels=H)`)
+        self._rel_select: Optional[int] = None
         self._queue_cache: Dict[int, object] = {}
         self._tq = None
         self._counts_dev = None
@@ -362,9 +413,6 @@ class TiledExecutor:
 
     def max_vjp(self, x, y, cnt, g):
         raise NotImplementedError(_TRAINING)
-
-    def gated_aggregate(self, ph, pc, x):
-        raise NotImplementedError(_NOT_PORTED["staged"])
 
     def apply_updates(self, snapshot):
         raise NotImplementedError(_NOT_PORTED["updates"])
@@ -496,13 +544,26 @@ class TiledExecutor:
         float32 (N, d) tensor.  `order` follows the adaptive scheduler
         when "auto": column iff F < 2H (Eq. 8), F the streamed width and
         H `out_dim_hint`.  `extract_fn` runs on the device on every
-        source interval as it is loaded."""
-        if rel_channels is not None:
-            raise NotImplementedError(_NOT_PORTED["staged"])
+        source interval as it is loaded.
+
+        `rel_channels=H` is the relation-typed sum: the streamed payload
+        (x, or extract's output) is an (N, R*H) stack of per-relation
+        messages and every staged tile reads the H-wide slice of its own
+        `block_rel`, so a typed aggregate is one sweep, not R.  It needs
+        a store built from a typed graph."""
         x = _host_f32(x)
         if x.shape[0] != self.store.num_vertices:
             raise ValueError((x.shape, self.store.num_vertices))
         d = extract_dim if extract_fn is not None else x.shape[1]
+        if rel_channels is not None:
+            if self.store.block_rel is None:
+                raise ValueError(
+                    "rel_channels needs a relation-typed tile store "
+                    "(graph built with rel ids and num_relations > 1)")
+            if d != self.store.num_relations * rel_channels:
+                raise ValueError((d, self.store.num_relations,
+                                  rel_channels))
+            d = rel_channels
         if order == "auto":
             h = out_dim_hint if out_dim_hint is not None else d
             order = tile_schedule_order(x.shape[1], h)
@@ -512,18 +573,22 @@ class TiledExecutor:
         # the queue kernel is sum-only: a max on the card streams
         queue_ok = base_op == "sum" or not (self.device.type == "cuda"
                                             and self.impl != "plain")
-        if extract_fn is None and queue_ok:
+        if extract_fn is None and rel_channels is None and queue_ok:
             plan = self.queue_plan(d, base_op)
             if plan is not None:
                 return torch.from_numpy(self._queue_eager(x, op, plan))
         self._xcache = OrderedDict()
+        self._rel_select = rel_channels
         xh = self._pad_host(x)
-        if order == "column":
-            out = self._sweep_column(xh, base_op, extract_fn, d)
-        elif order == "row":
-            out = self._sweep_row(xh, base_op, extract_fn, d)
-        else:
-            raise ValueError(order)
+        try:
+            if order == "column":
+                out = self._sweep_column(xh, base_op, extract_fn, d)
+            elif order == "row":
+                out = self._sweep_row(xh, base_op, extract_fn, d)
+            else:
+                raise ValueError(order)
+        finally:
+            self._rel_select = None
         self._xcache = OrderedDict()
         if op == "mean":
             out = out / np.maximum(self.store.in_counts, 1.0)[:, None]
@@ -552,6 +617,72 @@ class TiledExecutor:
             if not self.double_buffer and i + 1 < st.q:
                 staged = stage(i + 1)
         return torch.from_numpy(np.concatenate(outs)[:st.num_vertices])
+
+    def gated_aggregate(self, ph, pc, x) -> torch.Tensor:
+        """Streamed gated sum (Eq. 4): y[d] = sum over edges (s -> d) of
+        val * sigmoid(ph[d] + pc[s]) * x[s], in column order.  The
+        dst-side gate input ph is the resident interval, so the gate
+        costs no streaming beyond the doubled source payload (pc || x).
+        Returns a CPU float32 (N, F) tensor."""
+        ph, pc, x = (_host_f32(a) for a in (ph, pc, x))
+        stream = np.ascontiguousarray(np.concatenate([pc, x], axis=1))
+        return torch.from_numpy(self._sweep_gated(stream, ph))
+
+    def _sweep_gated(self, stream: np.ndarray,
+                     resident: np.ndarray) -> np.ndarray:
+        """The gated forward's column sweep: `stream` is the two-half
+        source payload staged per chunk, `resident` the per-destination
+        interval half (ph), copied once per interval."""
+        st = self.store
+        t, q = st.tile, st.q
+        f = resident.shape[1]
+        chunk = self.effective_chunk(max(stream.shape[1], f))
+        out = np.zeros((st.padded_vertices, f), np.float32)
+        steps: List[Tuple[int, np.ndarray]] = []
+        for i in range(q):
+            for c in chunk_tile_row(st.row_tiles(i), chunk,
+                                    snake=(i % 2 == 1)):
+                steps.append((i, c))
+        if not steps:
+            return out[:st.num_vertices]
+        self._xcache = OrderedDict()
+        sh, rh = self._pad_host(stream), self._pad_host(resident)
+
+        def flush(i, acc):
+            hb = acc.cpu().numpy()
+            self.stats.d2h_bytes += hb.nbytes
+            out[i * t:(i + 1) * t] = hb
+
+        staged = self._stage_chunk(steps[0][1], sh, None, chunk)
+        acc = res = None
+        cur_row: Optional[int] = None
+        for s, (i, idx) in enumerate(steps):
+            (payload, ev), xs = staged
+            if i != cur_row:
+                if cur_row is not None:
+                    flush(cur_row, acc)
+                acc = torch.zeros((t, f), dtype=torch.float32,
+                                  device=self.device)
+                hb = self._interval(rh, i)
+                self.stats.h2d_x_bytes += 4 * t * f
+                self.stats.x_loads += 1
+                res = (torch.from_numpy(hb) if isinstance(hb, np.ndarray)
+                       else hb.to(self.device, non_blocking=True))
+                cur_row = i
+            if self.double_buffer and s + 1 < len(steps):
+                staged = self._stage_chunk(steps[s + 1][1], sh, None, chunk)
+            payload = self._ready(payload, ev)
+            if self.tile_format == "packed":
+                acc = _packed_step_gated(acc, *payload, xs, res)
+            else:
+                acc = _chunk_step_gated(acc, payload, xs, res)
+            self.stats.steps += 1
+            if not self.double_buffer and s + 1 < len(steps):
+                self._sync()
+                staged = self._stage_chunk(steps[s + 1][1], sh, None, chunk)
+        flush(cur_row, acc)
+        self._xcache = OrderedDict()
+        return out[:st.num_vertices]
 
     # -- host <-> device -----------------------------------------------
     def _pad_host(self, a: np.ndarray):
@@ -662,7 +793,15 @@ class TiledExecutor:
         # pad with a repeat of the first interval: its tiles are empty,
         # so it contributes nothing
         xs.extend(xs[0] for _ in range(chunk - k))
-        return staged, torch.stack(xs)
+        xs = torch.stack(xs)
+        if self._rel_select is not None:
+            # typed store: each tile takes its relation's H-wide slice of
+            # the (C, T, R*H) stack (pad tiles are empty: rel 0 is fine)
+            rels = np.zeros(chunk, np.int64)
+            rels[:k] = st.block_rel[idx]
+            xs = _select_rel(xs, torch.from_numpy(rels).to(self.device),
+                             r=st.num_relations, h=self._rel_select)
+        return staged, xs
 
     def _packed_part(self, payload, xs, op: str):
         from repro_torch.kernels.rer_gather import ops as gather_ops
@@ -771,7 +910,12 @@ class TiledExecutor:
                                              - st.edge_ptr[k])
                 self.stats.staged_slots += t * t
             self.stats.h2d_tile_bytes += tb
-            return staged, self._src_interval(xh, j, ext)
+            x_dev = self._src_interval(xh, j, ext)
+            if self._rel_select is not None:
+                h = self._rel_select
+                r_k = int(st.block_rel[k])
+                x_dev = x_dev[:, r_k * h:(r_k + 1) * h].contiguous()
+            return staged, x_dev
 
         staged = stage(steps[0])
         for s, (j, k) in enumerate(steps):

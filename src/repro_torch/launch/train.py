@@ -11,7 +11,10 @@ runner and atomic checkpoints.
         --gnn-backend blocked --device cpu --steps 20
 
 Backends `segment`, `blocked` (dense or packed tiles, as the format
-autotuner picks) and `fused` train.  Not ported yet, each raising
+autotuner picks) and `fused` train; `--gnn rgcn` (a 3-type edge
+colouring, `rel = (src + dst) % 3`) and `--gnn gated_gcn` train on
+`segment` and `blocked`, and refuse `fused` as the reference does.  Not
+ported yet, each raising
 `NotImplementedError` with its ROADMAP item: the sharded `ring` (A8),
 training through the streamed `tiled` backend, directly or by a budget
 spill (A5, A7), the chaos schedule (`--chaos-seed`, A11) and the LM mode
@@ -20,8 +23,10 @@ spill (A5, A7), the chaos schedule (`--chaos-seed`, A11) and the LM mode
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -46,6 +51,10 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
     GCN teacher [F, 16, classes] on the `segment` backend; the student
     [F, hidden, classes] on `backend` with `cfg.training=True`, so the
     budget gate prices the backward's buffers.
+
+    `rgcn` colours the (untyped) dataset's edges with 3 types, `rel =
+    (src + dst) % 3`, as the reference does, so the typed contract runs
+    end to end.
 
     The weights are drawn from the port's seeded generators (student
     `seed`, teacher 42) unless `reference_params` gives them as the
@@ -83,8 +92,13 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
         y_true = torch.argmax(apply_stack(
             teacher, prepare_graph(gn, teacher[0].cfg, device=dev), x), -1)
 
+    num_rel = 1
+    if model == "rgcn":
+        num_rel = 3
+        rel = ((gn.src.astype(np.int64) + gn.dst) % num_rel).astype(np.int32)
+        gn = dataclasses.replace(gn, rel=rel, num_relations=num_rel)
     layers = make_gnn_stack(model, [f, hidden, classes], backend=backend,
-                            device=dev, seed=seed)
+                            num_relations=num_rel, device=dev, seed=seed)
     for layer in layers:
         layer.cfg.device_budget_bytes = device_budget_bytes
         # price the budget gate for forward AND backward buffers

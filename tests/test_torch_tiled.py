@@ -664,11 +664,6 @@ def _deferred(case):
             ex, "sum"),
         "streamed_typed": lambda: t_tiled.make_streamed_typed_sum(ex),
         "streamed_gated": lambda: t_tiled.make_streamed_gated(ex),
-        "typed": lambda: ex.aggregate(x, "sum", rel_channels=4),
-        "gated": lambda: ex.gated_aggregate(x, x, x),
-        "staged_plan": lambda: t_engn.prepare_tiled(
-            g, dataclasses.replace(cfg, stage_contract="typed"),
-            device="cpu"),
         "updates": lambda: ex.apply_updates(None),
         "autotune": lambda: t_tiled.TiledExecutor(
             g, tile=16, autotune_measure=True, device="cpu"),
@@ -684,8 +679,7 @@ def _deferred(case):
     ("int8_executor", "A7"), ("int8_plan", "A7"), ("int8_queue", "A7"),
     ("transposed", "A5"), ("max_forward", "A5"), ("max_vjp", "A5"),
     ("streamed_aggregate", "A5"), ("streamed_typed", "A5"),
-    ("streamed_gated", "A5"), ("typed", "A3"), ("gated", "A3"),
-    ("staged_plan", "A3"), ("updates", "A10"), ("autotune", "B"),
+    ("streamed_gated", "A5"), ("updates", "A10"), ("autotune", "B"),
     ("training", "A5")])
 def test_deferred_features_raise_with_their_roadmap_item(case, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

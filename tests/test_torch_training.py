@@ -526,9 +526,22 @@ def _gnn_kw(steps):
 def test_gcn_trajectory_matches_reference_from_its_init(backend):
     """`tests/test_launcher.py::_gnn_losses`, 8 steps, both packages from
     the reference's initial weights (student and teacher)."""
+    _trajectory_matches_reference("gcn", backend)
+
+
+@pytest.mark.parametrize("backend", ["segment", "blocked"])
+@pytest.mark.parametrize("model", ["rgcn", "gated_gcn"])
+def test_staged_trajectory_matches_reference_from_its_init(model, backend):
+    """The staged models' 8-step `build_gnn` trajectories (R-GCN on the
+    3-type colouring) from the reference's initial weights."""
+    _trajectory_matches_reference(model, backend)
+
+
+def _trajectory_matches_reference(model, backend):
     from repro.launch.train import build_gnn as j_build_gnn
     steps = 8
-    step, state, data, gd, aux = j_build_gnn(backend=backend, **_gnn_kw(steps))
+    kw = {**_gnn_kw(steps), "model": model}
+    step, state, data, gd, aux = j_build_gnn(backend=backend, **kw)
     f, classes = aux["x"].shape[1], aux["num_classes"]
     teacher = j_models.init_stack(
         j_models.make_gnn_stack("gcn", [f, 16, classes]), jax.random.key(42))
@@ -543,8 +556,7 @@ def test_gcn_trajectory_matches_reference_from_its_init(backend):
         want.append(float(m["loss"]))
 
     tstep, tstate, tdata, tgd, taux = t_train.build_gnn(
-        backend=backend, device="cpu", reference_params=refs,
-        **_gnn_kw(steps))
+        backend=backend, device="cpu", reference_params=refs, **kw)
     assert (tgd.backend, tgd.tile_format) == (gd.backend, gd.tile_format)
     np.testing.assert_array_equal(taux["y_true"].numpy(),
                                   np.asarray(aux["y_true"]))
@@ -606,7 +618,7 @@ def test_launcher_main_trains_on_the_cpu_when_asked(tmp_path):
 
 @pytest.mark.parametrize("case,item", [
     ("ring", "A8"), ("shards", "A8"), ("chaos", "A11"), ("lm", "A12"),
-    ("tiled", "A5"), ("spill", "A5"), ("rgcn", "A3"), ("remesh", "A8")])
+    ("tiled", "A5"), ("spill", "A5"), ("remesh", "A8")])
 def test_unported_training_paths_raise_with_their_roadmap_item(case, item,
                                                               tmp_path):
     kw = dict(_gnn_kw(2), device="cpu")
@@ -624,8 +636,6 @@ def test_unported_training_paths_raise_with_their_roadmap_item(case, item,
         elif case == "spill":
             t_train.build_gnn(backend="blocked", device_budget_bytes=300_000,
                               **kw)
-        elif case == "rgcn":
-            t_train.build_gnn(**{**kw, "model": "rgcn"}, backend="segment")
         else:
             _, _, _, _, aux = t_train.build_gnn(backend="segment", **kw)
             aux["trainer"].remesh(2)
