@@ -1,8 +1,19 @@
 #!/usr/bin/env python3
-"""Where a streamed `tiled` forward of the port spends its time.
+"""Where a streamed `tiled` forward, or training step, of the port
+spends its time.
 
     python3 benchmarks/torch/profile_tiled.py [--vertices 65536]
         [--model gcn] [--budget BYTES] [--top 15]
+    python3 benchmarks/torch/profile_tiled.py --train a|b [--steps 6]
+
+`--train` profiles a streamed training step as `chip_smoke.py`'s phase
+11 runs it: `build_gnn` on uncut pubmed, GCN [128, 64, 3], batch 256,
+AdamW, spilled from "blocked" by a 30 MB budget, on the chunk queue (a:
+B5 forward, B5^T backward) or with streaming_mode="callback" (b: the
+tile-by-tile loop both ways).  It runs the steps, then one more under
+`torch.profiler` and one under `cProfile`, and prints the median host
+time per step, the device time of the profiled step and its idle share,
+as below.
 
 Builds the synthD stand-in as `chip_smoke.py` does (degree-sorted,
 GCN-normalised; multi-edges merged for gs_pool), a [50, 64, 16] stack on
@@ -38,6 +49,10 @@ def main() -> int:
     ap.add_argument("--model", default="gcn", choices=("gcn", "gs_pool"))
     ap.add_argument("--budget", type=int, default=None)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--train", choices=("a", "b"), default=None,
+                    help="profile phase 11's streamed training run a "
+                         "(queue) or b (callback) instead of a forward")
+    ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -53,6 +68,8 @@ def main() -> int:
     from repro_torch.graphs.generate import make_dataset, random_features
     from repro_torch.graphs.partition import merge_by_key
 
+    if args.train:
+        return profile_training(args)
     g, f, _ = make_dataset("synthD", seed=0, max_vertices=args.vertices)
     perm = degree_sort_permutation(g)
     g = apply_vertex_permutation(g, perm).gcn_normalized()
@@ -83,51 +100,123 @@ def main() -> int:
         forward()
         wall_ms = (time.perf_counter() - t) * 1e3
         steps = ex.stats.steps
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            forward()
-            prof_wall_ms = (time.perf_counter() - t) * 1e3
-        events = prof.key_averages()
-
-        def dev_us(e):
-            return float(getattr(e, "self_device_time_total", None)
-                         or getattr(e, "self_cuda_time_total", 0.0))
-
-        device_ms = sum(dev_us(e) for e in events) / 1e3
-        print(f"profiler: wall {prof_wall_ms:.1f} ms under the profiler, "
-              f"device {device_ms:.1f} ms (sum of self device times)")
-        for e in sorted(events, key=dev_us, reverse=True)[:args.top]:
-            if dev_us(e) <= 0:
-                break
-            print(f"  device {dev_us(e) / 1e3:9.2f} ms  {e.count:7d} x  "
-                  f"{e.key[:90]}")
-        prof_c = cProfile.Profile()
-        prof_c.enable()
-        forward()
-        prof_c.disable()
-    stats = pstats.Stats(prof_c)
-    total = stats.total_tt
-    rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2],
-                  reverse=True)[:args.top]
-    print(f"cProfile: {total:.2f} s of own time in one forward")
-    top = []
-    for (file, line, name), (_, ncalls, tottime, _, _) in rows:
-        label = f"{Path(file).name}:{line} {name}"
-        top.append({"fn": label, "calls": ncalls,
-                    "own_share": tottime / total})
-        print(f"  {100 * tottime / total:5.1f}%  {ncalls:8d} calls  {label}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+        prof_wall_ms, device_ms = _device_profile(forward, args.top)
+        top = _host_profile(forward, args.top, "forward")
     print(json.dumps({
         "model": args.model, "backend": plan.backend,
         "streaming": plan.streaming_mode, "vertices": g.num_vertices,
         "steps": steps, "forward_ms": wall_ms,
         "profiled_forward_ms": prof_wall_ms, "device_ms": device_ms,
         "idle_share_lower_bound": 1.0 - device_ms / prof_wall_ms,
-        "host_top": top[:5], "card": smi}))
+        "host_top": top[:5], "card": _smi()}))
+    return 0
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def _device_profile(run, top_n):
+    """One call of `run` under `torch.profiler` (CPU and CUDA): its wall
+    time and the sum of every operation's self device time (kernels and
+    copies; copies that overlap compute count twice, so 1 - device /
+    wall is a lower bound of the idle share).  Prints the top entries."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    print(f"profiler: wall {wall_ms:.1f} ms under the profiler, device "
+          f"{device_ms:.1f} ms (sum of self device times)")
+    for e in sorted(events, key=dev_us, reverse=True)[:top_n]:
+        if dev_us(e) <= 0:
+            break
+        print(f"  device {dev_us(e) / 1e3:9.2f} ms  {e.count:7d} x  "
+              f"{e.key[:90]}")
+    return wall_ms, device_ms
+
+
+def _host_profile(run, top_n, what):
+    """One call of `run` under `cProfile`: the host functions with the
+    most own time (cProfile adds its cost to every Python call, so read
+    the shares, not the absolute times)."""
+    prof_c = cProfile.Profile()
+    prof_c.enable()
+    run()
+    prof_c.disable()
+    stats = pstats.Stats(prof_c)
+    total = stats.total_tt
+    rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2],
+                  reverse=True)[:top_n]
+    print(f"cProfile: {total:.2f} s of own time in one {what}")
+    top = []
+    for (file, line, name), (_, ncalls, tottime, _, _) in rows:
+        label = f"{Path(file).name}:{line} {name}"
+        top.append({"fn": label, "calls": ncalls,
+                    "own_share": tottime / total})
+        print(f"  {100 * tottime / total:5.1f}%  {ncalls:8d} calls  {label}")
+    return top
+
+
+def profile_training(args) -> int:
+    """Phase 11's run (a) or (b): `args.steps` steps on the host clock,
+    then one step under each profiler."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import build_gnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, state, data, _, aux = build_gnn(
+        model="gcn", dataset="pubmed", backend="blocked", steps=args.steps,
+        hidden=64, batch=256, max_vertices=None, max_edges=None,
+        device_budget_bytes=30_000_000)
+    tr = aux["trainer"]
+    for layer in tr.layers:
+        layer.cfg.streaming_mode = "auto" if args.train == "a" else "callback"
+    plan = tr.rebuild()
+    ex = plan.carrier["tiled_exec"]
+    box = {"ps": state["params"], "opt": state["opt"], "loss": None}
+
+    def step():
+        box["ps"], box["opt"], m = tr.step(box["ps"], box["opt"], next(data))
+        box["loss"] = float(m["loss"])             # waits for the step
+
+    times = []
+    for _ in range(args.steps):
+        t = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t) * 1e3)
+    ex.reset_stats()
+    before = launch_counts()
+    prof_wall_ms, device_ms = _device_profile(step, args.top)
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v > before[k]}
+    stats = {k: v for k, v in ex.stats.as_dict().items() if v}
+    top = _host_profile(step, args.top, "step")
+    print(json.dumps({
+        "run": args.train, "backend": plan.backend,
+        "streaming": "queue" if args.train == "a" else "callback",
+        "tile": plan.meta["tile"], "chunk": plan.meta["chunk"],
+        "steps": args.steps, "step_ms": times,
+        "median_step_ms": statistics.median(times[1:] or times),
+        "profiled_step_ms": prof_wall_ms, "device_ms": device_ms,
+        "idle_share_lower_bound": 1.0 - device_ms / prof_wall_ms,
+        "launches_in_profiled_step": launches,
+        "stats_of_profiled_step": stats, "host_top": top[:5],
+        "card": _smi()}))
     return 0
 
 

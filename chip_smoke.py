@@ -8,7 +8,7 @@ prints no result.  Phases, each of which fails the run if it fails:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit (every time below stands beside them);
-2. build: the seven CUDA kernels, from `src/repro_torch/csrc/`, one
+2. build: the seven CUDA kernel sources, from `src/repro_torch/csrc/`, one
    `nvcc` each, in parallel, into `build/repro_torch/`;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the calls one forward of its main-path run makes (max variants
@@ -57,12 +57,12 @@ prints no result.  Phases, each of which fails the run if it fails:
    64, GS-Pool update 564 x 64, GCN afu 500 x 64), against the layers'
    own stage output and its plain version, timed beside `torch.addmm` +
    relu;
-7. training path: `build_gnn` on uncut pubmed, 20 steps each, GCN on
+7. training path: `build_gnn` on uncut pubmed, 10 steps each, GCN on
    "blocked" dense / packed and "fused", GS-Pool on "blocked" dense /
    packed (multi-edges merged), each trajectory against the same run on
    "segment" (`allclose(rtol=1e-3, atol=1e-4)`) and one step's
    gradients against the plain versions' own autograd; every run's plan
-   must hold after its 20 steps exactly the bytes it held before them
+   must hold after its 10 steps exactly the bytes it held before them
    (`PreparedPlan.held_bytes`: no backward built a carrier of A^T), and
    each prints its plan + state and peak memory; GS-Pool packed must
    make one count and one scatter launch per layer a step, GCN packed
@@ -84,13 +84,27 @@ prints no result.  Phases, each of which fails the run if it fails:
 9. staged tiled: R-GCN at AIFB under a 4 MB budget and Gated-GCN at
    pubmed under 32 MB, each spilled to "tiled" and held against its
    resident result, with its `TiledStats`;
-10. staged training: `build_gnn` on uncut pubmed, 20 steps, R-GCN (3-type
+10. staged training: `build_gnn` on uncut pubmed, 10 steps, R-GCN (3-type
    colouring) on "segment" and "blocked" dense (6 B1 and 6 B1^T launches
    a step) and packed, Gated-GCN on "segment" and "blocked" packed:
    losses against "segment" (rtol=1e-3, atol=1e-4), one step's gradients
-   against "segment"'s, the plan's bytes unchanged by training.
+   against "segment"'s, the plan's bytes unchanged by training;
+11. streamed training: `build_gnn` on uncut pubmed [128, 64, 3], batch
+   256, AdamW, T=256, 6 steps each: (a) GCN spilled from "blocked" by a
+   30 MB budget the chunk queue fits (B5 forward, B5^T backward over the
+   forward queue), (b) the same with streaming_mode="callback" (B2's tile
+   part forward and backward over the transposed stores), (c) GS-Pool on
+   "tiled" (max, multi-edges merged: the callback route), (d) R-GCN on
+   "tiled" (the typed VJP), (e) Gated-GCN on "tiled" (the gated VJP), and
+   (f) GCN on synthD at 65,536 V [50, 64, 16] under phase 5's 32 MB
+   budget, one step: losses against the same run on "segment" (rtol=1e-3,
+   atol=1e-4), one step's gradients against "segment"'s, the route
+   asserted (queue launches and B5^T on (a), backward tiles on the
+   others), each with its ms/step, peak memory beside its budget and
+   its `TiledStats`; then B5^T (`chunk_queue_sum_t`) at (a)'s queue and
+   widths against its plain version, beside `torch.sparse.mm(A^T, G)`.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7, 8, 9, 10; in 8 and 9 the first forward of each run)
+calls of 6, 7, 8, 9, 10, 11; in 8 and 9 the first forward of each run)
 and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
 phase's, `fused_engn_sum_train` the training phase's); each run must
@@ -119,7 +133,8 @@ from pathlib import Path
 RTOL, ATOL = 1e-4, 1e-5           # sum variants and layer outputs
 NEW_RTOL = 1e-5                   # the backward and B4 kernels' sums
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10                  # phases 7 and 10
+STREAM_STEPS = 6                  # phase 11's streamed training runs
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
 # times of the rows redesigned since commit 7d0e51a: this script at that
@@ -1123,9 +1138,8 @@ def main() -> int:
     # the resident result; the training runs' losses against "segment".
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.core.engn import fold_rel_norm
-    from repro_torch.core.tiled import (DeviceBudgetExceeded,
-                                        dense_footprint_bytes)
+    from repro_torch.core.engn import fold_rel_norm, gate_bytes
+    from repro_torch.core.tiled import DeviceBudgetExceeded
 
     def typed_dataset(name):
         g, f, c = make_dataset(name, seed=0)
@@ -1145,12 +1159,10 @@ def main() -> int:
         return layers
 
     def gate_price(g, cfg, h):
-        """What the budget gate prices for the plan (the reference's
-        closed form, which counts untyped tiles)."""
-        return dense_footprint_bytes(g.num_vertices, g.num_edges,
-                                     cfg.in_dim, h, cfg.backend,
-                                     tile=cfg.tile, has_val=g.val is not None,
-                                     tile_format=cfg.tile_format)
+        """What the budget gate prices for the plan (`engn.gate_bytes`: a
+        typed dense plan at its typed keys and pads, any other at the
+        reference's closed form)."""
+        return gate_bytes(g, cfg, h)
 
     def typed_b1_rows(label, plan, g, widths, phase):
         """B1 once per relation at one typed dense plan's shapes (the
@@ -1394,7 +1406,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # training: build_gnn on uncut pubmed, 20 steps; R-GCN on the 3-type
+    # training: build_gnn on uncut pubmed, 10 steps; R-GCN on the 3-type
     # colouring (rel = (src + dst) % 3)
     staged_train = [
         ("pubmed rgcn segment", "rgcn", "segment", "auto", ()),
@@ -1495,10 +1507,177 @@ def main() -> int:
     print(f"staged-training launches: {staged_train_counts}")
     print(f"staged training runs: {json.dumps(staged_train_table)}")
 
+    # -- streamed training ------------------------------------------------------
+    # build_gnn on uncut pubmed at the training path's width [128, 64, 3],
+    # batch 256, AdamW, T=256: (a) GCN spilled from "blocked" under a 30 MB
+    # budget that the queue fits (B5 forward, B5^T backward), (b) the same
+    # with streaming_mode="callback" (B2's tile part forward and backward
+    # over the transposed stores), (c) GS-Pool on "tiled" (max, multi-edges
+    # merged: the callback route on the card), (d) R-GCN (the typed VJP),
+    # (e) Gated-GCN (the gated VJP); then (f) GCN on synthD at 65,536 V
+    # [50, 64, 16] under phase 5's 32 MB budget, one step.  Each run's
+    # losses and one step's gradients are held against "segment"'s.
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget_a = 30_000_000
+
+    def stream_run(model, backend, budget, mode, data_name, vertices, steps):
+        step, state, data, _, aux = train_mod.build_gnn(
+            model=model, dataset=data_name, backend=backend, steps=steps,
+            hidden=64, batch=256, max_vertices=vertices, max_edges=None,
+            device_budget_bytes=budget)
+        tr = aux["trainer"]
+        if model == "gs_pool":
+            tr.graph = merged(tr.graph)
+        for layer in tr.layers:
+            layer.cfg.streaming_mode = mode
+        tr.rebuild()
+        return tr, state, data
+
+    def train_steps(tr, state, data, steps):
+        ps, opt, losses, times = state["params"], state["opt"], [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            ps, opt, m = tr.step(ps, opt, next(data))
+            losses.append(float(m["loss"]))      # waits for the step
+            times.append((time.perf_counter() - t) * 1e3)
+        return losses, times
+
+    stream_runs = [
+        ("a", "pubmed gcn blocked 30 MB budget (queue)", "gcn", "blocked",
+         budget_a, "auto", "pubmed", None, STREAM_STEPS,
+         ("chunk_queue_sum", "chunk_queue_sum_t")),
+        ("b", "pubmed gcn blocked 30 MB budget (callback)", "gcn",
+         "blocked", budget_a, "callback", "pubmed", None, STREAM_STEPS,
+         ("rer_gather_tile_part_sum",)),
+        ("c", "pubmed gs_pool tiled", "gs_pool", "tiled", None, "auto",
+         "pubmed", None, STREAM_STEPS, ()),
+        ("d", "pubmed rgcn tiled", "rgcn", "tiled", None, "auto", "pubmed",
+         None, STREAM_STEPS, ("rer_gather_tile_part_sum",)),
+        ("e", "pubmed gated_gcn tiled", "gated_gcn", "tiled", None, "auto",
+         "pubmed", None, STREAM_STEPS, ()),
+        ("f", "synthD gcn blocked 32 MB budget", "gcn", "blocked",
+         32_000_000, "auto", "synthD", 65536, 1,
+         ("rer_gather_tile_part_sum",)),
+    ]
+    seg_stream, stream_table = {}, []
+    queue_a = None
+    K.reset_launch_counts()
+    for (tag, label, model, backend, budget, mode, data_name, vertices,
+         steps, kerns) in stream_runs:
+        key = (model, data_name, steps)
+        if key not in seg_stream:
+            tr, state, data = stream_run(model, "segment", None, "auto",
+                                         data_name, vertices, steps)
+            seg_stream[key] = train_steps(tr, state, data, steps)[0]
+            del tr, state, data
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        tr, state, data = stream_run(model, backend, budget, mode, data_name,
+                                     vertices, steps)
+        if tr.plan.backend != "tiled" or not tr.plan.meta["trainable"]:
+            raise AssertionError(f"({tag}) {label}: plan landed on "
+                                 f"{tr.plan.backend!r}, not a trainable "
+                                 f"'tiled'")
+        ex = tr.plan.carrier["tiled_exec"]
+        batch0 = next(data)
+        data.seek(0)
+        twin = rt.prepare_graph(tr.graph, dataclasses.replace(
+            tr.layers[0].cfg, backend="segment", device_budget_bytes=None),
+            out_dim=tr.hidden)
+        want = grads_of(tr, state["params"], batch0, plan=twin)
+        got = grads_of(tr, state["params"], batch0)
+        del twin
+        gerr = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            scale = max(1e-30, float(b.abs().max()))
+            if not torch.allclose(a, b, rtol=RTOL, atol=RTOL * scale):
+                raise AssertionError(f"({tag}) {label}: one step's gradients "
+                                     f"differ from segment's (max abs err "
+                                     f"{gerr})")
+        ex.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = K.launch_counts()
+        losses, times = train_steps(tr, state, data, steps)
+        peak = torch.cuda.max_memory_allocated() - mem0
+        grew = {k: v - before[k] for k, v in K.launch_counts().items()
+                if v > before[k]}
+        st = ex.stats
+        ref = np.asarray(seg_stream[key])
+        lerr = float(np.abs(np.asarray(losses) - ref).max())
+        if not all(np.isfinite(losses)) or not np.allclose(
+                losses, ref, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+            raise AssertionError(f"({tag}) {label}: loss trajectory {losses} "
+                                 f"differs from segment {ref.tolist()}")
+        for kern in kerns:
+            if grew.get(kern, 0) <= 0:
+                raise AssertionError(f"({tag}) {label}: {kern} was not "
+                                     f"launched")
+        if tag == "a":
+            if st.queue_launches <= 0 or st.bwd_tiles != 0:
+                raise AssertionError(f"(a) {label}: not the queue route "
+                                     f"({dataclasses.asdict(st)})")
+            queue_a = (ex._tq, tr.graph)
+        elif st.bwd_tiles <= 0 or st.queue_launches != 0:
+            raise AssertionError(f"({tag}) {label}: the backward did not "
+                                 f"stream ({dataclasses.asdict(st)})")
+        per_step = {k: v / steps for k, v in grew.items()}
+        row = {"run": tag, "label": label,
+               "ms_per_step": statistics.median(times[1:] or times),
+               "step_ms": times, "launches_per_step": per_step,
+               "peak_mib": peak / 2**20,
+               "budget_mib": budget / 2**20 if budget else None,
+               "tile": tr.plan.meta["tile"], "chunk": tr.plan.meta["chunk"],
+               "tile_format": tr.plan.tile_format,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "max_loss_err_vs_segment": lerr,
+               "max_grad_err_vs_segment": gerr,
+               "stats_per_run": dataclasses.asdict(st)}
+        stream_table.append(row)
+        over = ("" if budget is None else
+                f" against the {budget / 2**20:.1f} MiB budget")
+        print(f"stream ({tag}) {label} [{smi}]: {tr.plan.tile_format}, tile "
+              f"{row['tile']}, chunk {row['chunk']}, median "
+              f"{row['ms_per_step']:.1f} ms/step (host clock, steps 2-"
+              f"{steps}; all {[round(v, 1) for v in times]}), peak "
+              f"{row['peak_mib']:.1f} MiB over the run's start{over}, "
+              f"launches/step {per_step}, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, max loss err vs segment {lerr:.3g}, max "
+              f"grad err vs segment {gerr:.3g}")
+        print(f"  TiledStats over {steps} steps {json.dumps(row['stats_per_run'])}")
+        del tr, state, data, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+    stream_counts = K.launch_counts()
+    print(f"streamed-training launches: {stream_counts}")
+    print(f"streamed training runs: {json.dumps(stream_table)}")
+
+    # B5^T at (a)'s shapes: its queue, the cotangents of both layers'
+    # aggregates (widths 64 and 3), beside torch.sparse.mm(A^T, G)
+    tq_a, g_a = queue_a
+    a_t = csr(COOGraph(g_a.num_vertices, g_a.dst, g_a.src, g_a.weights()))
+    with torch.inference_mode():
+        gs_a = [feats(tq_a.n, w) for w in (64, c_tr)]
+        kernel_case(
+            "chunk_queue_sum_t", "src/repro_torch/csrc/chunk_queue.cu",
+            "src/repro/kernels/chunk_queue/chunk_queue.py:132",
+            [(lambda g=g: queue_ops.tile_queue_t(tq_a, g),
+              lambda g=g: queue_ops.tile_queue_t_plain(tq_a, g))
+             for g in gs_a],
+            exact=False, rel=NEW_RTOL,
+            nbytes=sum(nb(tq_a.wrows, tq_a.wsrc, tq_a.wvals, tq_a.pieces,
+                          g, g) for g in gs_a),
+            ops=sum(2 * tq_a.entries * g.shape[1] for g in gs_a),
+            library=lambda: [torch.sparse.mm(a_t, g) for g in gs_a],
+            phases=("streamed_training",))
+    del queue_a, tq_a, a_t, gs_a
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
               "b4": b4_counts, "training": train_counts,
               "staged": staged_counts, "staged_tiled": staged_tiled_counts,
-              "staged_training": staged_train_counts}
+              "staged_training": staged_train_counts,
+              "streamed_training": stream_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

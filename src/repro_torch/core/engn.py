@@ -45,9 +45,18 @@ first and refused with `DeviceBudgetExceeded` over the budget or the
 card's free memory (ROADMAP B6).  The reference's `aggregate_fn`
 refusal has no counterpart: `forward` takes no `aggregate_fn`.
 
-The sharded "ring" backend and training through "tiled" are not ported
-yet and raise `NotImplementedError` naming their ROADMAP item; nothing
-falls back to another backend.
+The streamed "tiled" backend trains too (`_apply_tiled_diff`): under
+autograd every tiled layer, R-GCN's and Gated-GCN's included, runs its
+stage functions as ordinary autograd ops on device features and its
+aggregate through the differentiable streamed wrappers of
+`core/tiled.py`, whose backwards re-stream the graph from the host (or
+run B5^T over the device queue); the layer then returns a device tensor.
+Under `torch.no_grad()` / `torch.inference_mode()` a tiled layer keeps
+its host-streamed inference path.
+
+The sharded "ring" backend is not ported yet and raises
+`NotImplementedError` naming its ROADMAP item; nothing falls back to
+another backend.
 """
 from __future__ import annotations
 
@@ -61,7 +70,10 @@ from torch import nn
 
 from repro_torch.core.plan import PreparedPlan, plan_carrier, wrap_plan
 from repro_torch.core.tiled import (DeviceBudgetExceeded, TiledExecutor,
-                                    dense_footprint_bytes)
+                                    dense_footprint_bytes,
+                                    make_streamed_aggregate,
+                                    make_streamed_gated,
+                                    make_streamed_typed_sum)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.partition import tile_schedule_order
@@ -70,9 +82,6 @@ AggregateOp = str  # "sum" | "max" | "mean"
 
 _NOT_PORTED = {
     "ring": "the sharded 'ring' backend is not ported yet (ROADMAP A8)",
-    "train_tiled": "training through the streamed 'tiled' backend is not "
-                   "ported yet (ROADMAP A5, A7); run inference under "
-                   "torch.no_grad() or torch.inference_mode()",
     "int8": "int8 tile values are not ported yet (ROADMAP A7)",
 }
 
@@ -213,6 +222,8 @@ class EnGNLayer(nn.Module):
             return self._apply_staged(graph, x, spec)
         backend = graph.get("backend", self.cfg.backend)
         if backend == "tiled":
+            if self._differentiated(x):
+                return self._apply_tiled_diff(graph, x)
             return self._apply_tiled(graph, x)
         if backend == "ring":
             raise NotImplementedError(_NOT_PORTED[backend])
@@ -266,6 +277,10 @@ class EnGNLayer(nn.Module):
         r, h = spec["num_relations"], spec["channels"]
         if backend == "tiled":
             ex = self._tiled_executor(graph, x)
+            if self._differentiated(x):
+                xd = self._device_features(x)
+                agg = make_streamed_typed_sum(ex)(self.src_payload(xd))
+                return self.update(xd, agg)
             agg = ex.aggregate(x, "sum", order="auto",
                                extract_fn=self.src_payload,
                                extract_dim=r * h, out_dim_hint=h,
@@ -322,6 +337,11 @@ class EnGNLayer(nn.Module):
         n = graph["n"]
         if backend == "tiled":
             ex = self._tiled_executor(graph, x)
+            if self._differentiated(x):
+                xd = self._device_features(x)
+                agg = make_streamed_gated(ex)(self.gate_dst(xd),
+                                              self.gate_src(xd), xd)
+                return self.update(xd, agg)
             ph = ex.stream_map(self.gate_dst, x)
             pc = ex.stream_map(self.gate_src, x)
             agg = ex.gated_aggregate(ph, pc, x)
@@ -369,18 +389,41 @@ class EnGNLayer(nn.Module):
 
     # -- streamed out-of-core path (core/tiled.py) -------------------------
     def _tiled_executor(self, graph, x) -> TiledExecutor:
-        """The plan's executor, after the checks every tiled layer makes:
-        it streams to the layer's device, and nothing asks for a
-        gradient (the streamed backward is ROADMAP A5)."""
+        """The plan's executor, after the check every tiled layer makes:
+        it streams to the layer's device."""
         ex: TiledExecutor = graph["tiled_exec"]
         if ex.device != self.device:
             raise ValueError(f"the tiled plan streams to {ex.device}, the "
                              f"layer's parameters are on {self.device}")
-        if torch.is_grad_enabled() and (
-                any(p.requires_grad for p in self.parameters())
-                or (isinstance(x, torch.Tensor) and x.requires_grad)):
-            raise NotImplementedError(_NOT_PORTED["train_tiled"])
         return ex
+
+    def _differentiated(self, x) -> bool:
+        """Whether autograd records this call: grad mode is on and a
+        parameter (the layer's own or those `functional_call` swapped in)
+        or x asks for a gradient."""
+        return torch.is_grad_enabled() and (
+            any(p.requires_grad for p in self.parameters())
+            or (isinstance(x, torch.Tensor) and x.requires_grad))
+
+    def _device_features(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _apply_tiled_diff(self, graph, x) -> torch.Tensor:
+        """The trainable twin of `_apply_tiled`: extraction and update are
+        ordinary autograd ops on device features, the aggregate is
+        `make_streamed_aggregate` (its backward re-streams the graph from
+        the host, or runs B5^T over the device queue).  Returns a device
+        tensor; only the graph stays on the host."""
+        cfg = self.cfg
+        ex = self._tiled_executor(graph, x)
+        agg = make_streamed_aggregate(ex, cfg.aggregate_op)
+        x = self._device_features(x)
+        linear_sum = (cfg.aggregate_op == "sum"
+                      and type(self).feature_extraction
+                      is EnGNLayer.feature_extraction)
+        if linear_sum and self.dasr_order() == "afu":
+            return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
+        return self.update(x, agg(self.feature_extraction(x)))      # A(XW)
 
     def _apply_tiled(self, graph, x) -> torch.Tensor:
         """The layer through the streamed executor: extraction runs on
@@ -543,6 +586,46 @@ def check_gated_dense(nbytes: int, budget: Optional[int],
             f"tile_format='packed' or 'auto'")
 
 
+def typed_dense_bytes(g: COOGraph, tile: int, in_dim: int, out_dim: int,
+                      training: bool = False) -> int:
+    """Device bytes of a typed dense plan (`_prepare_blocked_typed` with
+    tile_format "dense"), which the untyped closed form under-prices: a
+    T x T tile and its two int32 indexes for every typed key (dst
+    interval, src interval, relation) present, a pad tile per relation for
+    every destination interval it has no tile in (`prepare_blocks`), and
+    the activations x, the (N, R*H) payload and the output (doubled for
+    training, as `dense_footprint_bytes` doubles them)."""
+    n, r, t = g.num_vertices, g.num_relations, tile
+    q = -(-n // t)
+    key = (((g.dst // t).astype(np.int64) * q + g.src // t) * r
+           + g.rel.astype(np.int64))
+    uniq = np.unique(key)
+    rel, row = uniq % r, uniq // r // q
+    rows_held = np.unique(rel * q + row).size     # (relation, dst) pairs
+    tiles = uniq.size + np.unique(rel).size * q - rows_held
+    act = 2 if training else 1
+    return ((4 * t * t + 8) * tiles
+            + act * 4 * n * (in_dim + out_dim + r * out_dim))
+
+
+def gate_bytes(g: COOGraph, cfg: EnGNConfig, out_dim: int) -> int:
+    """What the budget gate of `prepare_graph` prices a resident plan of
+    `cfg` at: a typed dense plan at its typed keys and pads
+    (`typed_dense_bytes`; the untyped closed form under-prices it), any
+    other at `dense_footprint_bytes`, the reference's closed form."""
+    if (cfg.backend == "blocked" and cfg.stage_contract == "typed"
+            and cfg.tile_format == "dense" and g.rel is not None
+            and g.num_relations > 1):
+        return typed_dense_bytes(g, cfg.tile, cfg.in_dim, out_dim,
+                                 cfg.training)
+    return dense_footprint_bytes(g.num_vertices, g.num_edges, cfg.in_dim,
+                                 out_dim, cfg.backend, tile=cfg.tile,
+                                 has_val=g.val is not None,
+                                 tile_format=cfg.tile_format,
+                                 training=cfg.training,
+                                 value_dtype=cfg.tile_value_dtype)
+
+
 def prepare_graph(g: COOGraph, cfg: EnGNConfig,
                   out_dim: Optional[int] = None,
                   device: DeviceLike = None) -> PreparedPlan:
@@ -556,13 +639,7 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
     h = out_dim if out_dim is not None else cfg.out_dim
     g, rel_normed = _maybe_fold_rel_norm(g, cfg, False)
     if cfg.device_budget_bytes and backend not in ("tiled", "ring"):
-        need = dense_footprint_bytes(g.num_vertices, g.num_edges,
-                                     cfg.in_dim, h, backend,
-                                     tile=cfg.tile,
-                                     has_val=g.val is not None,
-                                     tile_format=cfg.tile_format,
-                                     training=cfg.training,
-                                     value_dtype=cfg.tile_value_dtype)
+        need = gate_bytes(g, cfg, h)
         if need > cfg.device_budget_bytes:
             if not cfg.auto_spill:
                 raise DeviceBudgetExceeded(
@@ -688,8 +765,7 @@ def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
                         "value_dtype": ex.value_dtype,
                         "queue_plan": (dataclasses.asdict(qplan)
                                        if qplan else None),
-                        # the streamed backward is not ported yet (A5)
-                        "trainable": False,
+                        "trainable": True,
                         "training": cfg.training,
                         "resident_feature_bytes":
                             (2 if cfg.training else 1) * 4

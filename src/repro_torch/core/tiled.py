@@ -36,22 +36,34 @@ packed chunks and the queue on `cuda` (plain versions on the CPU);
 "plain" runs the plain versions; "cuda" runs the kernels, dense chunks
 through `rer_spmm` as one-interval launches.
 
-Staged models stream too, for inference: `aggregate(rel_channels=H)`
-runs R-GCN's typed sum in one sweep (each staged tile takes its own
-relation's H-wide slice of the (C, T, R*H) payload stack once, before
-the chunk product or B2's tile part), and `gated_aggregate` Gated-GCN's
-gated sum (ph resident per destination interval, (pc || x) streamed;
-plain PyTorch on every device, as the reference's are XLA).
+Staged models stream too: `aggregate(rel_channels=H)` runs R-GCN's
+typed sum in one sweep (each staged tile takes its own relation's H-wide
+slice of the (C, T, R*H) payload stack once, before the chunk product or
+B2's tile part), and `gated_aggregate` Gated-GCN's gated sum (ph resident
+per destination interval, (pc || x) streamed; plain PyTorch on every
+device, as the reference's are XLA).
+
+Training.  `make_streamed_aggregate`, `make_streamed_typed_sum` and
+`make_streamed_gated` are the differentiable aggregates (autograd
+Functions over device tensors; only the graph stays on the host).  On
+the queue route a sum's backward is B5^T over the forward `TileQueue`;
+on the callback route the backward re-streams the transposed stores
+(`transposed()`, a zero-copy swap of the host arrays), recomputing each
+max's winners (`aggregate_max_forward` keeps the tie counts) and each
+gate instead of keeping edge-shaped residuals; its traffic is counted in
+`stats.bwd_*`.  The step helpers of the max, typed and gated passes are
+plain PyTorch on every device, as the reference's are XLA.
 
 Not ported yet, each raising `NotImplementedError` naming its ROADMAP
-item: int8 tile values (A7), the transposed views and the streamed
-backward, typed and gated included (A5/A7), `apply_updates` (A10), the
-measured tile-format autotune (B queue).
+item: int8 tile values (A7), `apply_updates` (A10), the measured
+tile-format autotune (B queue).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections import OrderedDict
+from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,16 +74,20 @@ from repro_torch.graphs.format import COOGraph
 from repro_torch.graphs.partition import (EdgeTileStore, PackedTileStore,
                                           build_tile_store, chunk_tile_row,
                                           pack_tile_store,
-                                          tile_schedule_order)
+                                          tile_schedule_order,
+                                          transpose_packed_store,
+                                          transpose_tile_store)
 from repro_torch.kernels.autotune import packed_entry_bytes
 
-_TRAINING = ("the streamed backward (transposed tile views, the max "
-             "residual and the autograd wrappers) is not ported yet "
-             "(ROADMAP A5, A7)")
 _NOT_PORTED = {
     "int8": "int8 tile values are not ported yet (ROADMAP A7)",
     "updates": "incremental graph updates are not ported yet (ROADMAP A10)",
 }
+
+
+# the card allocates in 512 B blocks: the queue route's dozen-odd small
+# tensors round up by this much at most
+_ALLOC_SLACK = 512 * 16
 
 
 class DeviceBudgetExceeded(RuntimeError):
@@ -170,6 +186,87 @@ def _finish_max(acc):
     return torch.where(torch.isneginf(acc), 0.0, acc)
 
 
+def _merge_max_count(acc_val, acc_cnt, m, c):
+    """Associative merge of (running max, tie count) pairs: a strictly
+    better chunk replaces the count, an exact tie adds to it (the -inf
+    'no edges yet' state never ties, thanks to the isfinite mask)."""
+    better = m > acc_val
+    ties = (m == acc_val) & torch.isfinite(m)
+    return (torch.maximum(acc_val, m),
+            torch.where(better, c, acc_cnt + torch.where(ties, c, 0.0)))
+
+
+def _chunk_step_max_count(acc_val, acc_cnt, blocks, xs):
+    """Max chunk step that also counts, per (dst row, feature), the edge
+    products achieving the maximum: the residual the streamed backward
+    splits the cotangent by (the reference's `segment_max` convention)."""
+    b = blocks[..., None]
+    vals = torch.where(b != 0.0, b * xs[:, None, :, :], -torch.inf)
+    m = vals.amax(dim=(0, 2))
+    c = ((vals == m[None, :, None, :]) & torch.isfinite(vals)).sum(
+        dim=(0, 2), dtype=torch.float32)
+    return _merge_max_count(acc_val, acc_cnt, m, c)
+
+
+def _gather_cols(cols, xs):
+    """The (C*S, F) rows of a (C, T, F) interval stack at a chunk's
+    (C, S) local columns, and the flat (C*S,) index into it."""
+    c, s = cols.shape
+    t = xs.shape[1]
+    gcols = (torch.arange(c, device=xs.device)[:, None] * t
+             + cols.long()).reshape(c * s)
+    return xs.reshape(c * t, xs.shape[2])[gcols], gcols
+
+
+def _packed_step_max_count(acc_val, acc_cnt, rows, cols, vals, xs):
+    """Packed twin of `_chunk_step_max_count`: the products are the
+    floats the packed forward computes, so the captured max and counts
+    agree with it bit for bit."""
+    t, f = xs.shape[1], xs.shape[2]
+    gathered, _ = _gather_cols(cols, xs)
+    v = vals.reshape(-1)
+    scaled = torch.where((v != 0.0)[:, None], v[:, None] * gathered,
+                         -torch.inf)
+    seg = rows.reshape(-1).long()
+    m = torch.full((t, f), -torch.inf, dtype=torch.float32, device=xs.device)
+    m.scatter_reduce_(0, seg[:, None].expand(-1, f), scaled, "amax",
+                      include_self=True)
+    hit = ((scaled == m[seg]) & (v != 0.0)[:, None]).to(torch.float32)
+    cnt = torch.zeros((t, f), dtype=torch.float32,
+                      device=xs.device).index_add_(0, seg, hit)
+    return _merge_max_count(acc_val, acc_cnt, m, cnt)
+
+
+def _chunk_maxbwd_dense(acc, xv, blocks, ygs):
+    """One transposed backward chunk of the max (dense tiles): `blocks`
+    are the TRANSPOSED tiles (rows src-local u, columns dst-local t), `xv`
+    the resident source interval, `ygs` the streamed (y || g/cnt) stack
+    of the destination intervals.  Each edge product is recomputed from
+    the forward's operands (B^T[u, t] == B[t, u]), so the winner test is
+    an exact equality."""
+    d = ygs.shape[-1] // 2
+    ys, gs = ygs[..., :d], ygs[..., d:]
+    b = blocks[..., None]
+    prod = torch.where(b != 0.0, b * xv[None, :, None, :], torch.inf)
+    match = prod == ys[:, None, :, :]
+    return acc.add_(torch.where(match, b * gs[:, None, :, :], 0.0).sum(
+        dim=(0, 2)))
+
+
+def _chunk_maxbwd_packed(acc, xv, rows, cols, vals, ygs):
+    """Packed twin of `_chunk_maxbwd_dense`: rows and cols come from the
+    transposed packed store, so `rows` index the resident source interval
+    (and the gx accumulator) and `cols` the streamed (y, g/cnt) stack."""
+    d = ygs.shape[-1] // 2
+    v = vals.reshape(-1)
+    srcl = rows.reshape(-1).long()
+    at, _ = _gather_cols(cols, ygs)
+    prod = v[:, None] * xv[srcl]
+    match = (v != 0.0)[:, None] & (prod == at[:, :d])
+    return acc.index_add_(0, srcl, torch.where(match, v[:, None] * at[:, d:],
+                                               0.0))
+
+
 # (C, device) -> (block_row zeros(C), block_col arange(C)) of a chunk
 # launched as a one-interval blocked product: built once per width, so
 # the kernel wrapper's memoised checks read back to the host only once
@@ -194,7 +291,7 @@ def _chunk_step_kernel(acc, blocks, xs, *, op: str, impl: str, q: int):
     t, d = blocks.shape[1], xs.shape[-1]
     rows, cols = _chunk_index(q, xs.device)
     x2 = xs.reshape(q * t, d)
-    if impl == "cuda":     # forward only: the streamed backward is not ported
+    if impl == "cuda":     # under no_grad: the streamed backward re-streams
         y = spmm_ops.blocked_spmm(blocks, rows, cols, x2, q=q, op=op)
     else:
         y = spmm_ops.blocked_spmm_plain(blocks, rows, cols, x2, q=q, op=op)
@@ -218,34 +315,56 @@ def _select_rel(xs, rels, *, r: int, h: int):
     return xs.reshape(c, t, r, h)[idx, :, rels].contiguous()
 
 
-def _chunk_step_gated(acc, blocks, stream, res):
-    """Gated forward chunk step on dense tiles: stream is the (C, T, 2F)
-    (pc || x) source stack, res the resident (T, F) ph of the
-    destination interval; accumulates sum val * sigmoid(ph[dst] +
-    pc[src]) * x[src].  Materialises (C, T, T, F), as the reference."""
+def _chunk_step_gated(acc, blocks, stream, res, mode: str = "fwd"):
+    """Edgewise gated chunk step on dense tiles, one of three passes over
+    the same sweep (materialises (C, T, T, F), as the reference):
+
+      * "fwd": stream = (pc || x) source stacks, res = the resident ph of
+        the destination interval; accumulates sum val * sigmoid(a) * x
+        with a = ph[dst] + pc[src];
+      * "dst": the same operands; accumulates sum val * sigmoid'(a) * x,
+        the dst-side gate gradient before its elementwise g (the gate is
+        recomputed, not kept);
+      * "src": on the TRANSPOSED store, stream = (ph || g) destination
+        stacks, res = the resident pc of the source interval; accumulates
+        [sum val * sigmoid(a) * g, sum val * sigmoid'(a) * g], the gx half
+        and the gpc half before its x."""
     f = res.shape[-1]
-    pc, xs = stream[..., :f], stream[..., f:]
-    z = torch.sigmoid(res[None, :, None, :] + pc[:, None, :, :])
     b = blocks[..., None]
-    contrib = torch.where(b != 0.0, b * z * xs[:, None, :, :], 0.0)
-    return acc.add_(contrib.sum(dim=(0, 2)))
+    mask = b != 0.0
+    if mode in ("fwd", "dst"):
+        pc, xs = stream[..., :f], stream[..., f:]
+        z = torch.sigmoid(res[None, :, None, :] + pc[:, None, :, :])
+        w = z if mode == "fwd" else z * (1.0 - z)
+        contrib = torch.where(mask, b * w * xs[:, None, :, :], 0.0)
+        return acc.add_(contrib.sum(dim=(0, 2)))
+    ph, g = stream[..., :f], stream[..., f:]
+    z = torch.sigmoid(ph[:, None, :, :] + res[None, :, None, :])
+    wg = torch.where(mask, b * g[:, None, :, :], 0.0)
+    gx = (wg * z).sum(dim=(0, 2))
+    s2 = (wg * z * (1.0 - z)).sum(dim=(0, 2))
+    return acc.add_(torch.cat([gx, s2], dim=1))
 
 
-def _packed_step_gated(acc, rows, cols, vals, stream, res):
+def _packed_step_gated(acc, rows, cols, vals, stream, res,
+                       mode: str = "fwd"):
     """Packed twin of `_chunk_step_gated`: gather both streamed halves at
     the entries' columns, recompute the gate, segment-sum over the
     resident interval's rows."""
-    c, s = rows.shape
-    t, f = res.shape
-    gcols = (torch.arange(c, device=stream.device)[:, None] * t
-             + cols.long()).reshape(c * s)
-    flat = stream.reshape(c * t, stream.shape[-1])[gcols]
-    rowsf = rows.reshape(c * s).long()
-    v = vals.reshape(c * s)
-    z = torch.sigmoid(res[rowsf] + flat[:, :f])
-    contrib = torch.where((v != 0.0)[:, None], v[:, None] * z * flat[:, f:],
-                          0.0)
-    return acc.index_add_(0, rowsf, contrib)
+    f = res.shape[-1]
+    flat, _ = _gather_cols(cols, stream)
+    a_at, b_at = flat[:, :f], flat[:, f:]
+    rowsf = rows.reshape(-1).long()
+    v = vals.reshape(-1)
+    live = (v != 0.0)[:, None]
+    z = torch.sigmoid(res[rowsf] + a_at)
+    if mode in ("fwd", "dst"):
+        w = z if mode == "fwd" else z * (1.0 - z)
+        return acc.index_add_(0, rowsf,
+                              torch.where(live, v[:, None] * w * b_at, 0.0))
+    wg = torch.where(live, v[:, None] * b_at, 0.0)
+    return acc.index_add_(0, rowsf, torch.cat([wg * z, wg * z * (1.0 - z)],
+                                              dim=1))
 
 
 def _tile_part_sum(blk, xj):
@@ -276,7 +395,8 @@ class TiledStats:
     staged_slots: int = 0
     packed_tile_bytes: int = 0
     dense_tile_bytes: int = 0
-    # the streamed backward's traffic (not ported yet: stays 0)
+    # the streamed backward's traffic: the transposed re-stream (and the
+    # gated dst-side sweep) counted apart from the forward's counters
     bwd_steps: int = 0
     bwd_tiles: int = 0
     bwd_h2d_tile_bytes: int = 0
@@ -297,6 +417,16 @@ class TiledStats:
     # store builds vs incremental merges (merges not ported yet)
     store_builds: int = 0
     delta_merges: int = 0
+
+    def add_backward(self, other: "TiledStats"):
+        """Fold one backward sweep's forward-shaped counters (the
+        transposed executor counts its own streaming as forward) into
+        this executor's bwd_* counters."""
+        self.bwd_steps += other.steps
+        self.bwd_tiles += other.tiles
+        self.bwd_h2d_tile_bytes += other.h2d_tile_bytes
+        self.bwd_h2d_x_bytes += other.h2d_x_bytes
+        self.bwd_d2h_bytes += other.d2h_bytes
 
     def fill_factor(self) -> float:
         """Real entries / padded slots staged so far."""
@@ -396,23 +526,53 @@ class TiledExecutor:
         self.value_dtype = value_dtype
         self.stats = TiledStats(store_builds=1)
         self._xcache: OrderedDict = OrderedDict()
+        self._transposed: Optional["TiledExecutor"] = None
+        # one differentiable callable per op (`make_streamed_*`)
+        self._diff_cache: Dict[str, Callable] = {}
         # H of a typed aggregate in flight (`aggregate(rel_channels=H)`)
         self._rel_select: Optional[int] = None
-        self._queue_cache: Dict[int, object] = {}
-        self._tq = None
-        self._counts_dev = None
+        self._init_queue_state()
         self._copy = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
 
-    # -- not ported yet ------------------------------------------------
-    def transposed(self):
-        raise NotImplementedError(_TRAINING)
+    def _init_queue_state(self):
+        """Fresh queue caches (at construction, and for a derived view)."""
+        self._queue_cache: Dict[int, object] = {}
+        self._queue_max_diff: Dict[int, Callable] = {}
+        self._tq = None
+        self._tq_price = None
+        self._counts_dev = None
 
-    def aggregate_max_forward(self, x):
-        raise NotImplementedError(_TRAINING)
+    @classmethod
+    def _from_stores(cls, store: EdgeTileStore,
+                     packed: Optional[PackedTileStore], *,
+                     like: "TiledExecutor") -> "TiledExecutor":
+        """An executor over prebuilt stores that inherits every streaming
+        parameter of `like` (tile, chunk, budget, format, device, copy
+        stream), with its own stats and caches and no device queue."""
+        ex = copy.copy(like)
+        ex.store = store
+        ex.packed = packed
+        ex.stats = TiledStats()
+        ex._xcache = OrderedDict()
+        ex._transposed = None
+        ex._diff_cache = {}
+        ex._rel_select = None
+        ex._init_queue_state()
+        return ex
 
-    def max_vjp(self, x, y, cnt, g):
-        raise NotImplementedError(_TRAINING)
+    def transposed(self) -> "TiledExecutor":
+        """The A^T view of this executor (built once): the same host edge
+        arrays with source and destination swapped (zero copy, see
+        `transpose_tile_store`), the same streaming parameters, its own
+        stats.  The streamed backward re-streams these tiles instead of
+        keeping forward activations on the device."""
+        if self._transposed is None:
+            tps = (transpose_packed_store(self.packed)
+                   if self.packed is not None else None)
+            self._transposed = TiledExecutor._from_stores(
+                transpose_tile_store(self.store), tps, like=self)
+        return self._transposed
 
     def apply_updates(self, snapshot):
         raise NotImplementedError(_NOT_PORTED["updates"])
@@ -439,25 +599,35 @@ class TiledExecutor:
                 f"rebuild the executor with dim_hint>={dim}")
         return c
 
-    def queue_plan(self, d: int, op: str = "sum") -> Optional[QueuePlan]:
+    def queue_plan(self, d: int, op: str = "sum",
+                   training: bool = False) -> Optional[QueuePlan]:
         """Can this aggregate run as a device-resident chunk queue?
         Prices the queue plus the sweep's working set — the resident
         (N, d) features, the (N+1, d) accumulator and per-slab output,
         one (slab, d) gather — against the budget, halving the slab
         (floor 256) until it fits.  None means the callback loop runs:
         streaming_mode="callback", no packed store, or over budget
-        ("chunk_queue" raises instead)."""
+        ("chunk_queue" raises instead).
+
+        A sum or mean on the kernel route holds more, and is priced at
+        what it holds: the slab queue it stages, the walker's `TileQueue`
+        (`tile_queue_bytes`), x, y (and a mean's quotient), B5's
+        split-interval scratch and, with `training`, the cotangent (and a
+        mean's quotient of it) and dX (B5^T adds into dX directly)."""
         if self.streaming_mode == "callback" or self.packed is None:
             return None
         from repro_torch.kernels.chunk_queue.ops import queue_bytes
         m = max(self.packed.nnz, 1)
         n = self.store.num_vertices
         d = max(int(d), 1)
+        kernel = op in ("sum", "mean") and self._kernels()
 
         def total(slab: int) -> Tuple[int, int, int]:
             slab = min(slab, m)
             steps = -(-m // slab)
-            work = 4 * d * (slab + 2 * (n + 1)) + 4 * n * d
+            work = (self._kernel_queue_bytes(d, op == "mean", training)
+                    if kernel
+                    else 4 * d * (slab + 2 * (n + 1)) + 4 * n * d)
             return queue_bytes(m, slab, self.value_dtype) + work, slab, steps
 
         b, slab, steps = total(m)
@@ -471,6 +641,26 @@ class TiledExecutor:
                         f"budget is {self.budget_bytes}B")
                 return None
         return QueuePlan(slab, steps, b)
+
+    def _kernel_queue_bytes(self, d: int, mean: bool,
+                            training: bool) -> int:
+        """What a queue sum on the kernel route holds beside the slab
+        queue (`queue_plan`), priced from the host store before anything
+        is built."""
+        if self._tq_price is None:
+            from repro_torch.kernels.chunk_queue.ops import tile_queue_bytes
+            self._tq_price = tile_queue_bytes(self.packed)
+        tq_bytes, n_split = self._tq_price
+        n, t = self.store.num_vertices, self.store.tile
+        live = (3 if mean else 2) * (2 if training else 1)
+        return (tq_bytes + 4 * n * d * live + 4 * n
+                + 4 * n_split * (t * d + d) + _ALLOC_SLACK)
+
+    def _queue_takes(self, base_op: str) -> bool:
+        """Whether the queue runs this op here: the queue kernel is
+        sum-only, so a max on the card streams (the callback loop)."""
+        return base_op == "sum" or not (self.device.type == "cuda"
+                                        and self.impl != "plain")
 
     def _kernels(self) -> bool:
         """Whether the queue sum runs the CUDA walker's route."""
@@ -570,13 +760,20 @@ class TiledExecutor:
         base_op = "sum" if op == "mean" else op
         if base_op not in ("sum", "max"):
             raise ValueError(op)
-        # the queue kernel is sum-only: a max on the card streams
-        queue_ok = base_op == "sum" or not (self.device.type == "cuda"
-                                            and self.impl != "plain")
-        if extract_fn is None and rel_channels is None and queue_ok:
-            plan = self.queue_plan(d, base_op)
+        if (extract_fn is None and rel_channels is None
+                and self._queue_takes(base_op)):
+            plan = self.queue_plan(d, op)
             if plan is not None:
                 return torch.from_numpy(self._queue_eager(x, op, plan))
+        return self._stream(x, op, order, extract_fn, d, rel_channels)
+
+    def _stream(self, x: np.ndarray, op: str, order: str,
+                extract_fn: Optional[Callable], d: int,
+                rel_channels: Optional[int] = None) -> torch.Tensor:
+        """The tile-by-tile sweep of `aggregate` (no queue), for host x;
+        the differentiable callback route calls it directly, having
+        decided its route already."""
+        base_op = "sum" if op == "mean" else op
         self._xcache = OrderedDict()
         self._rel_select = rel_channels
         xh = self._pad_host(x)
@@ -626,33 +823,213 @@ class TiledExecutor:
         Returns a CPU float32 (N, F) tensor."""
         ph, pc, x = (_host_f32(a) for a in (ph, pc, x))
         stream = np.ascontiguousarray(np.concatenate([pc, x], axis=1))
-        return torch.from_numpy(self._sweep_gated(stream, ph))
+        return torch.from_numpy(self._sweep_gated(stream, ph, "fwd"))
 
-    def _sweep_gated(self, stream: np.ndarray,
-                     resident: np.ndarray) -> np.ndarray:
-        """The gated forward's column sweep: `stream` is the two-half
-        source payload staged per chunk, `resident` the per-destination
-        interval half (ph), copied once per interval."""
+    # -- the reverse path --------------------------------------------------
+    def aggregate_max_forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Streamed max that also captures the backward's residual:
+        returns CPU float32 (y, counts), counts[i, f] the number of edge
+        products achieving y[i, f].  Column order only: the (max, count)
+        pair merges associatively per destination interval."""
+        x = _host_f32(x)
+        if x.shape[0] != self.store.num_vertices:
+            raise ValueError((x.shape, self.store.num_vertices))
         st = self.store
-        t, q = st.tile, st.q
+        t, d = st.tile, x.shape[1]
+        y = np.zeros((st.num_vertices, d), np.float32)
+        cnt = np.zeros((st.num_vertices, d), np.float32)
+        packed = self.tile_format == "packed"
+
+        def init():
+            return (torch.full((t, d), -torch.inf, dtype=torch.float32,
+                               device=self.device),
+                    torch.zeros((t, d), dtype=torch.float32,
+                                device=self.device))
+
+        def step(acc, payload, xs, res, idx):
+            if packed:
+                return _packed_step_max_count(*acc, *payload, xs)
+            return _chunk_step_max_count(*acc, payload, xs)
+
+        def flush(i, acc):
+            hv = _finish_max(acc[0]).cpu().numpy()
+            hc = acc[1].cpu().numpy()
+            self.stats.d2h_bytes += hv.nbytes + hc.nbytes
+            lo = i * t
+            m = min(lo + t, st.num_vertices) - lo
+            y[lo:lo + m] = hv[:m]
+            cnt[lo:lo + m] = hc[:m]
+
+        self._resident_sweep(x, d, init, step, flush)
+        return torch.from_numpy(y), torch.from_numpy(cnt)
+
+    def max_vjp(self, x, y, cnt, g) -> torch.Tensor:
+        """Backward of the streamed max: re-stream the same tiles
+        transposed, recompute every edge product against the saved max
+        and scatter g / count to each tied winner (tile recomputation in
+        place of resident activations, so the budget holds backward
+        too).  Traffic lands in `stats.bwd_*`; returns CPU float32."""
+        tex = self.transposed()
+        tex.reset_stats()
+        gn = _host_f32(g) / np.maximum(_host_f32(cnt), 1.0)
+        yg = np.ascontiguousarray(np.concatenate([_host_f32(y), gn], axis=1))
+        gx = tex._sweep_max_backward(_host_f32(x), yg)
+        self.stats.add_backward(tex.stats)
+        return torch.from_numpy(gx)
+
+    def _sweep_max_backward(self, x: np.ndarray,
+                            yg: np.ndarray) -> np.ndarray:
+        """On the TRANSPOSED executor: gx accumulates per source interval
+        (this store's rows, resident x), the (y || g/cnt) stacks of the
+        destination intervals stream through the chunks as x does
+        forward."""
+        st = self.store
+        t, d = st.tile, yg.shape[1] // 2
+        gx = np.zeros((st.padded_vertices, d), np.float32)
+        packed = self.tile_format == "packed"
+
+        def step(acc, payload, ygs, xv, idx):
+            if packed:
+                return _chunk_maxbwd_packed(acc, xv, *payload, ygs)
+            return _chunk_maxbwd_dense(acc, xv, payload, ygs)
+
+        self._resident_sweep(yg, 2 * d, self._zeros(t, d), step,
+                             self._flush_into(gx), resident=x)
+        return gx[:st.num_vertices]
+
+    def typed_sum_vjp(self, g) -> torch.Tensor:
+        """Backward of the relation-typed streamed sum: re-stream the
+        TRANSPOSED typed tiles (a tile keeps its relation under the
+        src <-> dst swap) and add each tile's partial into its relation's
+        column block: the (N, R*H) cotangent of the stacked payload, as
+        a CPU float32 tensor."""
+        if self.store.block_rel is None:
+            raise ValueError("typed_sum_vjp needs a relation-typed store")
+        tex = self.transposed()
+        tex.reset_stats()
+        gx = tex._sweep_relscatter(_host_f32(g))
+        self.stats.add_backward(tex.stats)
+        return torch.from_numpy(gx)
+
+    def _sweep_relscatter(self, g: np.ndarray) -> np.ndarray:
+        """On the TRANSPOSED executor: a column sweep whose (T, R, H)
+        accumulator takes each tile's partial in its own relation's block
+        (the adjoint of `_select_rel`).  A chunk's tiles are put in
+        relation order on the device and each relation's run goes through
+        the forward's chunk step (B2's tile part on packed tiles), so a
+        chunk costs one launch per relation it holds."""
+        st = self.store
+        t, r, h = st.tile, st.num_relations, g.shape[1]
+        gx = np.zeros((st.padded_vertices, r * h), np.float32)
+        packed = self.tile_format == "packed"
+
+        def step(acc, payload, gs, res, idx):
+            rels = st.block_rel[idx]
+            order = np.argsort(rels, kind="stable")
+            if np.any(order != np.arange(order.size)):
+                perm = torch.from_numpy(order).to(self.device)
+                payload = (tuple(p.index_select(0, perm) for p in payload)
+                           if packed else payload.index_select(0, perm))
+                gs = gs.index_select(0, perm)
+            rels = rels[order]
+            bounds = np.flatnonzero(np.diff(rels)) + 1
+            for a, b in zip(np.r_[0, bounds], np.r_[bounds, rels.size]):
+                part = (tuple(p[a:b] for p in payload) if packed
+                        else payload[a:b])
+                self._chunk_step(acc[:, int(rels[a])], part, gs[a:b], "sum",
+                                 int(b - a))
+            return acc
+
+        def flush(i, acc):
+            hb = acc.cpu().numpy().reshape(t, r * h)
+            self.stats.d2h_bytes += hb.nbytes
+            gx[i * t:(i + 1) * t] = hb
+
+        self._resident_sweep(g, r * h, self._zeros(t, r, h), step, flush)
+        return gx[:st.num_vertices]
+
+    def gated_vjp(self, ph, pc, x, g
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Backward of the streamed gated sum: two recompute sweeps, no
+        edge-shaped residual.  A forward-oriented sweep gives the
+        dst-side sum val * sigmoid'(a) * x (gph = g times it); the
+        transposed sweep streams (ph || g) against the resident pc and
+        yields gx = A_sigma^T g and the pc half of the gate's gradient.
+        Both sweeps' traffic lands in `stats.bwd_*`.  Returns CPU float32
+        (gph, gpc, gx)."""
+        ph, pc, x, g = (_host_f32(a) for a in (ph, pc, x, g))
+        saved, self.stats = self.stats, TiledStats()
+        u = self._sweep_gated(
+            np.ascontiguousarray(np.concatenate([pc, x], axis=1)), ph, "dst")
+        dst_stats, self.stats = self.stats, saved
+        self.stats.add_backward(dst_stats)
+        tex = self.transposed()
+        tex.reset_stats()
+        both = tex._sweep_gated(
+            np.ascontiguousarray(np.concatenate([ph, g], axis=1)), pc, "src")
+        self.stats.add_backward(tex.stats)
+        f = x.shape[1]
+        return (torch.from_numpy(g * u), torch.from_numpy(x * both[:, f:]),
+                torch.from_numpy(np.ascontiguousarray(both[:, :f])))
+
+    def _sweep_gated(self, stream: np.ndarray, resident: np.ndarray,
+                     mode: str) -> np.ndarray:
+        """The column sweep the three gated passes share
+        (`_chunk_step_gated` says what each mode computes): `stream` is
+        the two-half source-side payload staged per chunk, `resident` the
+        half copied once per row interval (ph forward, pc on the
+        transposed "src" pass)."""
+        st = self.store
         f = resident.shape[1]
-        chunk = self.effective_chunk(max(stream.shape[1], f))
-        out = np.zeros((st.padded_vertices, f), np.float32)
-        steps: List[Tuple[int, np.ndarray]] = []
-        for i in range(q):
-            for c in chunk_tile_row(st.row_tiles(i), chunk,
-                                    snake=(i % 2 == 1)):
-                steps.append((i, c))
-        if not steps:
-            return out[:st.num_vertices]
-        self._xcache = OrderedDict()
-        sh, rh = self._pad_host(stream), self._pad_host(resident)
+        d_out = 2 * f if mode == "src" else f
+        out = np.zeros((st.padded_vertices, d_out), np.float32)
+        packed = self.tile_format == "packed"
+
+        def step(acc, payload, xs, res, idx):
+            if packed:
+                return _packed_step_gated(acc, *payload, xs, res, mode)
+            return _chunk_step_gated(acc, payload, xs, res, mode)
+
+        self._resident_sweep(stream, max(stream.shape[1], d_out),
+                             self._zeros(st.tile, d_out), step,
+                             self._flush_into(out), resident=resident)
+        return out[:st.num_vertices]
+
+    def _zeros(self, *shape):
+        return lambda: torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+
+    def _flush_into(self, out: np.ndarray):
+        t = self.store.tile
 
         def flush(i, acc):
             hb = acc.cpu().numpy()
             self.stats.d2h_bytes += hb.nbytes
             out[i * t:(i + 1) * t] = hb
+        return flush
 
+    def _resident_sweep(self, stream: np.ndarray, width: int,
+                        init: Callable, step: Callable, flush: Callable,
+                        resident: Optional[np.ndarray] = None) -> None:
+        """The column-order walk the gated passes, the max capture, its
+        backward and the typed rel-scatter share: per row interval i,
+        `init()` makes the accumulator on the device and the interval of
+        `resident` (if any) is copied once; every S-shape chunk of the
+        interval's tiles is staged from `stream` (double-buffered, the
+        chunk fitted at `width`) and reduced by `step(acc, payload, xs,
+        resident interval, tile indices)`; `flush(i, acc)` takes the
+        finished interval."""
+        st = self.store
+        t, q = st.tile, st.q
+        chunk = self.effective_chunk(width)
+        steps = [(i, c) for i in range(q)
+                 for c in chunk_tile_row(st.row_tiles(i), chunk,
+                                         snake=(i % 2 == 1))]
+        if not steps:
+            return
+        self._xcache = OrderedDict()
+        sh = self._pad_host(stream)
+        rh = self._pad_host(resident) if resident is not None else None
         staged = self._stage_chunk(steps[0][1], sh, None, chunk)
         acc = res = None
         cur_row: Optional[int] = None
@@ -661,28 +1038,50 @@ class TiledExecutor:
             if i != cur_row:
                 if cur_row is not None:
                     flush(cur_row, acc)
-                acc = torch.zeros((t, f), dtype=torch.float32,
-                                  device=self.device)
-                hb = self._interval(rh, i)
-                self.stats.h2d_x_bytes += 4 * t * f
-                self.stats.x_loads += 1
-                res = (torch.from_numpy(hb) if isinstance(hb, np.ndarray)
-                       else hb.to(self.device, non_blocking=True))
+                acc = init()
+                if rh is not None:
+                    hb = self._interval(rh, i)
+                    self.stats.h2d_x_bytes += 4 * t * rh.shape[1]
+                    self.stats.x_loads += 1
+                    res = (torch.from_numpy(hb) if isinstance(hb, np.ndarray)
+                           else hb.to(self.device, non_blocking=True))
                 cur_row = i
             if self.double_buffer and s + 1 < len(steps):
                 staged = self._stage_chunk(steps[s + 1][1], sh, None, chunk)
-            payload = self._ready(payload, ev)
-            if self.tile_format == "packed":
-                acc = _packed_step_gated(acc, *payload, xs, res)
-            else:
-                acc = _chunk_step_gated(acc, payload, xs, res)
+            acc = step(acc, self._ready(payload, ev), xs, res, idx)
             self.stats.steps += 1
             if not self.double_buffer and s + 1 < len(steps):
                 self._sync()
                 staged = self._stage_chunk(steps[s + 1][1], sh, None, chunk)
         flush(cur_row, acc)
         self._xcache = OrderedDict()
-        return out[:st.num_vertices]
+
+    def _queue_traced(self, x: torch.Tensor, op: str,
+                      plan: QueuePlan) -> torch.Tensor:
+        """The differentiable queue route (`make_streamed_aggregate`): on
+        the kernel route a sum is B5 over the TileQueue, whose backward is
+        B5^T over the same queue; elsewhere the plain slab sweep, which
+        autograd differentiates, and for a max over several slabs
+        `make_queue_max_diff` (its tie counts carried across slabs).  x
+        and the result lie on the device."""
+        from repro_torch.kernels.chunk_queue import ops as cq_ops
+        q = self._device_queue(plan.slab)
+        base = "sum" if op == "mean" else op
+        if base == "sum" and self._kernels():
+            y = cq_ops.tile_queue_aggregate(self._tile_queue(), x)
+            self.stats.queue_launches += 1
+        elif base == "max" and q.steps > 1:
+            fn = self._queue_max_diff.get(plan.slab)
+            if fn is None:
+                fn = cq_ops.make_queue_max_diff(q)
+                self._queue_max_diff[plan.slab] = fn
+            y = fn(x)
+        else:
+            y = cq_ops.queue_sweep_plain(q.gsrc, q.gdst, q.vals, q.scales, x,
+                                         n=q.n, op=base)
+        if op == "mean":
+            y = y / self._counts_col()
+        return y
 
     # -- host <-> device -----------------------------------------------
     def _pad_host(self, a: np.ndarray):
@@ -955,13 +1354,142 @@ class TiledExecutor:
         return _tile_part_max(blk[0], x_dev)
 
 
-def make_streamed_aggregate(ex: TiledExecutor, op: str):
-    raise NotImplementedError(_TRAINING)
+# -- differentiable wrappers ----------------------------------------------
+
+class _StreamedSum(torch.autograd.Function):
+    """The callback route's sum: forward A x streamed tile by tile,
+    backward A^T g streamed over the transposed stores.  Features in and
+    gradients out are device tensors; only the graph stays on the host."""
+
+    @staticmethod
+    def forward(ctx, ex, x):
+        ctx.ex = ex
+        return ex._stream(_host_f32(x), "sum", "column", None,
+                          x.shape[1]).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        ex = ctx.ex
+        tex = ex.transposed()
+        tex.reset_stats()
+        gx = tex._stream(_host_f32(g), "sum", "column", None, g.shape[1])
+        ex.stats.add_backward(tex.stats)
+        return None, gx.to(g.device)
 
 
-def make_streamed_typed_sum(ex: TiledExecutor):
-    raise NotImplementedError(_TRAINING)
+class _StreamedMax(torch.autograd.Function):
+    """The callback route's max: the forward captures (y, tie counts) on
+    the host where a gradient is wanted, the backward re-streams the
+    transposed tiles (`TiledExecutor.max_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, ex, x):
+        ctx.ex = ex
+        if not ctx.needs_input_grad[1]:
+            return ex._stream(_host_f32(x), "max", "column", None,
+                              x.shape[1]).to(x.device)
+        y, cnt = ex.aggregate_max_forward(x)
+        ctx.save_for_backward(x)
+        ctx.host = (y, cnt)
+        return y.to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return None, ctx.ex.max_vjp(x, *ctx.host, g).to(g.device)
 
 
-def make_streamed_gated(ex: TiledExecutor):
-    raise NotImplementedError(_TRAINING)
+class _StreamedTypedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ex, x):
+        ctx.ex = ex
+        h = x.shape[1] // ex.store.num_relations
+        return ex.aggregate(x, "sum", order="column", rel_channels=h).to(
+            x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ex.typed_sum_vjp(g).to(g.device)
+
+
+class _StreamedGated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ex, ph, pc, x):
+        ctx.ex = ex
+        ctx.save_for_backward(ph, pc, x)
+        return ex.gated_aggregate(ph, pc, x).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = ctx.ex.gated_vjp(*ctx.saved_tensors, g)
+        return (None,) + tuple(a.to(g.device) for a in grads)
+
+
+def make_streamed_aggregate(ex: TiledExecutor, op: str) -> Callable:
+    """The differentiable streamed aggregate, what makes the out-of-core
+    backend trainable: a callable x -> A x (sum, mean, max) on device
+    tensors, routed on each call as the reference routes at trace time:
+
+      * queue route (`queue_plan` fits): on the kernel route a sum is B5
+        forward and B5^T backward over the one device `TileQueue` (a mean
+        divides by the in-counts); elsewhere the plain slab sweep, with
+        `make_queue_max_diff` for a max over several slabs.  A max on the
+        card takes the callback route: the queue kernel is sum-only;
+      * callback route: the forward streams tile by tile (the max
+        capturing its tie counts), the backward streams the transposed
+        stores (`max_vjp` for a max), its traffic in `stats.bwd_*`.
+
+    One callable per (executor, op).  Gradients flow to x only: the
+    adjacency is a constant of the graph."""
+    if op not in ("sum", "max", "mean"):
+        raise ValueError(op)
+    fn = ex._diff_cache.get(op)
+    if fn is not None:
+        return fn
+    base = "sum" if op == "mean" else op
+
+    def fn(x):
+        plan = None
+        if ex._queue_takes(base):
+            plan = ex.queue_plan(int(x.shape[1]), op,
+                                 training=(torch.is_grad_enabled()
+                                           and x.requires_grad))
+        if plan is not None:
+            return ex._queue_traced(x, op, plan)
+        if base == "max":
+            return _StreamedMax.apply(ex, x)
+        y = _StreamedSum.apply(ex, x)
+        return y if op == "sum" else y / ex._counts_col()
+
+    ex._diff_cache[op] = fn
+    return fn
+
+
+def make_streamed_typed_sum(ex: TiledExecutor) -> Callable:
+    """The differentiable relation-typed streamed sum: x is the (N, R*H)
+    stack of per-relation messages (R-GCN's x @ W_r for every r), each
+    typed tile reads its own relation's slice, the output is the (N, H)
+    sum over the typed edges; the backward re-streams the transposed
+    typed tiles and adds each tile's partial into its relation's block
+    (`typed_sum_vjp`)."""
+    if ex.store.block_rel is None:
+        raise ValueError("typed streamed sum needs a relation-typed "
+                         "tile store")
+    fn = ex._diff_cache.get("typed_sum")
+    if fn is None:
+        fn = partial(_StreamedTypedSum.apply, ex)
+        ex._diff_cache["typed_sum"] = fn
+    return fn
+
+
+def make_streamed_gated(ex: TiledExecutor) -> Callable:
+    """The differentiable streamed gated sum (Eq. 4): `gated(ph, pc, x)`
+    with ph = x @ W_H, pc = x @ W_C returns sum_e val * sigmoid(ph[dst] +
+    pc[src]) * x[src].  The projections stay ordinary autograd ops; the
+    backward is two recompute sweeps (`gated_vjp`), no edge-shaped
+    residual."""
+    fn = ex._diff_cache.get("gated")
+    if fn is None:
+        fn = partial(_StreamedGated.apply, ex)
+        ex._diff_cache["gated"] = fn
+    return fn

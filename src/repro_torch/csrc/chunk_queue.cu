@@ -50,7 +50,24 @@
 //   * only rows below n are written, so X and Y keep their n rows.
 // Numerics: the order of the atomic adds varies from run to run, so sums
 // agree with the plain version to fp32 rounding, not bitwise.
-#include <cuda_runtime.h>
+//
+// B5^T, the second launcher (`chunk_queue_t_launch`): the sum's backward,
+//
+//   dX[src] += vals[e] * G[dst]  for every entry e of the FORWARD queue,
+//
+// src = wsrc[e], dst = i*T + wrows[e] for the entry's interval i.  The
+// reference differentiates its XLA sweep, so no TPU kernel is replaced;
+// this is B5's adjoint, and no transposed queue or A^T carrier is built
+// on the card.  Bound: bytes and atomics, the forward's 12 B per entry and
+// one gathered G row, with dX taken by float atomics in place of B5's
+// shared-memory block (the entries are row-sorted by destination, so their
+// sources scatter).  Design: the forward's work table and entry copy as
+// they are; one CTA per (piece, feature pass), its eight warps splitting
+// the piece into contiguous runs, each running the same warp walker
+// (`rer_gather_walk::walk`) with the roles swapped: the gathered row is
+// G[dst], the sink an atomic add into dX[src] (a run of one source is
+// summed in registers first).  Pieces partition the entries, so a split
+// interval is counted once; the launcher zeroes dX first.
 
 #include "rer_gather_walk.cuh"
 
@@ -175,6 +192,46 @@ void launch(const int* pieces, int n_pieces, const int* wrows,
       pieces, wrows, wsrc, wvals, x, y, part, arrive, n, t, f, fp, relu);
 }
 
+// B5^T: see the head of this file.  g (n, F) row-major, dx (n, F) zeroed.
+template <int kNR>
+__global__ void __launch_bounds__(kThreads)
+chunk_queue_t_kernel(const int* __restrict__ pieces,
+                     const int* __restrict__ wrows,
+                     const int* __restrict__ wsrc,
+                     const float* __restrict__ wvals,
+                     const float* __restrict__ g, float* __restrict__ dx,
+                     int t, int f, int fp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* pc = pieces + 5 * blockIdx.x;
+  const int row0 = pc[0] * t, lo = pc[1], hi = pc[2];
+  const int fb = blockIdx.y * fp * kNR;
+  const int step = ((hi - lo + kWarps - 1) / kWarps + 31) & ~31;
+  const int wlo = lo + warp * step;
+  const int wn = min(hi, wlo + step) - wlo;
+  if (wn <= 0) return;  // warp-uniform
+  auto load = [&](int e0, float* v, int* r, int* c) {
+    if (e0 + lane < wn) {
+      const int e = wlo + e0 + lane;
+      *v = __ldcs(wvals + e);
+      *r = __ldcs(wsrc + e);
+      *c = row0 + __ldcs(wrows + e);
+    }
+  };
+  auto sink = [&](int row, int fi, float v) {
+    atomicAdd(dx + (size_t)row * f + fi, v);
+  };
+  walk<false, kNR>(wn, load, sink, g, f, fb, fp, lane);
+}
+
+template <int kNR>
+void launch_t(const int* pieces, int n_pieces, const int* wrows,
+              const int* wsrc, const float* wvals, const float* g, float* dx,
+              int t, int f, int fp, int passes, cudaStream_t st) {
+  const dim3 grid((unsigned)n_pieces, (unsigned)passes);
+  chunk_queue_t_kernel<kNR><<<grid, kThreads, 0, st>>>(
+      pieces, wrows, wsrc, wvals, g, dx, t, f, fp);
+}
+
 }  // namespace
 
 // scratch: n_split * T * F floats then n_split * F ints (at least one
@@ -220,5 +277,34 @@ extern "C" int chunk_queue_launch(const void* pieces, int n_pieces,
   else
     launch<4>(pc, n_pieces, wr, ws, wv, xx, yy, part, arrive, n, t, f, fp,
               passes, smem, relu, st);
+  return (int)cudaGetLastError();
+}
+
+// B5^T: dx (n, F) = A^T g over the forward queue's pieces and entries.
+// dx is zeroed here, then every entry adds into it.
+extern "C" int chunk_queue_t_launch(const void* pieces, int n_pieces,
+                                    const void* wrows, const void* wsrc,
+                                    const void* wvals, const void* g,
+                                    void* dx, int n, int t, int f,
+                                    void* stream) {
+  if (n == 0 || f == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(dx, 0, (size_t)n * f * sizeof(float), st);
+  if (n_pieces == 0 || t == 0) return (int)cudaGetLastError();
+  int nr;
+  const int fp = queue_lanes(f, &nr);
+  const int passes = (f + fp * nr - 1) / (fp * nr);
+  const int* pc = static_cast<const int*>(pieces);
+  const int* wr = static_cast<const int*>(wrows);
+  const int* ws = static_cast<const int*>(wsrc);
+  const float* wv = static_cast<const float*>(wvals);
+  const float* gg = static_cast<const float*>(g);
+  float* out = static_cast<float*>(dx);
+  if (nr == 1)
+    launch_t<1>(pc, n_pieces, wr, ws, wv, gg, out, t, f, fp, passes, st);
+  else if (nr == 2)
+    launch_t<2>(pc, n_pieces, wr, ws, wv, gg, out, t, f, fp, passes, st);
+  else
+    launch_t<4>(pc, n_pieces, wr, ws, wv, gg, out, t, f, fp, passes, st);
   return (int)cudaGetLastError();
 }

@@ -84,12 +84,10 @@ def tile_ptr(block_row: torch.Tensor, q: int) -> torch.Tensor:
     return ptr
 
 
-def refuse_grad(what: str, *tensors: torch.Tensor,
-                why: str = "has no backward kernel yet (ROADMAP A5)"
-                ) -> None:
+def refuse_grad(what: str, *tensors: torch.Tensor, why: str) -> None:
     """Refuse a call that autograd would have to differentiate where the
-    call form has no backward, rather than return a result with a
-    silently missing gradient."""
+    call form has no backward (`why` says what it is instead), rather
+    than return a result with a silently missing gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{what} {why}; run inference under torch.no_grad() or "

@@ -16,6 +16,16 @@ packed tiles:
   relu), and the kernel's work table (`queue_work`), built with it on
   the host.  `tile_queue_plain` is its plain version.
 
+Backward.  `tile_queue_aggregate` is an autograd Function under grad:
+its backward is B5^T (`tile_queue_t`, the second launcher of
+`csrc/chunk_queue.cu`), dX[src] += val * G[dst] over the entries of the
+FORWARD queue: no transposed queue is built.  The relu epilogue has no
+backward and is refused under grad.  On the slab queue a sum or a
+single-slab max is differentiated by autograd through
+`queue_sweep_plain`; a max over several slabs takes
+`make_queue_max_diff`, which carries the tie counts across slabs so
+the gradient keeps `segment_max`'s even split (the reference's).
+
 Divergence of layout (not of result) from the reference: its
 `TileQueue` pads every tile to one store-wide pow2 bucket, a `(K, S)`
 layout whose size the hub tile sets; here the entries stay ragged, with
@@ -29,7 +39,10 @@ chunk_queue.py::chunk_queue_spmm` (`_queue_kernel`).  On the H100 it is
 bound by bytes and gather latency: 12 B per entry plus one referenced
 feature row.  Destination-stationary: one CTA per piece of an interval
 keeps the interval's block in shared memory, its warps run RER-Gather's
-walker over the piece; see the kernel source for its design.
+walker over the piece; see the kernel source for its design.  B5^T
+(`tile_queue_t`) is its adjoint over the same pieces, scattering with
+float atomics into dX; the reference differentiates its XLA sweep, so
+it has no TPU kernel of its own.
 
 Both builders follow the port's device rule: `device=None` is `cuda`,
 and raises without a card.
@@ -38,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,8 +64,8 @@ from repro_torch.kernels._common import (check_status, check_tensor,
 from repro_torch.kernels.rer_gather.ops import flat_entries
 
 # kernel launches, counted where the kernel is launched: the plain sum
-# sweep, and the sweep with relu folded into its flush
-LAUNCHES = {"sum": 0, "sum_relu": 0}
+# sweep, the sweep with relu folded into its flush, and B5^T
+LAUNCHES = {"sum": 0, "sum_relu": 0, "sum_t": 0}
 
 # most entries one CTA of the walker reduces: a longer interval span
 # (the hub's, after the degree sort) is split across CTAs
@@ -159,6 +172,75 @@ def queue_sweep_plain(gsrc: torch.Tensor, gdst: torch.Tensor,
     if op == "max":
         y = torch.where(torch.isneginf(y), 0.0, y)
     return y[:n]
+
+
+def _slab_max_count(queue: ChunkQueue, x: torch.Tensor):
+    """The multi-slab max with its tie counts, slab by slab: a strictly
+    better slab replaces a row's count, an exact finite tie adds to it.
+    Returns the raw (n+1, d) running max (-inf where nothing arrived)
+    and the counts."""
+    rows, d = queue.n + 1, x.shape[1]
+    acc_v = torch.full((rows, d), -torch.inf, dtype=torch.float32,
+                       device=x.device)
+    acc_c = torch.zeros((rows, d), dtype=torch.float32, device=x.device)
+    for s in range(queue.steps):
+        src, dst = queue.gsrc[s].long(), queue.gdst[s].long()
+        v = queue.vals[s].to(torch.float32) * queue.scales[s]
+        scaled = torch.where((v != 0.0)[:, None], v[:, None] * x[src],
+                             -torch.inf)
+        m = torch.full((rows, d), -torch.inf, dtype=torch.float32,
+                       device=x.device)
+        m.scatter_reduce_(0, dst[:, None].expand(-1, d), scaled, "amax",
+                          include_self=True)
+        hit = ((scaled == m[dst]) & (v != 0.0)[:, None]).to(torch.float32)
+        c = torch.zeros_like(m).index_add_(0, dst, hit)
+        better = m > acc_v
+        ties = (m == acc_v) & torch.isfinite(m)
+        acc_v = torch.maximum(acc_v, m)
+        acc_c = torch.where(better, c, acc_c + torch.where(ties, c, 0.0))
+    return acc_v, acc_c
+
+
+class _QueueMax(torch.autograd.Function):
+    """The multi-slab max over a slab queue, with the reference's
+    `make_queue_max_diff` backward: re-walk the slabs, recompute each
+    edge product from the forward's operands and give g / count to every
+    entry equal to its row's global max."""
+
+    @staticmethod
+    def forward(ctx, queue, x):
+        yv, yc = _slab_max_count(queue, x)
+        ctx.queue = queue
+        # the RAW max is kept: the backward's exact product match must
+        # compare with it, not with the 0 an empty row reports
+        ctx.save_for_backward(x, yv, yc)
+        return torch.where(torch.isneginf(yv), 0.0, yv)[:queue.n]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, yv, yc = ctx.saved_tensors
+        q = ctx.queue
+        gn = torch.zeros_like(yv)
+        gn[:q.n] = g
+        gn = gn / torch.clamp_min(yc, 1.0)
+        gx = torch.zeros_like(x)
+        for s in range(q.steps):
+            src, dst = q.gsrc[s].long(), q.gdst[s].long()
+            v = q.vals[s].to(torch.float32) * q.scales[s]
+            prod = v[:, None] * x[src]
+            match = (v != 0.0)[:, None] & (prod == yv[dst])
+            contrib = torch.where(match, v[:, None] * gn[dst], 0.0)
+            gx = gx + torch.zeros_like(x).index_add_(0, src, contrib)
+        return None, gx
+
+
+def make_queue_max_diff(queue: ChunkQueue):
+    """A differentiable multi-slab max sweep over a staged slab queue:
+    the forward equals `queue_sweep_plain(..., op="max")`; the backward
+    splits a row's cotangent evenly over all its tied entries whatever
+    slabs they sit in (plain autograd through the slab-by-slab maximum
+    would split a cross-slab tie per merge).  Gradients flow to x only."""
+    return lambda x: _QueueMax.apply(queue, x)
 
 
 def chunk_queue_aggregate(queue: ChunkQueue, x: torch.Tensor, *,
@@ -320,12 +402,23 @@ def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
                      n_split)
 
 
-def tile_queue_plain(tq: TileQueue, x: torch.Tensor,
-                     activation: Optional[str] = None) -> torch.Tensor:
-    """The walker's function in plain PyTorch: each entry's global
-    (dst, src) from its tile, one gather, one index_add_, then the
-    activation.  x (n, F) -> (n, F)."""
-    dev = x.device
+def tile_queue_bytes(packed: PackedTileStore,
+                     segment: int = SEGMENT) -> Tuple[int, int]:
+    """(device bytes, split intervals) of `build_tile_queue(packed)`
+    before building it: the budget gate's twin of
+    `TileQueue.device_bytes` and `TileQueue.n_split`."""
+    q, k, m = packed.q, packed.nnzb, packed.nnz
+    lens = np.bincount(packed.block_row, weights=packed.tile_nnz(),
+                       minlength=q).astype(np.int64)
+    pieces = np.maximum(1, -(-lens // segment))
+    return (4 * (q + 1) + 4 * max(k, 1) + 4 * (k + 1) + 24 * m
+            + 20 * int(pieces.sum())), int((pieces > 1).sum())
+
+
+def _entry_ends(tq: TileQueue):
+    """Each entry's global destination and source rows, on the queue's
+    device."""
+    dev = tq.rows.device
     t = tq.tile
     k = tq.entry_ptr.numel() - 1
     tile_dst = torch.repeat_interleave(
@@ -334,13 +427,34 @@ def tile_queue_plain(tq: TileQueue, x: torch.Tensor,
         torch.arange(k, device=dev), torch.diff(tq.entry_ptr.long()))
     gsrc = tq.tile_src.long()[tile_of] * t + tq.cols.long()
     gdst = tile_dst[tile_of] * t + tq.rows.long()
-    y = torch.zeros((tq.q * t, x.shape[1]), dtype=torch.float32, device=dev)
+    return gdst, gsrc
+
+
+def tile_queue_plain(tq: TileQueue, x: torch.Tensor,
+                     activation: Optional[str] = None) -> torch.Tensor:
+    """The walker's function in plain PyTorch: each entry's global
+    (dst, src) from its tile, one gather, one index_add_, then the
+    activation.  x (n, F) -> (n, F)."""
+    gdst, gsrc = _entry_ends(tq)
+    y = torch.zeros((tq.q * tq.tile, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
     y.index_add_(0, gdst, tq.vals[:, None] * x[gsrc])
     if activation == "relu":
         y = torch.relu(y)
     elif activation is not None:
         raise ValueError(activation)
     return y[:tq.n]
+
+
+def tile_queue_t_plain(tq: TileQueue, g: torch.Tensor) -> torch.Tensor:
+    """B5^T's function in plain PyTorch: A^T g over the forward queue's
+    entries, one gather of G at each entry's destination and one
+    index_add_ at its source.  g (n, F) -> (n, F)."""
+    gdst, gsrc = _entry_ends(tq)
+    dx = torch.zeros((tq.q * tq.tile, g.shape[1]), dtype=torch.float32,
+                     device=g.device)
+    dx.index_add_(0, gsrc, tq.vals[:, None] * g[gdst])
+    return dx[:tq.n]
 
 
 _LIB = None
@@ -354,31 +468,33 @@ def _lib():
         lib.chunk_queue_launch.argtypes = [p, i, p, p, p, p, p, p, i, i, i,
                                            i, i, p]
         lib.chunk_queue_launch.restype = i
+        lib.chunk_queue_t_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
+        lib.chunk_queue_t_launch.restype = i
         _LIB = lib
     return _LIB
 
 
-def tile_queue_aggregate(tq: TileQueue, x: torch.Tensor, *,
-                         activation: Optional[str] = None) -> torch.Tensor:
-    """act(A x) over a built tile queue: x (n, F) -> (n, F).  CPU tensors
-    take the plain version; CUDA tensors the kernel."""
-    if activation not in (None, "relu"):
-        raise ValueError(activation)
-    if x.device.type == "cpu":
-        return tile_queue_plain(tq, x, activation)
-    if x.device.type != "cuda":
-        raise ValueError(f"no chunk_queue kernel for device {x.device}")
-    refuse_grad("chunk_queue", x)
+def _check_queue(tq: TileQueue, x: torch.Tensor, name: str) -> None:
     dev = x.device
-    check_tensor(x, "x", torch.float32, dev, 2)
-    for name in ("wrows", "wsrc"):
-        check_tensor(getattr(tq, name), name, torch.int32, dev, 1)
+    check_tensor(x, name, torch.float32, dev, 2)
+    for field in ("wrows", "wsrc"):
+        check_tensor(getattr(tq, field), field, torch.int32, dev, 1)
     check_tensor(tq.wvals, "wvals", torch.float32, dev, 1)
     check_tensor(tq.pieces, "pieces", torch.int32, dev, 2)
     if tq.pieces.shape[1] != 5:
         raise ValueError("the work table does not match the kernel's")
     if x.shape[0] != tq.n:
-        raise ValueError(f"x has {x.shape[0]} rows, the queue {tq.n}")
+        raise ValueError(f"{name} has {x.shape[0]} rows, the queue {tq.n}")
+
+
+def _tile_queue_forward(tq: TileQueue, x: torch.Tensor,
+                        activation: Optional[str]) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return tile_queue_plain(tq, x, activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"no chunk_queue kernel for device {x.device}")
+    dev = x.device
+    _check_queue(tq, x, "x")
     f = x.shape[1]
     if tq.tile * min(f, 32) * 4 > _SMEM_MAX:
         raise ValueError(f"a {tq.tile}-row interval block of {min(f, 32)} "
@@ -397,3 +513,55 @@ def tile_queue_aggregate(tq: TileQueue, x: torch.Tensor, *,
     check_status(status, "chunk_queue")
     LAUNCHES["sum_relu" if relu else "sum"] += 1
     return y
+
+
+class _TileQueueSum(torch.autograd.Function):
+    """B5 forward, B5^T backward, both over the one forward queue."""
+
+    @staticmethod
+    def forward(ctx, tq, x):
+        ctx.tq = tq
+        return _tile_queue_forward(tq, x, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, tile_queue_t(ctx.tq, g.contiguous())
+
+
+def tile_queue_aggregate(tq: TileQueue, x: torch.Tensor, *,
+                         activation: Optional[str] = None) -> torch.Tensor:
+    """act(A x) over a built tile queue: x (n, F) -> (n, F).  CPU tensors
+    take the plain version; CUDA tensors the kernel.  Under grad a sum is
+    an autograd Function whose backward is `tile_queue_t`; the relu
+    epilogue has no backward and is refused there."""
+    if activation not in (None, "relu"):
+        raise ValueError(activation)
+    if torch.is_grad_enabled() and x.requires_grad:
+        if activation is not None:
+            refuse_grad("chunk_queue", x,
+                        why="has no backward for its relu epilogue")
+        return _TileQueueSum.apply(tq, x)
+    return _tile_queue_forward(tq, x, activation)
+
+
+def tile_queue_t(tq: TileQueue, g: torch.Tensor) -> torch.Tensor:
+    """B5^T: A^T g over the forward queue, g (n, F) -> dX (n, F).  CPU
+    tensors take the plain version; CUDA tensors the kernel, which walks
+    the forward queue's own pieces and row-sorted entries and adds each
+    val * G[dst] into dX[src] with float atomics (their order varies from
+    run to run: sums agree with the plain version to fp32 rounding)."""
+    if g.device.type == "cpu":
+        return tile_queue_t_plain(tq, g)
+    if g.device.type != "cuda":
+        raise ValueError(f"no chunk_queue kernel for device {g.device}")
+    refuse_grad("chunk_queue_t", g, why="has no double backward")
+    _check_queue(tq, g, "g")
+    f = g.shape[1]
+    dx = torch.empty((tq.n, f), dtype=torch.float32, device=g.device)
+    status = _lib().chunk_queue_t_launch(
+        tq.pieces.data_ptr(), tq.pieces.shape[0], tq.wrows.data_ptr(),
+        tq.wsrc.data_ptr(), tq.wvals.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        tq.n, tq.tile, f, stream_handle(g.device))
+    check_status(status, "chunk_queue_t")
+    LAUNCHES["sum_t"] += 1
+    return dx

@@ -488,7 +488,10 @@ def packed_tile_part(rows: torch.Tensor, cols: torch.Tensor,
         return packed_tile_part_plain(rows, cols, vals, xs, op=op)
     if xs.device.type != "cuda":
         raise ValueError(f"no rer_gather for device {xs.device}")
-    refuse_grad("rer_gather", vals, xs)
+    refuse_grad("rer_gather's tile part", vals, xs,
+                why="is a forward step of the streamed executor; its "
+                    "gradient is the transposed re-stream (core/tiled.py "
+                    "make_streamed_aggregate)")
     dev = xs.device
     check_tensor(rows, "rows", torch.int32, dev, 2)
     check_tensor(cols, "cols", torch.int32, dev, 2)

@@ -44,9 +44,6 @@ class ElasticGNNTrainer:
         plan = prepare_graph(self.graph, self.layers[0].cfg,
                              out_dim=self.hidden,
                              device=self.layers[0].device)
-        if plan.backend == "tiled":
-            # a budget spill: the streamed backward is not ported
-            raise NotImplementedError(_NOT_PORTED["train_tiled"])
         self.plan = plan
         self._step = make_gnn_train_step(
             self.loss, peak_lr=self.peak_lr, warmup=min(20, self.steps),

@@ -1,5 +1,5 @@
 """The training launcher, GNN mode: a 2-layer EnGN stack trained with
-AdamW on a resident aggregation backend, under the fault-tolerant
+AdamW on any ported aggregation backend, under the fault-tolerant
 runner and atomic checkpoints.
 
     # on the card (the default device)
@@ -11,14 +11,15 @@ runner and atomic checkpoints.
         --gnn-backend blocked --device cpu --steps 20
 
 Backends `segment`, `blocked` (dense or packed tiles, as the format
-autotuner picks) and `fused` train; `--gnn rgcn` (a 3-type edge
+autotuner picks), `fused` and the streamed `tiled` train, `tiled`
+directly or by a budget spill (`--device-budget`: a plan over it streams
+the graph from the host, its backward re-streaming the transposed tiles
+or running B5^T over the device queue); `--gnn rgcn` (a 3-type edge
 colouring, `rel = (src + dst) % 3`) and `--gnn gated_gcn` train on
-`segment` and `blocked`, and refuse `fused` as the reference does.  Not
-ported yet, each raising
-`NotImplementedError` with its ROADMAP item: the sharded `ring` (A8),
-training through the streamed `tiled` backend, directly or by a budget
-spill (A5, A7), the chaos schedule (`--chaos-seed`, A11) and the LM mode
-(`--arch`, A12).
+`segment`, `blocked` and `tiled`, and refuse `fused` as the reference
+does.  Not ported yet, each raising `NotImplementedError` with its
+ROADMAP item: the sharded `ring` (A8), the chaos schedule
+(`--chaos-seed`, A11) and the LM mode (`--arch`, A12).
 """
 from __future__ import annotations
 
@@ -73,8 +74,6 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
 
     if backend == "ring" or ring_shards is not None:
         raise NotImplementedError(_NOT_PORTED["ring"])
-    if backend == "tiled":
-        raise NotImplementedError(_NOT_PORTED["train_tiled"])
     dev = resolve_device(device)
     refs = reference_params or {}
     g, f, classes = make_dataset(dataset, max_vertices=max_vertices,
@@ -119,7 +118,7 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
 
 def run_gnn(args):
     """--gnn entry point: fault-tolerant GNN training on the chosen
-    resident aggregation backend, resuming from the newest checkpoint in
+    aggregation backend, resuming from the newest checkpoint in
     `--ckpt-dir`.  Returns {"start", "steps", "losses", "saves"}."""
     if args.chaos_seed is not None:
         raise NotImplementedError(_NOT_YET["chaos"])

@@ -7,7 +7,6 @@ Aggregates of max are exactly equal; sums, means and layer outputs agree
 to rtol=1e-4, atol=1e-5 (the frameworks reduce in different orders).
 Plans and carriers are exactly equal.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -222,13 +221,11 @@ def test_entry_points_default_to_cuda():
         rt.EnGNLayer(cfg)
 
 
-@pytest.mark.parametrize("case", ["tiled", "ring", "int8", "spill",
-                                  "rgcn_tiled_grad", "gated_gcn_tiled_grad"])
+@pytest.mark.parametrize("case", ["tiled", "ring", "int8"])
 def test_unported_paths_raise_with_their_roadmap_item(case):
-    g, x, _ = _graph()
+    g, _, _ = _graph()
     cfg = t_engn.EnGNConfig(12, 5, backend="blocked", tile=16)
-    item = {"tiled": "A7", "ring": "A8", "int8": "A7", "spill": "A5",
-            "rgcn_tiled_grad": "A5", "gated_gcn_tiled_grad": "A5"}[case]
+    item = {"tiled": "A7", "ring": "A8", "int8": "A7"}[case]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if case == "tiled":
             # the streamed backend runs; its int8 tile values do not yet
@@ -238,26 +235,9 @@ def test_unported_paths_raise_with_their_roadmap_item(case):
         elif case == "ring":
             cfg.backend = case
             rt.prepare_graph(g, cfg, device="cpu")
-        elif case.endswith("_tiled_grad"):
-            # the staged models stream for inference; training through
-            # the streamed backend (their typed and gated VJPs) is A5
-            rel = ((g.src.astype(np.int64) + g.dst) % 3).astype(np.int32)
-            tg = dataclasses.replace(g, rel=rel, num_relations=3)
-            layer = rt.make_gnn(case[:-len("_tiled_grad")], 12, 5,
-                                backend="tiled", num_relations=3, tile=16,
-                                device="cpu")
-            layer(rt.prepare_graph(tg, layer.cfg, device="cpu"), x)
-        elif case == "int8":
+        else:
             cfg.tile_format, cfg.tile_value_dtype = "packed", "int8"
             rt.prepare_graph(g, cfg, device="cpu")
-        else:
-            # a budget spill lands on the streamed backend, which runs
-            # inference; training through it (autograd) is not ported
-            cfg.device_budget_bytes = 20_000
-            plan = rt.prepare_graph(g, cfg, device="cpu")
-            assert plan.backend == "tiled"
-            layer = rt.make_gnn("gcn", 12, 5, tile=16, device="cpu")
-            layer(plan, x)
 
 
 def test_strict_budget_raises_device_budget_exceeded():

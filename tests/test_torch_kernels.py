@@ -24,6 +24,8 @@ from repro_torch.graphs.partition import (build_tile_store, merge_by_key,
                                           pack_tile_store,
                                           transpose_packed_store)
 from repro_torch.kernels import _build, _common
+from repro_torch.kernels.chunk_queue import ops as t_queue
+from repro_torch.kernels.feature_update import ops as t_update
 from repro_torch.kernels.fused_engn import ops as t_fused
 from repro_torch.kernels.rer_gather import ops as t_gather
 from repro_torch.kernels.rer_gather_bwd import ops as t_gather_bwd
@@ -449,10 +451,23 @@ def test_check_tensor_rejects_bad_arguments():
     with pytest.raises(ValueError, match="meta"):
         _common.check_tensor(good, "x", torch.float32, torch.device("meta"),
                              2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        _common.refuse_grad("k", torch.zeros(2, requires_grad=True))
+    with pytest.raises(NotImplementedError, match="k has no backward; run"):
+        _common.refuse_grad("k", torch.zeros(2, requires_grad=True),
+                            why="has no backward")
     with torch.no_grad():
-        _common.refuse_grad("k", torch.zeros(2, requires_grad=True))
+        _common.refuse_grad("k", torch.zeros(2, requires_grad=True),
+                            why="has no backward")
+    # the refusals that remain: B4 is forward only (its reference is an
+    # entry point), and B5's relu epilogue has no backward
+    with pytest.raises(NotImplementedError, match="forward only"):
+        t_update.fused_linear_act(torch.zeros((2, 3), requires_grad=True),
+                                  torch.zeros((3, 2)))
+    tq = t_queue.build_tile_queue(
+        pack_tile_store(build_tile_store(_graph(), 16)), device="cpu")
+    with pytest.raises(NotImplementedError, match="relu epilogue"):
+        t_queue.tile_queue_aggregate(
+            tq, torch.zeros((tq.n, 3), requires_grad=True),
+            activation="relu")
 
 
 def test_wrappers_refuse_other_devices():

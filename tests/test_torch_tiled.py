@@ -595,11 +595,10 @@ def test_budget_spill_plan_equals_reference(backend, fmt):
     for attr in ("n", "tile_format", "streaming_mode", "footprint_bytes"):
         assert getattr(tplan, attr) == getattr(jplan, attr), attr
     assert tplan.autotune.as_dict() == jplan.autotune.as_dict()
-    skip = ("format_choice", "trainable")
-    tm = {k: v for k, v in tplan.meta.items() if k not in skip}
-    jm = {k: v for k, v in jplan.meta.items() if k not in skip}
+    tm = {k: v for k, v in tplan.meta.items() if k != "format_choice"}
+    jm = {k: v for k, v in jplan.meta.items() if k != "format_choice"}
     assert tm == jm
-    assert tplan.meta["trainable"] is False       # the backward is A5
+    assert tplan.meta["trainable"] is True
     assert tplan.device == torch.device("cpu")
     want = np.asarray(j_models.apply_stack(jl, jp, jplan, x))
     with torch.no_grad():
@@ -646,7 +645,7 @@ def test_strict_budget_raises_and_roomy_budget_stays():
 
 
 def _deferred(case):
-    g, x = _real_graph()
+    g, _ = _real_graph()
     ex = t_tiled.TiledExecutor(g, tile=16, device="cpu")
     cfg = t_engn.EnGNConfig(12, 5, backend="tiled", tile=16)
     calls = {
@@ -657,30 +656,16 @@ def _deferred(case):
                                    tile_value_dtype="int8"), device="cpu"),
         "int8_queue": lambda: t_queue.build_chunk_queue(
             ex.packed, value_dtype="int8"),
-        "transposed": ex.transposed,
-        "max_forward": lambda: ex.aggregate_max_forward(x),
-        "max_vjp": lambda: ex.max_vjp(x, x, x, x),
-        "streamed_aggregate": lambda: t_tiled.make_streamed_aggregate(
-            ex, "sum"),
-        "streamed_typed": lambda: t_tiled.make_streamed_typed_sum(ex),
-        "streamed_gated": lambda: t_tiled.make_streamed_gated(ex),
         "updates": lambda: ex.apply_updates(None),
         "autotune": lambda: t_tiled.TiledExecutor(
             g, tile=16, autotune_measure=True, device="cpu"),
-        "training": lambda: rt.apply_stack(
-            rt.make_gnn_stack("gcn", [12, 5], backend="tiled", tile=16,
-                              device="cpu"),
-            rt.prepare_graph(g, cfg, device="cpu"), x),
     }
     calls[case]()
 
 
 @pytest.mark.parametrize("case,item", [
     ("int8_executor", "A7"), ("int8_plan", "A7"), ("int8_queue", "A7"),
-    ("transposed", "A5"), ("max_forward", "A5"), ("max_vjp", "A5"),
-    ("streamed_aggregate", "A5"), ("streamed_typed", "A5"),
-    ("streamed_gated", "A5"), ("updates", "A10"), ("autotune", "B"),
-    ("training", "A5")])
+    ("updates", "A10"), ("autotune", "B")])
 def test_deferred_features_raise_with_their_roadmap_item(case, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _deferred(case)

@@ -618,7 +618,7 @@ def test_launcher_main_trains_on_the_cpu_when_asked(tmp_path):
 
 @pytest.mark.parametrize("case,item", [
     ("ring", "A8"), ("shards", "A8"), ("chaos", "A11"), ("lm", "A12"),
-    ("tiled", "A5"), ("spill", "A5"), ("remesh", "A8")])
+    ("remesh", "A8")])
 def test_unported_training_paths_raise_with_their_roadmap_item(case, item,
                                                               tmp_path):
     kw = dict(_gnn_kw(2), device="cpu")
@@ -631,11 +631,6 @@ def test_unported_training_paths_raise_with_their_roadmap_item(case, item,
             t_train.run_gnn(_args(tmp_path, chaos_seed=3))
         elif case == "lm":
             t_train.main(["--arch", "granite_3_2b"])
-        elif case == "tiled":
-            t_train.build_gnn(backend="tiled", **kw)
-        elif case == "spill":
-            t_train.build_gnn(backend="blocked", device_budget_bytes=300_000,
-                              **kw)
         else:
             _, _, _, _, aux = t_train.build_gnn(backend="segment", **kw)
             aux["trainer"].remesh(2)
