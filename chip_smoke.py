@@ -16,8 +16,9 @@ prints no result.  Phases, each of which fails the run if it fails:
    their reduction order differs), then timed with CUDA events beside
    its bound, a `torch.sparse.mm` yardstick and, for the rows
    redesigned since commit 7d0e51a (the three `feature_update_relu_*`
-   stages, `chunk_queue_sum`, `chunk_queue_sum_relu`), that commit's
-   time on the same card type (printed, not recorded).  A `rer_gather` row times
+   stages, `chunk_queue_sum`, `chunk_queue_sum_relu`) or 0c298c8
+   (`chunk_queue_sum_t`), that commit's time on the same card type
+   (printed, not recorded).  A `rer_gather` row times
    the whole aggregate of a plan's bucket groups per width (one launch),
    the function `torch.sparse.mm` computes; its bound counts 12 B per
    real entry and X and Y once (an older count, every group array with
@@ -27,7 +28,9 @@ prints no result.  Phases, each of which fails the run if it fails:
    epilogue (both recorded; relu is a launch argument of the same
    kernel, which no path asks for, so the relu record reads the
    kernel's launches on the tiled path), its bound printed beside what
-   the gathers would move if every X row came from HBM, and
+   the gathers would move if every X row came from HBM, its adjoint
+   B5^T on the same queue at F=50 (`chunk_queue_sum_t_synthd`, beside
+   `torch.sparse.mm(A^T, G)`; its launches are phase 11's), and
    `rer_gather`'s tile-part form on a stated sample of one forward's
    calls on the 65,536-vertex graph;
 4. path: the inference path a user runs — `make_gnn_stack` ->
@@ -137,14 +140,17 @@ TRAIN_STEPS = 10                  # phases 7 and 10
 STREAM_STEPS = 6                  # phase 11's streamed training runs
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
-# times of the rows redesigned since commit 7d0e51a: this script at that
+# times of the rows redesigned since a commit: this script at that
 # commit on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
 # beside this run's times and kept out of the kernels' record
-BEFORE = "7d0e51a"
-BEFORE_MS = {"feature_update_relu_gs_pool_extract": 0.0824,
-             "feature_update_relu_gs_pool_update": 0.0923,
-             "feature_update_relu_gcn_afu": 0.0820,
-             "chunk_queue_sum": 0.5449, "chunk_queue_sum_relu": 0.5842}
+BEFORE = {"7d0e51a": {"feature_update_relu_gs_pool_extract": 0.0824,
+                      "feature_update_relu_gs_pool_update": 0.0923,
+                      "feature_update_relu_gcn_afu": 0.0820,
+                      "chunk_queue_sum": 0.5449,
+                      "chunk_queue_sum_relu": 0.5842},
+          "0c298c8": {"chunk_queue_sum_t": 0.0975}}
+BEFORE_MS = {name: (commit, ms) for commit, rows in BEFORE.items()
+             for name, ms in rows.items()}
 
 
 def _smi() -> str:
@@ -307,10 +313,10 @@ def main() -> int:
                "bytes": int(nbytes), "ops": int(ops)}
         if record:
             records.append(rec)
-        # 7d3f40b's time and an older bound count: on this line only,
-        # not in the record, which holds what this run measured
-        was = (f", {BEFORE} {BEFORE_MS[name]:.4f} ms" if name in BEFORE_MS
-               and record else "")
+        # an earlier commit's time and an older bound count: on this line
+        # only, not in the record, which holds what this run measured
+        was = (f", {BEFORE_MS[name][0]} {BEFORE_MS[name][1]:.4f} ms"
+               if name in BEFORE_MS and record else "")
         old = ""
         if old_bytes is not None:
             old = (f"; {old_bytes[0]} "
@@ -324,6 +330,12 @@ def main() -> int:
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
+
+    def b5t_bytes(tq, gs):
+        """What B5^T reads once and writes once: per width, the entries
+        (12 B each), its source table, G, and dX."""
+        return sum(nb(tq.rows, tq.cols, tq.vals, tq.tpieces, tq.tsrc_ptr,
+                      tq.tsrc_tiles, tq.tile_dst, g, g) for g in gs)
 
     def real_entries(groups):
         """Real entries of a plan's bucket groups (pads excluded)."""
@@ -498,7 +510,23 @@ def main() -> int:
                 library=(None if act else
                          lambda: torch.sparse.mm(a_big, x_big)),
                 counter="chunk_queue_sum")
-        del tq, x_big, a_big, packed_big
+        del a_big
+        # B5^T on the same queue and width, beside torch.sparse.mm(A^T, G):
+        # its launches are the streamed-training phase's
+        print(f"chunk_queue_t: piece {tq.t_piece}, {tq.tpieces.shape[0]} "
+              f"pieces, {tq.t_split} split source intervals")
+        at_big = csr(COOGraph(g_big.num_vertices, g_big.dst, g_big.src,
+                              g_big.weights()))
+        kernel_case(
+            "chunk_queue_sum_t_synthd", "src/repro_torch/csrc/chunk_queue.cu",
+            "src/repro/kernels/chunk_queue/chunk_queue.py:132",
+            [(lambda: queue_ops.tile_queue_t(tq, x_big),
+              lambda: queue_ops.tile_queue_t_plain(tq, x_big))],
+            exact=False, rel=NEW_RTOL, nbytes=b5t_bytes(tq, [x_big]),
+            ops=2 * tq.entries * f_syn,
+            library=lambda: torch.sparse.mm(at_big, x_big),
+            counter="chunk_queue_sum_t", phases=("streamed_training",))
+        del tq, x_big, at_big, packed_big
 
         # rer_gather's tile-part form, on the first 32 column chunks
         # (C=8) and the first 64 row tiles (C=1) of the 65,536-vertex
@@ -1657,6 +1685,9 @@ def main() -> int:
     # aggregates (widths 64 and 3), beside torch.sparse.mm(A^T, G)
     tq_a, g_a = queue_a
     a_t = csr(COOGraph(g_a.num_vertices, g_a.dst, g_a.src, g_a.weights()))
+    print(f"chunk_queue_t (a): {tq_a.entries} entries, {tq_a.tile_dst.numel()}"
+          f" tiles, piece {tq_a.t_piece}, {tq_a.tpieces.shape[0]} pieces, "
+          f"{tq_a.t_split} split source intervals")
     with torch.inference_mode():
         gs_a = [feats(tq_a.n, w) for w in (64, c_tr)]
         kernel_case(
@@ -1665,9 +1696,7 @@ def main() -> int:
             [(lambda g=g: queue_ops.tile_queue_t(tq_a, g),
               lambda g=g: queue_ops.tile_queue_t_plain(tq_a, g))
              for g in gs_a],
-            exact=False, rel=NEW_RTOL,
-            nbytes=sum(nb(tq_a.wrows, tq_a.wsrc, tq_a.wvals, tq_a.pieces,
-                          g, g) for g in gs_a),
+            exact=False, rel=NEW_RTOL, nbytes=b5t_bytes(tq_a, gs_a),
             ops=sum(2 * tq_a.entries * g.shape[1] for g in gs_a),
             library=lambda: [torch.sparse.mm(a_t, g) for g in gs_a],
             phases=("streamed_training",))

@@ -85,9 +85,9 @@ _NOT_PORTED = {
 }
 
 
-# the card allocates in 512 B blocks: the queue route's dozen-odd small
+# the card allocates in 512 B blocks: the queue route's two dozen-odd
 # tensors round up by this much at most
-_ALLOC_SLACK = 512 * 16
+_ALLOC_SLACK = 512 * 32
 
 
 class DeviceBudgetExceeded(RuntimeError):
@@ -613,7 +613,8 @@ class TiledExecutor:
         what it holds: the slab queue it stages, the walker's `TileQueue`
         (`tile_queue_bytes`), x, y (and a mean's quotient), B5's
         split-interval scratch and, with `training`, the cotangent (and a
-        mean's quotient of it) and dX (B5^T adds into dX directly)."""
+        mean's quotient of it), dX and B5^T's split-interval scratch
+        where it is the larger."""
         if self.streaming_mode == "callback" or self.packed is None:
             return None
         from repro_torch.kernels.chunk_queue.ops import queue_bytes
@@ -648,13 +649,18 @@ class TiledExecutor:
         queue (`queue_plan`), priced from the host store before anything
         is built."""
         if self._tq_price is None:
-            from repro_torch.kernels.chunk_queue.ops import tile_queue_bytes
-            self._tq_price = tile_queue_bytes(self.packed)
-        tq_bytes, n_split = self._tq_price
+            from repro_torch.kernels.chunk_queue.ops import (sm_count,
+                                                             tile_queue_bytes)
+            self._tq_price = tile_queue_bytes(self.packed,
+                                              n_sm=sm_count(self.device))
+        tq_bytes, n_split, t_split = self._tq_price
         n, t = self.store.num_vertices, self.store.tile
         live = (3 if mean else 2) * (2 if training else 1)
+        # B5's and B5^T's split-interval scratch live one at a time, each
+        # only within its launch
+        split = max(n_split, t_split) if training else n_split
         return (tq_bytes + 4 * n * d * live + 4 * n
-                + 4 * n_split * (t * d + d) + _ALLOC_SLACK)
+                + 4 * split * (t * d + d) + _ALLOC_SLACK)
 
     def _queue_takes(self, base_op: str) -> bool:
         """Whether the queue runs this op here: the queue kernel is

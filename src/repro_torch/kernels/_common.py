@@ -95,7 +95,13 @@ def refuse_grad(what: str, *tensors: torch.Tensor, why: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of `device`'s current stream, where the kernels
+    launch: PyTorch's own raw-stream query (what its compiled kernels
+    launch on), which builds no Stream object as `current_stream`
+    does."""
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
 
 
 def check_status(status: int, what: str) -> None:

@@ -19,9 +19,10 @@ packed tiles:
 Backward.  `tile_queue_aggregate` is an autograd Function under grad:
 its backward is B5^T (`tile_queue_t`, the second launcher of
 `csrc/chunk_queue.cu`), dX[src] += val * G[dst] over the entries of the
-FORWARD queue: no transposed queue is built.  The relu epilogue has no
-backward and is refused under grad.  On the slab queue a sum or a
-single-slab max is differentiated by autograd through
+FORWARD queue: no transposed queue is built, and no entry is copied for
+it; its work table (`queue_src_work`) is per tile and per piece.  The
+relu epilogue has no backward and is refused under grad.  On the slab
+queue a sum or a single-slab max is differentiated by autograd through
 `queue_sweep_plain`; a max over several slabs takes
 `make_queue_max_diff`, which carries the tie counts across slabs so
 the gradient keeps `segment_max`'s even split (the reference's).
@@ -40,9 +41,11 @@ bound by bytes and gather latency: 12 B per entry plus one referenced
 feature row.  Destination-stationary: one CTA per piece of an interval
 keeps the interval's block in shared memory, its warps run RER-Gather's
 walker over the piece; see the kernel source for its design.  B5^T
-(`tile_queue_t`) is its adjoint over the same pieces, scattering with
-float atomics into dX; the reference differentiates its XLA sweep, so
-it has no TPU kernel of its own.
+(`tile_queue_t`) is its adjoint, source-stationary: one CTA per piece of
+a source interval loads the piece from the forward queue's own
+tile-order entries (`queue_src_work`'s table), sorts it by source column
+in shared memory and sums each column in registers; the reference
+differentiates its XLA sweep, so it has no TPU kernel of its own.
 
 Both builders follow the port's device rule: `device=None` is `cuda`,
 and raises without a card.
@@ -59,8 +62,9 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.partition import PackedTileStore, pow2_bucket
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (check_status, check_tensor,
-                                         refuse_grad, stream_handle)
+from repro_torch.kernels._common import (_memo, check_status,
+                                         check_tensor, refuse_grad,
+                                         stream_handle)
 from repro_torch.kernels.rer_gather.ops import flat_entries
 
 # kernel launches, counted where the kernel is launched: the plain sum
@@ -72,6 +76,12 @@ LAUNCHES = {"sum": 0, "sum_relu": 0, "sum_t": 0}
 SEGMENT = 4096
 # dynamic shared memory a walker CTA may take (csrc/chunk_queue.cu)
 _SMEM_MAX = 232448 - 128
+# B5^T's pieces: one or two per streaming multiprocessor, at least
+# PIECE_FLOOR and at most PIECE_MAX entries (`source_piece`); SMS is an
+# H100 SXM's count, taken where no card says
+PIECE_FLOOR = 256
+PIECE_MAX = 2048
+SMS = 132
 
 _INT8 = ("int8 queue values are not ported yet (ROADMAP A7)")
 
@@ -290,6 +300,18 @@ class TileQueue:
     wsrc: torch.Tensor         # (M,) int32
     wvals: torch.Tensor        # (M,) float32
     n_split: int               # intervals split over several pieces
+    # B5^T's work table (`queue_src_work`), over rows / cols / vals as
+    # they are: the tiles with entries in source order, their entry
+    # offsets in that order, each tile's destination interval, and per
+    # CTA (source interval, first, end (offsets in that order), split
+    # slot or -1, pieces of the interval, first tile, end tile), longest
+    # first
+    tpieces: torch.Tensor      # (P', 7) int32
+    tsrc_ptr: torch.Tensor     # (K'+1,) int32
+    tsrc_tiles: torch.Tensor   # (K',) int32
+    tile_dst: torch.Tensor     # (K,) int32
+    t_split: int               # source intervals split over pieces
+    t_piece: int               # most entries of a B5^T piece
 
     @property
     def entries(self) -> int:
@@ -300,7 +322,9 @@ class TileQueue:
                        for a in (self.tile_ptr, self.tile_src,
                                  self.entry_ptr, self.rows, self.cols,
                                  self.vals, self.pieces, self.wrows,
-                                 self.wsrc, self.wvals)))
+                                 self.wsrc, self.wvals, self.tpieces,
+                                 self.tsrc_ptr, self.tsrc_tiles,
+                                 self.tile_dst)))
 
 
 def queue_segments(tile_ptr: np.ndarray, entry_ptr: np.ndarray,
@@ -354,9 +378,66 @@ def queue_work(tile_ptr: np.ndarray, tile_src: np.ndarray,
             np.ascontiguousarray(vals[order]), split_count(pieces))
 
 
+def source_piece(entries: int, n_sm: int = SMS) -> int:
+    """The most entries of one B5^T piece: the power of two at or above
+    the queue's entries over twice the card's SM count (pubmed's 78 source
+    intervals alone would leave most of an H100 idle, and its hub interval
+    would set the time), within [PIECE_FLOOR, PIECE_MAX]: a smaller piece
+    adds to the split intervals' merges more than it takes off the
+    longest CTA, a longer one makes the longest CTA the kernel's time
+    (both measured with `benchmarks/torch/time_chunk_queue.py --transpose
+    --piece`)."""
+    want = -(-int(entries) // (2 * n_sm))
+    return int(min(PIECE_MAX, max(PIECE_FLOOR, 1 << max(want - 1, 0)
+                                  .bit_length())))
+
+
+def queue_src_work(tile_ptr: np.ndarray, tile_src: np.ndarray,
+                   entry_ptr: np.ndarray, piece: int):
+    """B5^T's work table, from the queue's host arrays; it copies no
+    entry.  The tiles with entries, stably sorted by source interval
+    (`tsrc_tiles`), and their entry offsets in that order (`tsrc_ptr`):
+    offset v of tile j is entry entry_ptr[tsrc_tiles[j]] + v - tsrc_ptr[j]
+    of the forward queue.  Each source interval's span of that order is
+    cut by `queue_segments` into pieces of at most `piece` entries (an
+    interval with no tile keeps one empty piece, so its dX rows are
+    still stored); `tpieces` rows are `queue_segments`' five columns and
+    the span [first, end) of source-ordered tiles that holds the piece's
+    entries (empty for an empty piece).  `tile_dst` is each tile's
+    destination interval.  Returns (tpieces, tsrc_ptr, tsrc_tiles,
+    tile_dst, t_split)."""
+    k = entry_ptr.size - 1
+    q = tile_ptr.size - 1
+    lens = np.diff(entry_ptr).astype(np.int64)
+    tile_dst = np.repeat(np.arange(q, dtype=np.int32), np.diff(tile_ptr))
+    live = np.flatnonzero(lens > 0)
+    src = tile_src[:k]
+    tsrc_tiles = live[np.argsort(src[live], kind="stable")]
+    tsrc_ptr = np.zeros(tsrc_tiles.size + 1, np.int64)
+    np.cumsum(lens[tsrc_tiles], out=tsrc_ptr[1:])
+    sptr = np.searchsorted(src[tsrc_tiles], np.arange(q + 1))
+    seg = queue_segments(sptr, tsrc_ptr, piece)
+    # the span of tiles [first, end) that holds each piece's entries
+    first = np.searchsorted(tsrc_ptr, seg[:, 1], side="right") - 1
+    end = np.searchsorted(tsrc_ptr, seg[:, 2], side="left")
+    first = np.where(seg[:, 2] > seg[:, 1], first, end)
+    tpieces = np.ascontiguousarray(np.concatenate(
+        [seg, first[:, None], end[:, None]], axis=1).astype(np.int32))
+    return (tpieces, tsrc_ptr.astype(np.int32),
+            tsrc_tiles.astype(np.int32), tile_dst, split_count(tpieces))
+
+
 def split_count(pieces: np.ndarray) -> int:
     """Intervals split over several pieces of a `queue_segments` table."""
     return int(pieces[:, 3].max()) + 1 if pieces.size else 0
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count `source_piece` sizes B5^T's pieces for: the card's,
+    or SMS off the card."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return SMS
 
 
 def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
@@ -364,9 +445,10 @@ def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
     """Host-side layout for the walker, uploaded to `device` (None:
     `cuda`): dst-sort the store's tiles, record each destination
     interval's span and each tile's span of entries, and build the
-    walker's work table (`queue_work`).  Index
-    ranges are checked here, on the host, once: the kernel reads out of
-    bounds otherwise."""
+    walker's work table (`queue_work`) and B5^T's (`queue_src_work`,
+    pieces of `source_piece` entries for the card).  Index ranges are
+    checked here, on the host, once: the kernel reads out of bounds
+    otherwise."""
     device = resolve_device(device)
     q, t = packed.q, packed.tile
     nnz = packed.tile_nnz()
@@ -395,24 +477,40 @@ def build_tile_queue(packed: PackedTileStore, bucket_floor: int = 8,
             raise ValueError(f"{name} holds values outside [0, {hi})")
     pieces, wrows, wsrc, wvals, n_split = queue_work(
         tile_ptr, tile_src, entry_ptr, rows, cols, vals, t)
+    piece = source_piece(m, sm_count(device))
+    tpieces, tsrc_ptr, tsrc_tiles, tile_dst, t_split = queue_src_work(
+        tile_ptr, tile_src, entry_ptr, piece)
     return TileQueue(packed.num_vertices, t, q, bucket,
                      *(_upload(a, device) for a in (
                          tile_ptr, tile_src, entry_ptr.astype(np.int32),
                          rows, cols, vals, pieces, wrows, wsrc, wvals)),
-                     n_split)
+                     n_split,
+                     *(_upload(a, device) for a in (
+                         tpieces, tsrc_ptr, tsrc_tiles, tile_dst)),
+                     t_split, int(piece))
 
 
-def tile_queue_bytes(packed: PackedTileStore,
-                     segment: int = SEGMENT) -> Tuple[int, int]:
-    """(device bytes, split intervals) of `build_tile_queue(packed)`
+def tile_queue_bytes(packed: PackedTileStore, segment: int = SEGMENT,
+                     n_sm: int = SMS) -> Tuple[int, int, int]:
+    """(device bytes, split intervals, split source intervals) of
+    `build_tile_queue(packed)` on a card of `n_sm` SMs,
     before building it: the budget gate's twin of
-    `TileQueue.device_bytes` and `TileQueue.n_split`."""
+    `TileQueue.device_bytes`, `TileQueue.n_split` and
+    `TileQueue.t_split`."""
     q, k, m = packed.q, packed.nnzb, packed.nnz
-    lens = np.bincount(packed.block_row, weights=packed.tile_nnz(),
+    nnz = packed.tile_nnz()
+    lens = np.bincount(packed.block_row, weights=nnz,
                        minlength=q).astype(np.int64)
     pieces = np.maximum(1, -(-lens // segment))
+    piece = source_piece(m, n_sm)
+    src_lens = np.bincount(packed.block_col, weights=nnz,
+                           minlength=q).astype(np.int64)
+    tpieces = np.maximum(1, -(-src_lens // piece))
+    live = int((nnz > 0).sum())
     return (4 * (q + 1) + 4 * max(k, 1) + 4 * (k + 1) + 24 * m
-            + 20 * int(pieces.sum())), int((pieces > 1).sum())
+            + 20 * int(pieces.sum())
+            + 4 * (live + 1) + 4 * live + 4 * k + 28 * int(tpieces.sum()),
+            int((pieces > 1).sum()), int((tpieces > 1).sum()))
 
 
 def _entry_ends(tq: TileQueue):
@@ -468,7 +566,8 @@ def _lib():
         lib.chunk_queue_launch.argtypes = [p, i, p, p, p, p, p, p, i, i, i,
                                            i, i, p]
         lib.chunk_queue_launch.restype = i
-        lib.chunk_queue_t_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
+        lib.chunk_queue_t_launch.argtypes = [p, i, p, p, p, p, p, p, p, p,
+                                             p, p, i, i, i, i, i, p]
         lib.chunk_queue_t_launch.restype = i
         _LIB = lib
     return _LIB
@@ -544,24 +643,70 @@ def tile_queue_aggregate(tq: TileQueue, x: torch.Tensor, *,
     return _tile_queue_forward(tq, x, activation)
 
 
+def _t_bytes(t: int, piece: int) -> int:
+    """B5^T's shared memory at its widest lanes (`t_words` in
+    csrc/chunk_queue.cu): two run partials, the column counts and the
+    piece's tile and entry words."""
+    return 4 * (2 * 1024 + ((t + 4) & ~3) + 8 * piece + 4)
+
+
+_T_FIELDS = ("tsrc_ptr", "tsrc_tiles", "tile_dst", "entry_ptr", "rows",
+             "cols")
+
+
+def _queue_t_table(tq: TileQueue, g: torch.Tensor) -> tuple:
+    """Check g, and once per set of table tensors (memoised on
+    `tpieces`, keyed by their pointers) the queue's fields B5^T reads;
+    returns the table's launch arguments (its pointers and piece
+    count)."""
+    dev = g.device
+    check_tensor(g, "g", torch.float32, dev, 2)
+    if g.shape[0] != tq.n:
+        raise ValueError(f"g has {g.shape[0]} rows, the queue {tq.n}")
+    args = (tq.tpieces.data_ptr(), tq.tpieces.shape[0],
+            *(getattr(tq, a).data_ptr() for a in _T_FIELDS),
+            tq.vals.data_ptr())
+    memo = _memo(tq.tpieces)
+    key = ("b5t", dev, args)
+    if key in memo:
+        return args
+    for field in _T_FIELDS:
+        check_tensor(getattr(tq, field), field, torch.int32, dev, 1)
+    check_tensor(tq.vals, "vals", torch.float32, dev, 1)
+    check_tensor(tq.tpieces, "tpieces", torch.int32, dev, 2)
+    if tq.tpieces.shape[1] != 7:
+        raise ValueError("the source table does not match the kernel's")
+    if _t_bytes(tq.tile, tq.t_piece) > _SMEM_MAX:
+        raise ValueError(f"a {tq.t_piece}-entry piece of {tq.tile}-row "
+                         f"tiles exceeds B5^T's shared memory")
+    memo[key] = True
+    return args
+
+
 def tile_queue_t(tq: TileQueue, g: torch.Tensor) -> torch.Tensor:
     """B5^T: A^T g over the forward queue, g (n, F) -> dX (n, F).  CPU
-    tensors take the plain version; CUDA tensors the kernel, which walks
-    the forward queue's own pieces and row-sorted entries and adds each
-    val * G[dst] into dX[src] with float atomics (their order varies from
-    run to run: sums agree with the plain version to fp32 rounding)."""
+    tensors take the plain version; CUDA tensors the kernel, which loads
+    each piece of `tpieces` from the forward queue's own entries, sorts
+    it by source column in shared memory and sums each column in
+    registers; a split interval's pieces merge with float atomics (their
+    order, and a column's, vary from run to run: sums agree with the
+    plain version to fp32 rounding)."""
     if g.device.type == "cpu":
         return tile_queue_t_plain(tq, g)
     if g.device.type != "cuda":
         raise ValueError(f"no chunk_queue kernel for device {g.device}")
     refuse_grad("chunk_queue_t", g, why="has no double backward")
-    _check_queue(tq, g, "g")
+    table = _queue_t_table(tq, g)
     f = g.shape[1]
     dx = torch.empty((tq.n, f), dtype=torch.float32, device=g.device)
+    # the split source intervals' blocks and arrival counters, zeroed by
+    # the launcher; every other block is stored once by its CTA
+    scratch = (torch.empty(tq.t_split * (tq.tile * f + f),
+                           dtype=torch.float32, device=g.device)
+               if tq.t_split else dx)
     status = _lib().chunk_queue_t_launch(
-        tq.pieces.data_ptr(), tq.pieces.shape[0], tq.wrows.data_ptr(),
-        tq.wsrc.data_ptr(), tq.wvals.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        tq.n, tq.tile, f, stream_handle(g.device))
+        *table, g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        tq.t_split, tq.t_piece, tq.n, tq.tile, f, stream_handle(g.device))
     check_status(status, "chunk_queue_t")
     LAUNCHES["sum_t"] += 1
     return dx

@@ -27,6 +27,8 @@ from repro.core import engn as j_engn
 from repro.core import models as j_models
 from repro.core import tiled as j_tiled
 from repro.graphs.generate import random_features, rmat_graph
+from repro.graphs import partition as j_part
+from repro.kernels.chunk_queue import ops as j_queue
 from repro.kernels.chunk_queue.ops import queue_bytes
 import repro_torch as rt
 from repro_torch.core import engn as t_engn
@@ -460,16 +462,237 @@ def test_multi_slab_max_grads_equal_reference_on_random_integer_data():
 
 # -- B5^T's plain version, the queue Function and its pricing ---------------------
 
-def _queue(n=300, e=2500, tile=32, seed=1, segment=None):
+def _with_piece(tq, piece):
+    """`tq` with B5^T's table rebuilt at `piece` entries a piece, as
+    `build_tile_queue` builds it at `source_piece`'s."""
+    tpieces, tsrc_ptr, tsrc_tiles, tile_dst, t_split = (
+        t_queue.queue_src_work(tq.tile_ptr.cpu().numpy(),
+                               tq.tile_src.cpu().numpy(),
+                               tq.entry_ptr.cpu().numpy(), piece))
+    dev = tq.tpieces.device
+    return dataclasses.replace(
+        tq, tpieces=torch.from_numpy(tpieces).to(dev),
+        tsrc_ptr=torch.from_numpy(tsrc_ptr).to(dev),
+        tsrc_tiles=torch.from_numpy(tsrc_tiles).to(dev),
+        tile_dst=torch.from_numpy(tile_dst).to(dev), t_split=t_split,
+        t_piece=piece)
+
+
+def _queue(n=300, e=2500, tile=32, seed=1, segment=None, piece=None,
+           gap=False, device="cpu"):
+    """An integer R-MAT graph's tile queue; `gap` drops every edge out of
+    source interval 2, so it has no tile; `piece` rebuilds B5^T's table
+    at that many entries a piece."""
     g = _int_graph(n, e, seed)
+    if gap:
+        keep = (g.src < 2 * tile) | (g.src >= 3 * tile)
+        g = COOGraph(n, g.src[keep], g.dst[keep], g.val[keep])
     packed = t_part.pack_tile_store(t_part.build_tile_store(g, tile))
-    tq = t_queue.build_tile_queue(packed, device="cpu")
+    tq = t_queue.build_tile_queue(packed, device=device)
+    if piece is not None:
+        tq = _with_piece(tq, piece)
     if segment is not None:
         pieces = t_queue.queue_segments(tq.tile_ptr.numpy(),
                                         tq.entry_ptr.numpy(), segment)
-        tq = dataclasses.replace(tq, pieces=torch.from_numpy(pieces),
-                                 n_split=t_queue.split_count(pieces))
+        tq = dataclasses.replace(tq, pieces=torch.from_numpy(pieces).to(
+            device), n_split=t_queue.split_count(pieces))
     return g, packed, tq
+
+
+def _last_le(ptr, lo, hi, v):
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if ptr[mid] <= v:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _lane_groups(f):
+    """Lane groups per warp of B5^T at width f (`queue_lanes`: fp lanes
+    over the features, 32 / fp groups)."""
+    if f > 32:
+        return 32 // (16 if f <= 64 else 32)
+    fp = 4
+    while fp < f:
+        fp *= 2
+    return 32 // fp
+
+
+def _b5t_walk(tq, gg, warps=8):
+    """B5^T's order of work in numpy, as `chunk_queue_t_kernel` does it.
+    Per piece: its span of source-ordered tiles (the row's last two
+    columns) staged, each entry's tile found by a search of the staged
+    offsets; the piece sorted by source column and cut evenly into one
+    run per lane group; a column wholly in a run written once by its
+    group, a column a cut falls inside written once from the runs'
+    partials; an unsplit interval's rows stored once (a row with no entry
+    as zero), a split one merged and stored by the last of its pieces to
+    arrive; every row below n stored exactly once."""
+    t, n, f = tq.tile, tq.n, gg.shape[1]
+    sp, st = tq.tsrc_ptr.numpy(), tq.tsrc_tiles.numpy()
+    td, ep = tq.tile_dst.numpy(), tq.entry_ptr.numpy()
+    rows, cols, vals = tq.rows.numpy(), tq.cols.numpy(), tq.vals.numpy()
+    nk = warps * _lane_groups(f)
+    dx = np.full((n, f), np.nan, np.float32)
+    part = np.zeros((tq.t_split, t, f), np.float32)
+    arrived = np.zeros(tq.t_split, np.int64)
+    for src, lo, hi, slot, count, jb, je in tq.tpieces.numpy():
+        ne = hi - lo
+        assert ne <= tq.t_piece and je - jb <= ne
+        s_ptr = sp[jb:je + 1]
+        e_of = np.empty(ne, np.int64)
+        for i in range(ne):
+            jl = _last_le(s_ptr, 0, je - jb - 1, lo + i)
+            assert s_ptr[jl] <= lo + i < s_ptr[jl + 1]
+            assert tq.tile_src.numpy()[st[jb + jl]] == src
+            e_of[i] = ep[st[jb + jl]] + lo + i - s_ptr[jl]
+        tile_of = np.searchsorted(ep, e_of, side="right") - 1
+        c, v = cols[e_of], vals[e_of]
+        grow = td[tile_of] * t + rows[e_of]
+        base = np.concatenate([[0], np.cumsum(np.bincount(c, minlength=t))])
+        order = np.argsort(c, kind="stable")
+        cuts = [ne * k // nk for k in range(nk + 1)]
+        # a column a cut falls inside gathers the runs' partials; every
+        # other column lies in one run
+        shared = {c[order[cuts[k]]] for k in range(1, nk)
+                  if cuts[k] < ne and base[c[order[cuts[k]]]] < cuts[k]}
+        row0, nrows = src * t, min(t, n - src * t)
+        block = np.zeros((t, f), np.float32)
+        written = np.zeros(t, bool)
+        for rb, re in zip(cuts[:-1], cuts[1:]):
+            run = order[rb:re]
+            for col in np.unique(c[run]):
+                mine = run[c[run] == col]
+                block[col] += (v[mine, None] * gg[grow[mine]]).sum(0)
+                if col not in shared:
+                    assert (c == col).sum() == mine.size
+                    assert not written[col]
+                    written[col] = True
+        written[list(shared)] = True
+        assert (written == (np.diff(base) > 0)).all()
+        out = dx[row0:row0 + nrows]
+        if slot < 0:
+            assert np.isnan(out).all()
+            out[:] = block[:nrows]        # rows with no entry: zero
+            continue
+        part[slot] += block
+        arrived[slot] += 1
+        if arrived[slot] == count:
+            assert np.isnan(out).all()
+            out[:] = part[slot, :nrows]
+    assert not np.isnan(dx).any()
+    return dx
+
+
+def _one_per_tile_queue(device="cpu"):
+    """T = 4, every tile one entry; source intervals 0-3 hold 300 tiles
+    each (one piece of 300 entries and 300 tiles), the other 296 none;
+    n = 1199."""
+    a, b = np.meshgrid(np.arange(300), np.arange(4), indexing="ij")
+    g = COOGraph(1199, (4 * b.ravel() + a.ravel() % 4).astype(np.int32),
+                 (4 * a.ravel()).astype(np.int32),
+                 (1 + a.ravel() % 3).astype(np.float32))
+    packed = t_part.pack_tile_store(t_part.build_tile_store(g, 4))
+    tq = _with_piece(t_queue.build_tile_queue(packed, device=device), 1024)
+    assert (np.diff(tq.entry_ptr.cpu().numpy()) == 1).all()
+    assert tq.tpieces.shape[0] == tq.q and tq.t_split == 0
+    return g, tq
+
+
+@pytest.mark.parametrize("gap", [False, True])
+@pytest.mark.parametrize("piece", [1, 7, 64, None])
+def test_source_table_covers_each_tile_once(piece, gap):
+    """B5^T's work table: `tsrc_tiles` holds every tile with entries
+    once, stably sorted by source interval; `tsrc_ptr` their entry
+    offsets in that order; `tile_dst` each tile's destination interval;
+    the pieces partition each source interval's entries in at most
+    `piece` entries (None: `source_piece`, the floor at this size),
+    every source interval has one (an interval with no tile an empty
+    one), a split interval has a slot of its own, rows run longest
+    first; the pricing counts its splits."""
+    g, packed, tq = _queue(piece=piece, gap=gap)
+    tile_src = tq.tile_src.numpy()
+    lens = np.diff(tq.entry_ptr.numpy())
+    st, sp = tq.tsrc_tiles.numpy(), tq.tsrc_ptr.numpy()
+    assert piece is not None or tq.t_piece == t_queue.PIECE_FLOOR
+    assert tq.t_piece == (piece or t_queue.PIECE_FLOOR)
+    np.testing.assert_array_equal(np.sort(st), np.flatnonzero(lens > 0))
+    np.testing.assert_array_equal(
+        st, np.flatnonzero(lens > 0)[np.argsort(tile_src[lens > 0],
+                                                kind="stable")])
+    np.testing.assert_array_equal(sp, np.concatenate([[0], np.cumsum(
+        lens[st])]))
+    np.testing.assert_array_equal(
+        tq.tile_dst.numpy(), np.repeat(np.arange(tq.q),
+                                       np.diff(tq.tile_ptr.numpy())))
+    tp = tq.tpieces.numpy()
+    assert tp.dtype == np.int32 and tp.shape[1] == 7
+    assert (np.diff(tp[:, 2] - tp[:, 1]) <= 0).all()
+    for _, lo, hi, _, _, jb, je in tp:        # the tiles holding the piece
+        if hi == lo:
+            assert jb == je
+        else:
+            assert sp[jb] <= lo < sp[jb + 1] and sp[je - 1] < hi <= sp[je]
+    slots = []
+    for s in range(tq.q):
+        mine = tp[tp[:, 0] == s]
+        assert len(mine) >= 1
+        span = np.flatnonzero(tile_src[st] == s)
+        first = sp[span[0]] if span.size else None
+        end = sp[span[-1] + 1] if span.size else None
+        if span.size:
+            assert mine[0, 1] == first and mine[-1, 2] == end
+        else:
+            assert len(mine) == 1 and mine[0, 1] == mine[0, 2]
+        np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
+        assert ((mine[:, 2] - mine[:, 1]) <= tq.t_piece).all()
+        assert (mine[:, 4] == len(mine)).all()
+        if len(mine) > 1:
+            assert len(set(mine[:, 3].tolist())) == 1
+            slots.append(int(mine[0, 3]))
+        else:
+            assert mine[0, 3] == -1
+    assert slots == list(range(len(slots))) and tq.t_split == len(slots)
+    src_lens = np.bincount(tile_src[:lens.size], weights=lens,
+                           minlength=tq.q)
+    assert tq.t_split == int((src_lens > tq.t_piece).sum())
+    if gap:
+        assert not (tile_src[st] == 2).any()
+    if piece is None:
+        assert t_queue.tile_queue_bytes(packed)[2] == tq.t_split
+
+
+@pytest.mark.parametrize("f", [3, 16, 70])
+@pytest.mark.parametrize("piece,gap,tile", [(64, False, 32),
+                                            (None, False, 32),
+                                            (64, True, 32), (None, False, 4)])
+def test_source_walk_matches_plain_and_vjp(piece, gap, tile, f):
+    """A plain walk of the source table in the kernel's order
+    (`_b5t_walk`) gives `tile_queue_t_plain` and `jax.vjp` of the
+    reference's `queue_sweep_xla` on the same numpy inputs (integer
+    graph and cotangent: every sum exact in fp32, so the tolerance is
+    RTOL/ATOL only for the frameworks' reduction orders).  At T = 4 every
+    tile holds one entry and four source intervals of 300 the rest none:
+    a piece spans as many tiles as it has entries, the most the kernel
+    stages."""
+    if tile == 4:
+        g, tq = _one_per_tile_queue()
+    else:
+        g, packed, tq = _queue(piece=piece, gap=gap)
+        assert tq.t_split > 0
+    gg = _int_features(tq.n, f, seed=f)
+    plain = t_queue.tile_queue_t_plain(tq, torch.from_numpy(gg)).numpy()
+    got = _b5t_walk(tq, gg)
+    np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+    cq = j_queue.build_chunk_queue(j_part.pack_tile_store(
+        j_part.build_tile_store(g, tile)))
+    _, vjp = jax.vjp(lambda x: j_queue.queue_sweep_xla(
+        cq.gsrc, cq.gdst, cq.vals, cq.scales, x, n=tq.n),
+        jnp.zeros((tq.n, f), jnp.float32))
+    (want,) = vjp(jnp.asarray(gg))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("f", [3, 50])
@@ -512,12 +735,27 @@ def test_tile_queue_autograd_is_b5_and_b5t():
         t_queue.tile_queue_aggregate(tq, xa, activation="relu")
 
 
+@pytest.mark.parametrize("piece", [None, 64])
 @pytest.mark.parametrize("segment", [None, 64])
-def test_tile_queue_bytes_price_the_built_queue(segment):
+def test_tile_queue_bytes_price_the_built_queue(segment, piece):
+    """The price is the built queue's bytes and splits; with B5^T's
+    table rebuilt at `piece` entries (split source intervals), the
+    table's bytes move by 28 B a piece, one piece per `piece` entries of
+    a source interval (at least one)."""
     _, packed, tq = _queue(segment=segment)
     kw = {} if segment is None else {"segment": segment}
-    assert t_queue.tile_queue_bytes(packed, **kw) == (tq.device_bytes(),
-                                                      tq.n_split)
+    price = t_queue.tile_queue_bytes(packed, **kw)
+    assert price == (tq.device_bytes(), tq.n_split, tq.t_split)
+    if piece is None:
+        return
+    rebuilt = _with_piece(tq, piece)
+    src_lens = np.bincount(packed.block_col, weights=packed.tile_nnz(),
+                           minlength=tq.q).astype(np.int64)
+    want = np.maximum(1, -(-src_lens // piece))
+    assert rebuilt.t_split == int((want > 1).sum()) > 0
+    assert rebuilt.tpieces.shape[0] == int(want.sum())
+    assert rebuilt.device_bytes() == price[0] + 28 * (
+        rebuilt.tpieces.shape[0] - tq.tpieces.shape[0])
 
 
 def _held(obj) -> int:
@@ -736,18 +974,30 @@ def _card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [3, 16, 50, 64, 70, 128])
-@pytest.mark.parametrize("segment", [None, 64])
-def test_b5t_matches_plain_on_card(f, segment):
-    """B5^T at every lane mapping, with whole and split intervals: each
-    entry counted once (allclose: the atomics' order varies)."""
+@pytest.mark.parametrize("case", ["whole", "split", "long_split", "gap",
+                                  "tall", "one_per_tile"])
+def test_b5t_matches_plain_on_card(f, case):
+    """B5^T at every lane mapping: whole source intervals of 1,000-2,000
+    entries (a piece each), split ones (pieces of 64 entries, merged by
+    the last to arrive; of 1,536), a source interval with no tile (its
+    rows still stored), n not a multiple of T, a tall tile (T = 512, split
+    at the default piece) and one-entry tiles (a piece's span of tiles as
+    long as its entries); allclose, as the merges' atomics run in no fixed
+    order."""
     dev = _card()
-    _, packed, _ = _queue(n=900, e=9000, tile=64)
-    tq = t_queue.build_tile_queue(packed, device=dev)
-    if segment is not None:
-        pieces = t_queue.queue_segments(tq.tile_ptr.cpu().numpy(),
-                                        tq.entry_ptr.cpu().numpy(), segment)
-        tq = dataclasses.replace(tq, pieces=torch.from_numpy(pieces).to(dev),
-                                 n_split=t_queue.split_count(pieces))
+    tile = {"tall": 512, "one_per_tile": 4}.get(case, 64)
+    if case == "one_per_tile":
+        _, tq = _one_per_tile_queue(dev)
+    else:
+        _, _, tq = _queue(n=1500 if case == "tall" else 900,
+                          e={"whole": 20000, "long_split": 30000}.get(
+                              case, 9000), tile=tile,
+                          piece={"whole": 4096, "long_split": 1536,
+                                 "tall": None}.get(case, 64),
+                          gap=case == "gap", device=dev)
+    assert tq.n % tile != 0
+    assert (tq.t_split > 0) == (case in ("split", "long_split", "gap",
+                                         "tall"))
     g = torch.from_numpy(np.random.default_rng(f).standard_normal(
         (tq.n, f)).astype(np.float32)).to(dev)
     before = t_queue.LAUNCHES["sum_t"]
