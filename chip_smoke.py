@@ -105,9 +105,32 @@ prints no result.  Phases, each of which fails the run if it fails:
    asserted (queue launches and B5^T on (a), backward tiles on the
    others), each with its ms/step, peak memory beside its budget and
    its `TiledStats`; then B5^T (`chunk_queue_sum_t`) at (a)'s queue and
-   widths against its plain version, beside `torch.sparse.mm(A^T, G)`.
+   widths against its plain version, beside `torch.sparse.mm(A^T, G)`;
+12. int8 tile values, the measured tile format and T = 2048: (a) pubmed
+   GCN [500, 64, 3] on "tiled", packed, `tile_value_dtype="int8"`, on the
+   callback route (inference) and the queue route (the differentiable
+   forward; the int8 queue is the slab sweep on the card, the
+   reference's route), each against the fp32 run on its route and
+   "segment" within the reference's int8 envelope (mean relative error
+   < 0.015, max < 0.15, relative to max(|ref|, 1)), its value bytes under
+   0.3 of fp32's and its quantised arrays (the error-feedback residuals,
+   the queue's slabs and scales) equal to the same calls' on the CPU;
+   (b) phase 11's runs (a) and (b) with int8 values, 6 steps, the losses
+   finite and within `INT8_LOSS_RTOL` / `INT8_LOSS_ATOL` of the fp32
+   runs'; (c) blocked packed GCN and GS-Pool plans with int8 values keep
+   fp32 bucket groups (`blocks_meta["value_dtype"] == "fp32"`, the groups
+   equal the fp32 plan's, GS-Pool's output `torch.equal`, GCN's within
+   the atomics' rounding); (d) `TiledExecutor(autotune_measure=True)` on
+   pubmed and synthD (65,536 V, d = 64): the format picked, the dense
+   and packed step times (B2's tile part) and the cache hit of a second
+   executor; (e) fault C3: pubmed GCN [128, 64, 3] on "tiled" at T =
+   2048, no budget: one forward, one step's gradients and two steps on
+   the queue route (B5 at the feature chunk `feature_chunk` gives, B5^T)
+   against "segment" (phase 11's tolerances); then B5 and B5^T at that
+   queue (`chunk_queue_sum_t2048`, `chunk_queue_sum_t_t2048`, widths 64
+   and 3) against their plain versions, beside `torch.sparse.mm`.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7, 8, 9, 10, 11; in 8 and 9 the first forward of each run)
+calls of 6, 7, 8, 9, 10, 11, 12; in 8 and 9 the first forward of each run)
 and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
 phase's, `fused_engn_sum_train` the training phase's); each run must
@@ -138,6 +161,14 @@ NEW_RTOL = 1e-5                   # the backward and B4 kernels' sums
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4   # loss trajectories (reference's)
 TRAIN_STEPS = 10                  # phases 7 and 10
 STREAM_STEPS = 6                  # phase 11's streamed training runs
+# int8 tile values: the reference's documented envelope on an aggregate or
+# layer output (relative to max(|fp32|, 1); tests/test_compression.py),
+# and the loss tolerance against the fp32 run (phase 12 (b)): the loss
+# is a smooth function of outputs held to that envelope, so a loss off by
+# more than its mean share (plus an absolute floor for losses near 0)
+# means the int8 path diverged, not that it rounded
+INT8_MEAN_REL, INT8_MAX_REL = 0.015, 0.15
+INT8_LOSS_RTOL, INT8_LOSS_ATOL = 0.015, 1e-3
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
 # times of the rows redesigned since a commit: this script at that
@@ -1549,7 +1580,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     budget_a = 30_000_000
 
-    def stream_run(model, backend, budget, mode, data_name, vertices, steps):
+    def stream_run(model, backend, budget, mode, data_name, vertices, steps,
+                   value_dtype="fp32", tile=256):
         step, state, data, _, aux = train_mod.build_gnn(
             model=model, dataset=data_name, backend=backend, steps=steps,
             hidden=64, batch=256, max_vertices=vertices, max_edges=None,
@@ -1559,6 +1591,8 @@ def main() -> int:
             tr.graph = merged(tr.graph)
         for layer in tr.layers:
             layer.cfg.streaming_mode = mode
+            layer.cfg.tile_value_dtype = value_dtype
+            layer.cfg.tile = tile
         tr.rebuild()
         return tr, state, data
 
@@ -1588,7 +1622,7 @@ def main() -> int:
          32_000_000, "auto", "synthD", 65536, 1,
          ("rer_gather_tile_part_sum",)),
     ]
-    seg_stream, stream_table = {}, []
+    seg_stream, stream_table, stream_losses = {}, [], {}
     queue_a = None
     K.reset_launch_counts()
     for (tag, label, model, backend, budget, mode, data_name, vertices,
@@ -1651,6 +1685,7 @@ def main() -> int:
             raise AssertionError(f"({tag}) {label}: the backward did not "
                                  f"stream ({dataclasses.asdict(st)})")
         per_step = {k: v / steps for k, v in grew.items()}
+        stream_losses[tag] = (losses, statistics.median(times[1:] or times))
         row = {"run": tag, "label": label,
                "ms_per_step": statistics.median(times[1:] or times),
                "step_ms": times, "launches_per_step": per_step,
@@ -1702,11 +1737,347 @@ def main() -> int:
             phases=("streamed_training",))
     del queue_a, tq_a, a_t, gs_a
 
+    # -- int8 tile values, the measured tile format, T = 2048 (phase 12) --------
+    # (a) pubmed GCN [500, 64, 3] on "tiled", packed, int8 values: the host
+    # callback route (inference) and the queue route (the differentiable
+    # forward, as training runs it), each against the fp32 run on the same
+    # route and "segment" within the reference's int8 envelope, its value
+    # bytes under 0.3 of fp32's and its quantised arrays equal to the same
+    # calls' on the CPU; (b) phase 11's runs (a) and (b) with int8 values;
+    # (c) blocked packed plans with int8 values keep fp32 bucket groups;
+    # (d) the measured tile-format choice on pubmed and synthD; (e) fault
+    # C3: pubmed GCN streamed at T = 2048 on the queue route, B5 at a
+    # narrower feature chunk and B5^T, then B5's and B5^T's rows at T = 2048.
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    from repro_torch.core.tiled import TiledExecutor
+    from repro_torch.kernels import autotune
+
+    def int8_envelope(label, got, want):
+        rel = (got - want).abs() / torch.clamp_min(want.abs(), 1.0)
+        mean, worst = float(rel.mean()), float(rel.max())
+        if not (mean < INT8_MEAN_REL and worst < INT8_MAX_REL):
+            raise AssertionError(f"{label}: int8 outside the envelope (mean "
+                                 f"rel {mean:.4g}, max rel {worst:.4g})")
+        return mean, worst
+
+    def tiled_stack(dims, vd, mode, device=None, like=None):
+        layers = rt.make_gnn_stack("gcn", dims, backend="tiled", tile=256,
+                                   device=device)
+        for layer in layers:
+            layer.cfg.tile_format = "packed"
+            layer.cfg.tile_value_dtype = vd
+            layer.cfg.streaming_mode = mode
+        if like is not None:
+            for a, b in zip(layers, like):
+                a.load_state_dict(b.state_dict())
+        return layers
+
+    g_pub, x_pub_np, _, f_pub, c_pub = pubmed
+    dims_pub = [f_pub, 64, c_pub]
+    x_pub = torch.from_numpy(x_pub_np).to(dev)
+    base = stack("gcn", dims_pub, "segment")
+    with torch.inference_mode():
+        y_seg = rt.apply_stack(base, rt.prepare_graph(g_pub, base[0].cfg),
+                               x_pub).cpu()
+    int8_table = []
+    for route, mode in (("callback", "callback"), ("queue", "auto")):
+        ys, row = {}, {"route": route}
+        for vd in ("fp32", "int8"):
+            layers = tiled_stack(dims_pub, vd, mode, like=base)
+            plan = rt.prepare_graph(g_pub, layers[0].cfg)
+            ex = plan.carrier["tiled_exec"]
+
+            def fwd(layers=layers, plan=plan):
+                if route == "callback":
+                    with torch.inference_mode():
+                        return rt.apply_stack(layers, plan, x_pub)
+                with torch.enable_grad():
+                    return rt.apply_stack(layers, plan, x_pub).detach().cpu()
+            ys[vd] = fwd()
+            stats = dataclasses.asdict(ex.stats)
+            # the residuals after one forward (each timed forward below
+            # feeds them again on the callback route)
+            err_once = (ex.quantizer.err.copy() if ex.quantizer is not None
+                        else None)
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                fwd()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            # the queue route stages a queue and streams no tile
+            queued = stats["queue_builds"] > 0 and stats["steps"] == 0
+            if queued != (route == "queue"):
+                raise AssertionError(f"int8 (a) {route} {vd}: took the "
+                                     f"wrong route ({stats})")
+            row[vd] = {"forward_ms": statistics.median(times),
+                       "all_ms": times, "stats": stats}
+            if vd == "int8":
+                if ex.stats.value_compression() >= 0.3:
+                    raise AssertionError(f"int8 (a) {route}: value bytes "
+                                         f"{ex.stats.value_compression()} of "
+                                         f"fp32's")
+                if ex._tq is not None:
+                    raise AssertionError("an int8 queue built a TileQueue")
+                # the same calls on the CPU: the quantisation is host numpy
+                cpu_layers = tiled_stack(dims_pub, vd, mode, device="cpu",
+                                         like=layers)
+                cpu_plan = rt.prepare_graph(g_pub, cpu_layers[0].cfg,
+                                            device="cpu")
+                if route == "callback":
+                    with torch.inference_mode():
+                        rt.apply_stack(cpu_layers, cpu_plan, x_pub.cpu())
+                else:
+                    rt.apply_stack(cpu_layers, cpu_plan, x_pub.cpu())
+                cex = cpu_plan.carrier["tiled_exec"]
+                same = np.array_equal(err_once, cex.quantizer.err)
+                for slab, q in ex._queue_cache.items():
+                    cq = cex._queue_cache[slab]
+                    same &= all(torch.equal(getattr(q, a).cpu(),
+                                            getattr(cq, a))
+                                for a in ("gsrc", "gdst", "vals", "scales"))
+                if not same:
+                    raise AssertionError(f"int8 (a) {route}: quantised "
+                                         f"arrays differ from the CPU's")
+                del cpu_layers, cpu_plan, cex
+        for vd in ("fp32", "int8"):
+            if ys[vd].shape != (g_pub.num_vertices, c_pub) or not bool(
+                    torch.isfinite(ys[vd]).all()):
+                raise AssertionError(f"int8 (a) {route} {vd}: bad output")
+        if not torch.allclose(ys["fp32"], y_seg, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"int8 (a) {route}: fp32 differs from "
+                                 f"segment")
+        row["vs_fp32"] = int8_envelope(f"int8 (a) {route} vs fp32",
+                                       ys["int8"], ys["fp32"])
+        row["vs_segment"] = int8_envelope(f"int8 (a) {route} vs segment",
+                                          ys["int8"], y_seg)
+        st8 = row["int8"]["stats"]
+        print(f"int8 (a) pubmed gcn tiled {route} [{smi}]: forward int8 "
+              f"{row['int8']['forward_ms']:.1f} ms vs fp32 "
+              f"{row['fp32']['forward_ms']:.1f} ms (median of 3, host clock);"
+              f" value bytes {st8['quant_val_bytes']} of "
+              f"{st8['raw_val_bytes']} f32 "
+              f"({st8['quant_val_bytes'] / st8['raw_val_bytes']:.4f}); mean /"
+              f" max rel err vs fp32 {row['vs_fp32'][0]:.3g} / "
+              f"{row['vs_fp32'][1]:.3g}, vs segment {row['vs_segment'][0]:.3g}"
+              f" / {row['vs_segment'][1]:.3g}; quantised arrays equal the "
+              f"CPU's")
+        int8_table.append(row)
+    del base, x_pub
+
+    # (b) streamed training with int8 values: phase 11's runs (a) and (b)
+    for tag, mode in (("a", "auto"), ("b", "callback")):
+        tr, state, data = stream_run("gcn", "blocked", budget_a, mode,
+                                     "pubmed", None, STREAM_STEPS, "int8")
+        ex = tr.plan.carrier["tiled_exec"]
+        if tr.plan.backend != "tiled" or ex.value_dtype != "int8":
+            raise AssertionError(f"int8 (b{tag}): not an int8 tiled plan")
+        ex.reset_stats()
+        before = K.launch_counts()
+        losses, times = train_steps(tr, state, data, STREAM_STEPS)
+        grew = {k: v - before[k] for k, v in K.launch_counts().items()
+                if v > before[k]}
+        st = ex.stats
+        queued = st.queue_builds > 0 and st.steps == 0 and st.bwd_tiles == 0
+        if queued != (mode == "auto"):
+            raise AssertionError(f"int8 (b{tag}): wrong route "
+                                 f"({dataclasses.asdict(st)})")
+        if mode == "callback" and grew.get("rer_gather_tile_part_sum", 0) <= 0:
+            raise AssertionError(f"int8 (b{tag}): B2's tile part was not "
+                                 f"launched")
+        ref, fp32_ms = stream_losses[tag]
+        lerr = float(np.abs(np.asarray(losses) - np.asarray(ref)).max())
+        if not all(np.isfinite(losses)) or not np.allclose(
+                losses, ref, rtol=INT8_LOSS_RTOL, atol=INT8_LOSS_ATOL):
+            raise AssertionError(f"int8 (b{tag}): losses {losses} differ from"
+                                 f" the fp32 run's {ref}")
+        ms = statistics.median(times[1:] or times)
+        print(f"int8 (b{tag}) pubmed gcn blocked 30 MB budget ({mode}) "
+              f"[{smi}]: {ms:.1f} ms/step vs fp32 {fp32_ms:.1f} (median of "
+              f"steps 2-{STREAM_STEPS}, host clock; all "
+              f"{[round(v, 1) for v in times]}), launches/step "
+              f"{ {k: v / STREAM_STEPS for k, v in grew.items()} }, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, max loss err vs fp32 "
+              f"{lerr:.3g}, value bytes {st.quant_val_bytes} of "
+              f"{st.raw_val_bytes} f32 (bwd tiles {st.bwd_tiles})")
+        int8_table.append({"run": f"b{tag}", "ms_per_step": ms,
+                           "fp32_ms_per_step": fp32_ms, "losses": losses,
+                           "max_loss_err_vs_fp32": lerr,
+                           "stats": dataclasses.asdict(st)})
+        del tr, state, data, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) blocked packed plans with int8 values on the card: the bucket
+    # groups stay fp32, as the reference's TPU groups do
+    with torch.inference_mode():
+        for model, data_c in (("gcn", pubmed), ("gs_pool", pubmed)):
+            g_c, x_c, _, _, _ = data_c
+            x_c = torch.from_numpy(x_c).to(dev)
+            outs, plans = [], []
+            for vd in ("fp32", "int8"):
+                layers = stack(model, dims_pub, "blocked", "packed")
+                if outs:
+                    for a, b in zip(layers, first):
+                        a.load_state_dict(b.state_dict())
+                else:
+                    first = layers
+                for layer in layers:
+                    layer.cfg.tile_value_dtype = vd
+                plan = rt.prepare_graph(g_c, layers[0].cfg)
+                if plan.carrier["blocks_meta"]["value_dtype"] != "fp32":
+                    raise AssertionError(f"int8 (c) {model} {vd}: groups "
+                                         f"are not fp32")
+                plans.append(plan)
+                outs.append(rt.apply_stack(layers, plan, x_c))
+            torch.cuda.synchronize()
+            same_groups = all(
+                torch.equal(a[k], b[k]) for a, b in zip(
+                    plans[0].carrier["packed_groups"],
+                    plans[1].carrier["packed_groups"])
+                for k in ("rows", "cols", "vals", "block_row", "block_col"))
+            # B2's max is exact in any order; its sum adds with atomics
+            equal = torch.equal(outs[0], outs[1])
+            if not same_groups or (model == "gs_pool" and not equal) or (
+                    not torch.allclose(outs[0], outs[1], rtol=RTOL,
+                                       atol=ATOL)):
+                raise AssertionError(f"int8 (c) {model}: the int8 plan "
+                                     f"differs from the fp32 plan")
+            print(f"int8 (c) pubmed {model} blocked packed: value_dtype "
+                  f"fp32 groups, groups equal, output "
+                  f"{'torch.equal' if equal else 'allclose'} to the fp32 "
+                  f"plan's")
+            del outs, plans, first, x_c
+
+    # (d) the measured tile-format choice, through the executor
+    measured_table = []
+    for label, g_m in (("pubmed", pubmed[0]), ("synthD-65k", synth[0])):
+        before = K.launch_counts()["rer_gather_tile_part_sum"]
+        t = time.perf_counter()
+        ex = TiledExecutor(g_m, tile=256, dim_hint=64, autotune_measure=True)
+        build_s = time.perf_counter() - t
+        took = K.launch_counts()["rer_gather_tile_part_sum"] - before
+        key = autotune._fingerprint(ex.packed, "tiled", 64)
+        timed = autotune.MEASURED_TIMES[key]
+        again = TiledExecutor(g_m, tile=256, dim_hint=64,
+                              autotune_measure=True)
+        hit = (K.launch_counts()["rer_gather_tile_part_sum"] - before
+               == took and again.format_choice == ex.format_choice)
+        if ex.format_choice.reason != "measured" or took <= 0 or not hit:
+            raise AssertionError(f"measured choice {label}: "
+                                 f"{ex.format_choice}, {took} launches, "
+                                 f"cache hit {hit}")
+        row = {"graph": label, "choice": ex.format_choice.as_dict(),
+               "dense_ms": timed["dense"] * 1e3,
+               "packed_ms": {f: v * 1e3 for f, v in timed["packed"].items()},
+               "tile_part_launches": took, "cache_hit": hit,
+               "executor_s": build_s}
+        measured_table.append(row)
+        print(f"measured choice {label} [{smi}]: {ex.format_choice.fmt} "
+              f"(floor {ex.format_choice.bucket_floor}), dense step "
+              f"{row['dense_ms']:.4f} ms, packed step "
+              f"{ {f: round(v, 4) for f, v in row['packed_ms'].items()} } "
+              f"ms (median of 3, host clock around a synchronise), "
+              f"{took} tile-part launches, cache hit on a second executor "
+              f"{hit}")
+        del ex, again
+
+    # (e) fault C3: pubmed GCN streamed at T = 2048, no budget, on the
+    # queue route: one forward, one step's gradients and two steps against
+    # "segment" (phase 11's tolerances)
+    tr, state, data = stream_run("gcn", "tiled", None, "auto", "pubmed",
+                                 None, 2, tile=2048)
+    ex = tr.plan.carrier["tiled_exec"]
+    if ex.store.tile != 2048:
+        raise AssertionError(f"C3: the store's tile is {ex.store.tile}")
+    seg_tr, seg_state, seg_data = stream_run("gcn", "segment", None, "auto",
+                                             "pubmed", None, 2)
+    seg_losses = train_steps(seg_tr, seg_state, seg_data, 2)[0]
+    twin = rt.prepare_graph(tr.graph, dataclasses.replace(
+        tr.layers[0].cfg, backend="segment", device_budget_bytes=None),
+        out_dim=tr.hidden)
+    before = K.launch_counts()
+    leaves = [{k: v.detach().clone().requires_grad_(True)
+               for k, v in p.items()} for p in state["params"]]
+    y_q = rt.apply_stack(tr.layers, tr.plan, tr.x, params=leaves)
+    y_s = rt.apply_stack(tr.layers, twin, tr.x, params=leaves)
+    ferr = float((y_q - y_s).detach().abs().max())
+    if not torch.allclose(y_q, y_s, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"C3: the T = 2048 forward differs from "
+                             f"segment's ({ferr})")
+    del y_q, y_s, leaves
+    batch0 = next(data)
+    data.seek(0)
+    got = grads_of(tr, state["params"], batch0)
+    want = grads_of(tr, state["params"], batch0, plan=twin)
+    gerr = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        scale = max(1e-30, float(b.abs().max()))
+        if not torch.allclose(a, b, rtol=RTOL, atol=RTOL * scale):
+            raise AssertionError(f"C3: one step's gradients differ from "
+                                 f"segment's ({gerr})")
+    losses, times = train_steps(tr, state, data, 2)
+    grew = {k: v - before[k] for k, v in K.launch_counts().items()
+            if v > before[k]}
+    lerr = float(np.abs(np.asarray(losses) - np.asarray(seg_losses)).max())
+    if not np.allclose(losses, seg_losses, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+        raise AssertionError(f"C3: losses {losses} differ from segment "
+                             f"{seg_losses}")
+    if (grew.get("chunk_queue_sum", 0) <= 0 or grew.get("chunk_queue_sum_t",
+                                                          0) <= 0
+            or ex.stats.bwd_tiles != 0):
+        raise AssertionError(f"C3: not the queue route ({grew}, "
+                             f"{dataclasses.asdict(ex.stats)})")
+    chunks = {w: queue_ops.feature_chunk(2048, w) for w in (64, c_tr)}
+    print(f"C3 pubmed gcn tiled T=2048 [{smi}]: queue route, B5 feature "
+          f"chunk {chunks} (width: features a pass), launches {grew}, "
+          f"forward max abs err vs segment {ferr:.3g}, grads {gerr:.3g}, "
+          f"losses {losses} vs segment {seg_losses} (max err {lerr:.3g}), "
+          f"{[round(v, 1) for v in times]} ms/step")
+    p12_counts = K.launch_counts()
+    print(f"phase-12 launches: {p12_counts}")
+    print(f"int8 runs: {json.dumps(int8_table)}")
+    print(f"measured choices: {json.dumps(measured_table)}")
+
+    # B5 and B5^T at T = 2048 (the C3 run's queue, widths 64 and 3)
+    tq_c3, g_c3 = ex._tq, tr.graph
+    with torch.inference_mode():
+        xs_c3 = [feats(tq_c3.n, w) for w in (64, c_tr)]
+        a_c3 = csr(g_c3)
+        at_c3 = csr(COOGraph(g_c3.num_vertices, g_c3.dst, g_c3.src,
+                             g_c3.weights()))
+        kernel_case(
+            "chunk_queue_sum_t2048", "src/repro_torch/csrc/chunk_queue.cu",
+            "src/repro/kernels/chunk_queue/chunk_queue.py:132",
+            [(lambda x=x: queue_ops.tile_queue_aggregate(tq_c3, x),
+              lambda x=x: queue_ops.tile_queue_plain(tq_c3, x))
+             for x in xs_c3],
+            exact=False,
+            nbytes=sum(nb(tq_c3.wrows, tq_c3.wsrc, tq_c3.wvals,
+                          tq_c3.pieces, x, x) for x in xs_c3),
+            ops=sum(2 * tq_c3.entries * x.shape[1] for x in xs_c3),
+            library=lambda: [torch.sparse.mm(a_c3, x) for x in xs_c3],
+            counter="chunk_queue_sum", phases=("phase12",))
+        kernel_case(
+            "chunk_queue_sum_t_t2048", "src/repro_torch/csrc/chunk_queue.cu",
+            "src/repro/kernels/chunk_queue/chunk_queue.py:132",
+            [(lambda x=x: queue_ops.tile_queue_t(tq_c3, x),
+              lambda x=x: queue_ops.tile_queue_t_plain(tq_c3, x))
+             for x in xs_c3],
+            exact=False, rel=NEW_RTOL, nbytes=b5t_bytes(tq_c3, xs_c3),
+            ops=sum(2 * tq_c3.entries * x.shape[1] for x in xs_c3),
+            library=lambda: [torch.sparse.mm(at_c3, x) for x in xs_c3],
+            counter="chunk_queue_sum_t", phases=("phase12",))
+    del tr, state, data, ex, seg_tr, seg_state, seg_data, twin, tq_c3
+    del xs_c3, a_c3, at_c3
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
               "b4": b4_counts, "training": train_counts,
               "staged": staged_counts, "staged_tiled": staged_tiled_counts,
               "staged_training": staged_train_counts,
-              "streamed_training": stream_counts}
+              "streamed_training": stream_counts, "phase12": p12_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

@@ -75,6 +75,7 @@ from repro_torch.core.tiled import (DeviceBudgetExceeded, TiledExecutor,
                                     make_streamed_gated,
                                     make_streamed_typed_sum)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.compression import quantize_int8_np
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.partition import tile_schedule_order
 
@@ -82,7 +83,6 @@ AggregateOp = str  # "sum" | "max" | "mean"
 
 _NOT_PORTED = {
     "ring": "the sharded 'ring' backend is not ported yet (ROADMAP A8)",
-    "int8": "int8 tile values are not ported yet (ROADMAP A7)",
 }
 
 
@@ -481,8 +481,13 @@ class EnGNLayer(nn.Module):
             # CPU plans (a gated plan's flat entries, on any device, are
             # read by `_staged_gated`): one flat gather + segment reduce
             from repro_torch.kernels.rer_gather import packed_flat_plain
-            y = packed_flat_plain(*graph["packed_flat"], xf,
-                                  n=xf.shape[0], op=base_op)
+            gsrc, gdst, gval = graph["packed_flat"]
+            scale = graph.get("packed_val_scale")
+            if scale is not None:
+                # int8 residency: the values dequantise where they are read
+                gval = gval.to(torch.float32) * scale
+            y = packed_flat_plain(gsrc, gdst, gval, xf, n=xf.shape[0],
+                                  op=base_op)
             return _finish(y)
         if "packed_groups" in graph:
             # CUDA plans: one rer_gather launch over every pow2
@@ -741,8 +746,6 @@ def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
         dim_hint = max(dim_hint, 2 * cfg.in_dim)
     value_dtype = (cfg.tile_value_dtype if cfg.tile_format != "dense"
                    else "fp32")
-    if value_dtype == "int8":
-        raise NotImplementedError(_NOT_PORTED["int8"])
     ex = TiledExecutor(g, tile=cfg.tile, chunk=cfg.tiled_chunk,
                        budget_bytes=cfg.device_budget_bytes, impl=impl,
                        dim_hint=dim_hint, tile_format=cfg.tile_format,
@@ -778,14 +781,28 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
     CUDA, flat entry arrays for the plain version on the CPU.  The gated
     contract takes the flat entries on every device: its gate gathers
     both endpoints' projections per entry, which the groups do not
-    carry (as in the reference)."""
+    carry (as in the reference).
+
+    `tile_value_dtype="int8"` quantises the flat route's values once (one
+    f32 scale for the whole graph, `packed_val_scale`: uploaded once, so
+    no error feedback), dequantised in `_aggregate`, as the reference's
+    XLA flat route does.  The gated contract keeps fp32 (its per-entry
+    gates compound the rounding), and so do a CUDA plan's bucket groups,
+    as the reference's TPU groups do: `blocks_meta["value_dtype"]` says
+    which the plan holds."""
     from repro_torch.kernels import rer_gather
-    if cfg.tile_value_dtype == "int8":
-        raise NotImplementedError(_NOT_PORTED["int8"])
     if dev.type == "cpu" or cfg.stage_contract == "gated":
         flat = rer_gather.flat_entries(packed)
-        d["packed_flat"] = tuple(_upload(a, dev) for a in flat)
-        tile_bytes = sum(a.nbytes for a in flat)
+        if (cfg.tile_value_dtype == "int8"
+                and cfg.stage_contract != "gated"):
+            qv, sc, _ = quantize_int8_np(flat[2])
+            d["packed_flat"] = tuple(_upload(a, dev)
+                                     for a in (flat[0], flat[1], qv))
+            d["packed_val_scale"] = sc
+            tile_bytes = flat[0].nbytes + flat[1].nbytes + qv.nbytes + 4
+        else:
+            d["packed_flat"] = tuple(_upload(a, dev) for a in flat)
+            tile_bytes = sum(a.nbytes for a in flat)
     else:
         groups = rer_gather.prepare_packed_groups(packed,
                                                   cfg.packed_bucket_floor)
@@ -805,7 +822,8 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
         "q": store.q, "padded": store.padded_vertices,
         "order": order, "tile": store.tile,
         "tile_format": "packed", "format_choice": choice,
-        "device_bytes": tile_bytes, "value_dtype": "fp32"}
+        "device_bytes": tile_bytes,
+        "value_dtype": "int8" if "packed_val_scale" in d else "fp32"}
     return wrap_plan(d)
 
 

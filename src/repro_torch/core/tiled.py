@@ -30,6 +30,21 @@ a sum runs as one sweep with no per-chunk round trip — on the card
 through the `chunk_queue` kernel over a ragged `TileQueue`.  A max on the
 card takes the callback loop (the queue kernel is sum-only, as the TPU
 kernel is); on the CPU it sweeps the slab queue, as the reference does.
+Where the queue kernels do not take the store's interval height
+(`chunk_queue.queue_kernels_take`: T above 32,768), the kernel route
+declines the queue and the callback loop runs.
+
+int8 tile values (`value_dtype="int8"`, packed stores only): the packed
+values travel as int8 with one f32 scale per staged tile (or per queue
+slab), quantised on the host with error feedback (the executor's
+`quantizer`, a `StreamingTileQuantizer` over the packed store's
+entries; the transposed executor has its own), and dequantise on the
+device (`q.float() * s[:, None]`), so B2's tile part and the plain steps
+see fp32 values.  A staged group goes up as one byte buffer.  An int8
+queue keeps the slab sweep on every device, the reference's route: its
+walker is fp32-only, and its int8 sweep is XLA, not Pallas.
+`stats.quant_val_bytes` / `raw_val_bytes` count the value bytes moved
+against their f32 size.
 
 `impl`: None runs the plain product for dense chunks and the kernels for
 packed chunks and the queue on `cuda` (plain versions on the CPU);
@@ -54,9 +69,9 @@ gate instead of keeping edge-shaped residuals; its traffic is counted in
 `stats.bwd_*`.  The step helpers of the max, typed and gated passes are
 plain PyTorch on every device, as the reference's are XLA.
 
-Not ported yet, each raising `NotImplementedError` naming its ROADMAP
-item: int8 tile values (A7), `apply_updates` (A10), the measured
-tile-format autotune (B queue).
+`autotune_measure=True` times the tile formats on the executor's device
+(`kernels.autotune.measured_choice`).  Not ported yet: `apply_updates`,
+which raises `NotImplementedError` naming its ROADMAP item (A10).
 """
 from __future__ import annotations
 
@@ -70,6 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.compression import StreamingTileQuantizer
 from repro_torch.graphs.format import COOGraph
 from repro_torch.graphs.partition import (EdgeTileStore, PackedTileStore,
                                           build_tile_store, chunk_tile_row,
@@ -80,7 +96,6 @@ from repro_torch.graphs.partition import (EdgeTileStore, PackedTileStore,
 from repro_torch.kernels.autotune import packed_entry_bytes
 
 _NOT_PORTED = {
-    "int8": "int8 tile values are not ported yet (ROADMAP A7)",
     "updates": "incremental graph updates are not ported yet (ROADMAP A10)",
 }
 
@@ -472,9 +487,11 @@ class TiledExecutor:
                     `fit_tile_plan` when `budget_bytes` is set.
     budget_bytes:   device bytes the streaming step must respect.
     impl:           None | "plain" | "cuda" (module docstring).
-    tile_format:    "dense" | "packed" | "auto" (the byte cost model).
+    tile_format:    "dense" | "packed" | "auto" (the byte cost model, or
+                    the timed sample with `autotune_measure`).
     streaming_mode: "auto" | "callback" | "chunk_queue".
-    value_dtype:    "fp32" ("int8" is not ported yet).
+    value_dtype:    "fp32" | "int8": how packed tile values travel (int8
+                    needs a packed store: not tile_format="dense").
     device:         `cuda` unless the caller passes "cpu".
     """
 
@@ -491,8 +508,6 @@ class TiledExecutor:
             raise ValueError(streaming_mode)
         if value_dtype not in ("fp32", "int8"):
             raise ValueError(value_dtype)
-        if value_dtype == "int8":
-            raise NotImplementedError(_NOT_PORTED["int8"])
         if impl not in (None, "plain", "cuda"):
             raise ValueError(f"impl must be None, 'plain' or 'cuda', got "
                              f"{impl!r}")
@@ -514,9 +529,14 @@ class TiledExecutor:
         self.format_choice = choose_tile_format(
             tile_format, self.packed, backend="tiled",
             bucket_floor=bucket_floor, measure=autotune_measure,
-            value_dtype=value_dtype)
+            store=self.store, dim=dim, value_dtype=value_dtype,
+            device=self.device)
         self.tile_format = self.format_choice.fmt
         self.bucket_floor = self.format_choice.bucket_floor
+        if value_dtype == "int8" and self.packed is None:
+            raise ValueError(
+                "value_dtype='int8' quantises packed tile values; "
+                "tile_format='dense' has no packed value plane")
         self.chunk = chunk
         self.budget_bytes = budget_bytes
         self.impl = impl
@@ -536,20 +556,25 @@ class TiledExecutor:
                       if self.device.type == "cuda" else None)
 
     def _init_queue_state(self):
-        """Fresh queue caches (at construction, and for a derived view)."""
+        """Fresh queue caches and error-feedback quantiser (at
+        construction, and for a derived view)."""
         self._queue_cache: Dict[int, object] = {}
         self._queue_max_diff: Dict[int, Callable] = {}
         self._tq = None
         self._tq_price = None
         self._counts_dev = None
+        self.quantizer = None
+        if self.value_dtype == "int8" and self.packed is not None:
+            self.quantizer = StreamingTileQuantizer(self.packed.nnz)
 
     @classmethod
     def _from_stores(cls, store: EdgeTileStore,
                      packed: Optional[PackedTileStore], *,
                      like: "TiledExecutor") -> "TiledExecutor":
         """An executor over prebuilt stores that inherits every streaming
-        parameter of `like` (tile, chunk, budget, format, device, copy
-        stream), with its own stats and caches and no device queue."""
+        parameter of `like` (tile, chunk, budget, format, value dtype,
+        device, copy stream), with its own stats, caches and quantiser and
+        no device queue."""
         ex = copy.copy(like)
         ex.store = store
         ex.packed = packed
@@ -609,19 +634,31 @@ class TiledExecutor:
         streaming_mode="callback", no packed store, or over budget
         ("chunk_queue" raises instead).
 
-        A sum or mean on the kernel route holds more, and is priced at
-        what it holds: the slab queue it stages, the walker's `TileQueue`
+        A sum or mean on the kernel route (fp32 values: an int8 queue
+        keeps the slab sweep) holds more, and is priced at what it holds:
+        the slab queue it stages, the walker's `TileQueue`
         (`tile_queue_bytes`), x, y (and a mean's quotient), B5's
         split-interval scratch and, with `training`, the cotangent (and a
         mean's quotient of it), dX and B5^T's split-interval scratch
-        where it is the larger."""
+        where it is the larger.  Where the queue kernels do not take the
+        store's interval height (`queue_kernels_take`), that route is
+        declined as an over-budget queue is."""
         if self.streaming_mode == "callback" or self.packed is None:
             return None
-        from repro_torch.kernels.chunk_queue.ops import queue_bytes
+        from repro_torch.kernels.chunk_queue.ops import (TILE_MAX,
+                                                         queue_bytes,
+                                                         queue_kernels_take)
         m = max(self.packed.nnz, 1)
         n = self.store.num_vertices
         d = max(int(d), 1)
-        kernel = op in ("sum", "mean") and self._kernels()
+        kernel = (op in ("sum", "mean") and self._kernels()
+                  and self.value_dtype == "fp32")
+        if kernel and not queue_kernels_take(self.store.tile):
+            if self.streaming_mode == "chunk_queue":
+                raise DeviceBudgetExceeded(
+                    f"the chunk-queue kernels take intervals of at most "
+                    f"{TILE_MAX} rows, the store's are {self.store.tile}")
+            return None
 
         def total(slab: int) -> Tuple[int, int, int]:
             slab = min(slab, m)
@@ -681,19 +718,23 @@ class TiledExecutor:
             from repro_torch.kernels.chunk_queue.ops import build_chunk_queue
             q = build_chunk_queue(self.packed, slab=slab,
                                   value_dtype=self.value_dtype,
+                                  quantizer=self.quantizer,
                                   device=self.device)
             self._queue_cache[slab] = q
             st = self.stats
             st.queue_builds += 1
             st.queue_steps += q.steps
             st.queue_h2d_bytes += q.device_bytes()
-            st.quant_val_bytes += q.vals.numel() * q.vals.element_size()
+            vb = q.vals.numel() * q.vals.element_size()
+            if q.value_dtype == "int8":
+                vb += q.scales.numel() * q.scales.element_size()
+            st.quant_val_bytes += vb
             st.raw_val_bytes += q.raw_value_bytes()
         return q
 
     def _tile_queue(self):
         """The ragged tile layout the CUDA walker sweeps (built once, on
-        the kernels' route only)."""
+        the kernels' route and for fp32 values only; None otherwise)."""
         if self.value_dtype != "fp32" or not self._kernels():
             return None
         if self._tq is None:
@@ -1073,8 +1114,9 @@ class TiledExecutor:
         from repro_torch.kernels.chunk_queue import ops as cq_ops
         q = self._device_queue(plan.slab)
         base = "sum" if op == "mean" else op
-        if base == "sum" and self._kernels():
-            y = cq_ops.tile_queue_aggregate(self._tile_queue(), x)
+        tq = self._tile_queue() if base == "sum" else None
+        if tq is not None:
+            y = cq_ops.tile_queue_aggregate(tq, x)
             self.stats.queue_launches += 1
         elif base == "max" and q.steps > 1:
             fn = self._queue_max_diff.get(plan.slab)
@@ -1132,10 +1174,13 @@ class TiledExecutor:
         ev.record(self._copy)
         return dst, ev
 
-    def _ready(self, tensor, ev):
+    def _ready(self, payload, ev):
+        """The staged payload, once the compute stream has waited for its
+        copy; a callable payload (an int8 group) is finished here, on the
+        compute stream."""
         if ev is not None:
             torch.cuda.current_stream(self.device).wait_event(ev)
-        return tensor
+        return payload() if callable(payload) else payload
 
     def _src_interval(self, xh, j: int, ext):
         dev = self._xcache.get(j)
@@ -1156,15 +1201,49 @@ class TiledExecutor:
         return dev
 
     def _stage_packed(self, idx, width: int, bucket: int):
-        """Upload one group of packed tiles as one int32 block holding
-        (rows, cols, vals) at the given bucket; returns ((payload,
-        event), host bytes moved)."""
+        """Upload one group of packed tiles as one block holding (rows,
+        cols, vals) at the given bucket; returns ((payload, event), host
+        bytes moved).  int8 values travel quantised (`pack_quantized`,
+        one scale per tile, error feedback through `self.quantizer`) in
+        one byte buffer and dequantise on the device."""
+        if self.value_dtype == "int8":
+            rows, cols, qv, sc = self.packed.pack_quantized(
+                idx, width, bucket, self.quantizer)
+            tb = rows.nbytes + cols.nbytes + qv.nbytes + sc.nbytes
+            self.stats.quant_val_bytes += qv.nbytes + sc.nbytes
+            self.stats.raw_val_bytes += 4 * qv.size
+            return self._stage_quantized(rows, cols, qv, sc), tb
         rows, cols, vals = self.packed.pack(idx, width, bucket)
         tb = rows.nbytes + cols.nbytes + vals.nbytes
         self.stats.quant_val_bytes += vals.nbytes
         self.stats.raw_val_bytes += vals.nbytes
         block, ev = self._h2d(np.stack([rows, cols, vals.view(np.int32)]))
         return ((block[0], block[1], block[2].view(torch.float32)), ev), tb
+
+    def _stage_quantized(self, rows, cols, qv, sc):
+        """One H2D copy of an int8 group: a byte buffer of rows and cols
+        (int32), the int8 values (padded to a word) and the f32 scales;
+        returns (payload, event), the payload a callable that views the
+        buffer and dequantises `q.float() * s[:, None]` (the reference's
+        `_dequant_tiles`) on the compute stream."""
+        w, b = qv.shape
+        m = w * b
+        qw = -(-m // 4)                   # words of int8 values
+        words = np.empty(2 * m + qw + w, np.int32)
+        words[:m] = rows.reshape(-1)
+        words[m:2 * m] = cols.reshape(-1)
+        qbytes = words[2 * m:2 * m + qw].view(np.int8)
+        qbytes[:m] = qv.reshape(-1)
+        qbytes[m:] = 0
+        words[2 * m + qw:] = sc.view(np.int32)
+        block, ev = self._h2d(words)
+
+        def finish():
+            q = block[2 * m:2 * m + qw].view(torch.int8)[:m].reshape(w, b)
+            s = block[2 * m + qw:].view(torch.float32)
+            return (block[:m].reshape(w, b), block[m:2 * m].reshape(w, b),
+                    q.to(torch.float32) * s[:, None])
+        return finish, ev
 
     def _stage_dense(self, idx, width: int):
         t = self.store.tile

@@ -38,6 +38,11 @@
 //     row's sum stays in registers until the row changes.  Row-sorted, a
 //     warp meets each of its rows in one run, so it flushes (a shared
 //     atomic add) about once per row instead of once per (tile, row);
+//   * the wrapper picks the features of a pass (`fc`, `feature_chunk` in
+//     chunk_queue/ops.py): the widest pass whose T x fc block fits, so a
+//     tall interval takes narrower passes (16 features at T = 2048 and
+//     F = 64, 1 at T = 32,768), down to a lane per feature, each group
+//     of lanes then walking fewer entries than a batch (`walk`'s kFew);
 //   * an interval in one piece stores its block once, with relu when
 //     asked; a piece of a split interval covers a contiguous range of
 //     rows and adds only those into a zeroed scratch block (the launcher
@@ -120,7 +125,7 @@ constexpr int kSmemMax = 232448 - 128;
 // entries row-sorted within each interval (local row, global source row,
 // value).  part: (n_split, T, F) zeroed scratch of the split intervals,
 // arrive: (n_split, passes) zeroed counters.
-template <int kNR>
+template <int kNR, bool kFew>
 __global__ void __launch_bounds__(kThreads)
 chunk_queue_kernel(const int* __restrict__ pieces,
                    const int* __restrict__ wrows,
@@ -156,7 +161,8 @@ chunk_queue_kernel(const int* __restrict__ pieces,
     auto sink = [&](int row, int fi, float v) {
       atomicAdd(acc_s + row * wf + (fi - fb), v);
     };
-    walk<false, kNR>(wn, load, sink, x, f, fb, fp, lane);
+    walk<false, kNR, decltype(load), decltype(sink), kFew>(wn, load, sink, x,
+                                                           f, fb, fp, lane);
   }
   __syncthreads();
 
@@ -205,23 +211,23 @@ int queue_lanes(int f, int* nr) {
   return lanes_for(f, nr);
 }
 
-template <int kNR>
+template <int kNR, bool kFew = false>
 void launch(const int* pieces, int n_pieces, const int* wrows,
             const int* wsrc, const float* wvals, const float* x, float* y,
             float* part, int* arrive, int n, int t, int f, int fp,
             int passes, size_t smem, int relu, cudaStream_t st) {
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
-    cudaFuncSetAttribute(chunk_queue_kernel<kNR>,
+    cudaFuncSetAttribute(chunk_queue_kernel<kNR, kFew>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    cudaFuncSetAttribute(chunk_queue_kernel<kNR>,
+    cudaFuncSetAttribute(chunk_queue_kernel<kNR, kFew>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          (int)cudaSharedmemCarveoutMaxShared);
     smem_set = smem;
   }
   const dim3 grid((unsigned)n_pieces, (unsigned)passes);
-  chunk_queue_kernel<kNR><<<grid, kThreads, smem, st>>>(
+  chunk_queue_kernel<kNR, kFew><<<grid, kThreads, smem, st>>>(
       pieces, wrows, wsrc, wvals, x, y, part, arrive, n, t, f, fp, relu);
 }
 
@@ -591,23 +597,23 @@ void launch_t(const int* tpieces, int n_pieces, const int* tsrc_ptr,
 
 // scratch: n_split * T * F floats then n_split * F ints (at least one
 // counter per pass), zeroed here up to what this launch uses.  Every row
-// of Y below n is stored.
+// of Y below n is stored.  fc: the most features a pass takes (a power of
+// two, the wrapper's `feature_chunk`), its T x fc block within a CTA.
 extern "C" int chunk_queue_launch(const void* pieces, int n_pieces,
                                   const void* wrows, const void* wsrc,
                                   const void* wvals, const void* x, void* y,
                                   void* scratch, int n_split, int n, int t,
-                                  int f, int relu, void* stream) {
+                                  int f, int fc, int relu, void* stream) {
   if (n_pieces == 0 || n == 0 || t == 0 || f == 0)
     return (int)cudaGetLastError();
   int nr;
-  const int fp = queue_lanes(f, &nr);
-  // a pass's block must fit the CTA: a tall tile takes narrower passes
-  auto block = [&](int w) {
-    return (size_t)t * (w < f ? w : f) * sizeof(float);
-  };
-  while (nr > 1 && block(fp * nr) > kSmemMax) nr >>= 1;
-  const size_t smem = block(fp * nr);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  int fp = queue_lanes(f, &nr);
+  // a pass of at most fc features: fewer features a lane first, then
+  // fewer lanes an entry
+  while (nr > 1 && fp * nr > fc) nr >>= 1;
+  while (fp > 1 && fp * nr > fc) fp >>= 1;
+  const size_t smem = (size_t)t * (fp * nr < f ? fp * nr : f) * sizeof(float);
+  if (fc < 1 || smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const int passes = (f + fp * nr - 1) / (fp * nr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
@@ -623,7 +629,10 @@ extern "C" int chunk_queue_launch(const void* pieces, int n_pieces,
   const float* wv = static_cast<const float*>(wvals);
   const float* xx = static_cast<const float*>(x);
   float* yy = static_cast<float*>(y);
-  if (nr == 1)
+  if (fp < rer_gather_walk::kU)
+    launch<1, true>(pc, n_pieces, wr, ws, wv, xx, yy, part, arrive, n, t, f,
+                    fp, passes, smem, relu, st);
+  else if (nr == 1)
     launch<1>(pc, n_pieces, wr, ws, wv, xx, yy, part, arrive, n, t, f, fp,
               passes, smem, relu, st);
   else if (nr == 2)

@@ -109,8 +109,12 @@ inline dim3 grid_for_table(int n_seg, int f, int fp, int nr) {
 // `lanes_for` maps them; features fb + fl + fp * n, n < kNR; kU entries'
 // X values are in flight per lane.  sink(row, feature, value) takes a
 // row's finished sum or max; a row with nothing (0 for a sum, -inf for a
-// max) is not flushed.
-template <bool kMax, int kNR, typename Load, typename Sink>
+// max) is not flushed.  kFew: fp < kU (fewer than kU entries a group, a
+// pass of under 4 features, which `lanes_for` never maps; the chunk-queue
+// walker's narrow passes over tall intervals): the batch is cut at the
+// group's end (a lane past 31 wraps in the shuffle, its value dropped).
+template <bool kMax, int kNR, typename Load, typename Sink,
+          bool kFew = false>
 __device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
                                      const float* __restrict__ x, int f,
                                      int fb, int fp, int lane) {
@@ -144,6 +148,7 @@ __device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
       for (int u = 0; u < kU; ++u) {
         const int j = g * per + i0 + u;
         vv[u] = __shfl_sync(0xffffffffu, v, j);
+        if (kFew && i0 + u >= per) vv[u] = 0.f;
         rr[u] = __shfl_sync(0xffffffffu, r, j);
         const int cj = __shfl_sync(0xffffffffu, c, j);
         const float* xr = x + (size_t)cj * f;

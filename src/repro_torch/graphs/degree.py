@@ -31,3 +31,16 @@ def unpermute_features(y: np.ndarray, perm: np.ndarray) -> np.ndarray:
     out = np.empty_like(y)
     out[perm] = y
     return out
+
+
+def hub_edge_coverage(g: COOGraph, top_frac: float = 0.2) -> float:
+    """Share of edges touching the top `top_frac` highest-degree vertices
+    (the paper reports 50-85% for the top 20%, S3.2): the skew DAVC
+    exploits."""
+    deg = g.degrees()
+    k = max(1, int(g.num_vertices * top_frac))
+    hubs = set(np.argsort(-deg)[:k].tolist())
+    hub_mask = np.zeros(g.num_vertices, bool)
+    hub_mask[list(hubs)] = True
+    touched = hub_mask[g.src] | hub_mask[g.dst]
+    return float(touched.mean())

@@ -28,6 +28,10 @@ DATASET_STATS = {
 }
 
 
+def dataset_stats(name: str):
+    return DATASET_STATS[name]
+
+
 def rmat_graph(num_vertices: int, num_edges: int, seed: int = 0,
                a: float = 0.57, b: float = 0.19, c: float = 0.19,
                num_relations: int = 1) -> COOGraph:

@@ -1,12 +1,15 @@
 """Grid partitioning and tile stores (paper S5.3, Table 3, Eq. 8).
 
-What the port needs from `repro.graphs.partition`: the adaptive
-schedule order and its I/O cost, the host-side `EdgeTileStore` (with the
-row / column tile indexes and `densify` the streamed executor walks) and
-its packed (CSR-within-tile) form, their A^T views (`transpose_*`, the
-backward's carriers), the pow2 nnz buckets the packed groups pad to, and
-`chunk_tile_row`, the S-shape chunking of one interval's tiles.  Field
-for field the same arrays as the reference.  `transpose_blocks` has no
+The port's copy of `repro.graphs.partition`: the grid partition and the
+tile schedule with its S-shape (`grid_partition`, `schedule_tiles`), the
+adaptive schedule order and its I/O cost (closed form and the replay
+`simulated_io_bytes`), the host-side `EdgeTileStore` (with the row /
+column tile indexes and `densify` the streamed executor walks) and its
+packed (CSR-within-tile) form, staged fp32 or int8 (`pack_quantized`),
+their A^T views (`transpose_*`, the backward's carriers), the pow2 nnz
+buckets the packed groups pad to, and `chunk_tile_row`, the S-shape
+chunking of one interval's tiles.  Field for field the same arrays as
+the reference.  `transpose_blocks` has no
 counterpart there: it lays out the dense blocked carrier of A^T as
 `prepare_blocks` lays out A's.
 """
@@ -17,7 +20,29 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.distributed.compression import quantize_int8_np
 from repro_torch.graphs.format import COOGraph
+
+
+@dataclasses.dataclass(frozen=True)
+class GridPartition:
+    q: int
+    interval: int                     # vertices per interval (last padded)
+    shard_edges: List[np.ndarray]     # q*q entries: edge ids, key order
+
+
+def grid_partition(g: COOGraph, q: int) -> GridPartition:
+    """The N vertices cut into q intervals; edge ids fall into the q^2
+    shards (dst interval, src interval), stably ordered within each."""
+    interval = -(-g.num_vertices // q)
+    bi = g.dst // interval
+    bj = g.src // interval
+    key = bi.astype(np.int64) * q + bj
+    order = np.argsort(key, kind="stable")
+    key_sorted = key[order]
+    bounds = np.searchsorted(key_sorted, np.arange(q * q + 1))
+    shards = [order[bounds[k]:bounds[k + 1]] for k in range(q * q)]
+    return GridPartition(q, interval, shards)
 
 
 # Table 3 of the paper (units: interval-loads of property vectors):
@@ -38,6 +63,55 @@ def io_cost(order: str, q: int, f: int, h: int) -> Tuple[float, float]:
 def tile_schedule_order(f: int, h: int) -> str:
     """Adaptive scheduling (Eq. 8): column-major wins iff F < 2H."""
     return "column" if f < 2 * h else "row"
+
+
+def schedule_tiles(q: int, order: str, s_shape: bool = True):
+    """(i, j) = (dst interval, src interval) visit order: "column" keeps
+    the destination interval stationary (outer loop over i), "row" the
+    source interval (outer loop over j); with `s_shape` every other outer
+    step walks the inner axis backwards, so the boundary tile is reused
+    (Fig. 8)."""
+    out = []
+    if order == "column":
+        for i in range(q):
+            cols = (range(q) if (not s_shape or i % 2 == 0)
+                    else range(q - 1, -1, -1))
+            out.extend((i, j) for j in cols)
+    elif order == "row":
+        for j in range(q):
+            rows = (range(q) if (not s_shape or j % 2 == 0)
+                    else range(q - 1, -1, -1))
+            out.extend((i, j) for i in rows)
+    else:
+        raise ValueError(order)
+    return out
+
+
+def simulated_io_bytes(q: int, order: str, f: int, h: int, interval: int,
+                       bytes_per_el: int = 4, s_shape: bool = True
+                       ) -> Tuple[int, int]:
+    """(read, write) bytes of a replay of the tile schedule under the
+    paper's accounting (Table 3), S-shape reuse on reads: a new source
+    interval reads interval x F, a new destination interval interval x H;
+    column order flushes each destination once (Q x H writes), row order
+    spills a partial after every tile (Q^2 x H).  With s_shape it equals
+    Table 3's closed form."""
+    reads = 0
+    writes = 0
+    cur_src = None
+    cur_dst = None
+    for (i, j) in schedule_tiles(q, order, s_shape):
+        if j != cur_src:
+            reads += interval * f
+            cur_src = j
+        if i != cur_dst:
+            reads += interval * h
+            cur_dst = i
+        if order == "row":
+            writes += interval * h
+    if order == "column":
+        writes = q * interval * h
+    return reads * bytes_per_el, writes * bytes_per_el
 
 
 def pow2_bucket(n: int, floor: int = 8) -> int:
@@ -186,6 +260,37 @@ class PackedTileStore:
             cols[c, :m] = self.col_local[lo:hi]
             vals[c, :m] = self.val[lo:hi]
         return rows, cols, vals
+
+    def pack_quantized(self, tiles, width: int, bucket: int, quantizer=None
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray]:
+        """`pack` with the value plane as int8 and one f32 scale per
+        staged tile: (rows, cols, qvals int8, scales (width,) f32).  A
+        `StreamingTileQuantizer` feeds each tile's rounding back into the
+        next staging of the same entries, through its `quantize_range`
+        over this store's flat entry offsets (which `transpose_packed_store`
+        keeps).  Padding tiles carry scale 1.0."""
+        tiles = np.asarray(tiles, np.int64)
+        rows = np.zeros((width, bucket), np.int32)
+        cols = np.zeros((width, bucket), np.int32)
+        qvals = np.zeros((width, bucket), np.int8)
+        scales = np.ones(width, np.float32)
+        for c, k in enumerate(tiles):
+            if k < 0:
+                continue
+            lo, hi = int(self.entry_ptr[k]), int(self.entry_ptr[k + 1])
+            m = hi - lo
+            rows[c, :m] = self.row_local[lo:hi]
+            cols[c, :m] = self.col_local[lo:hi]
+            if m == 0:
+                continue
+            if quantizer is not None:
+                q, s = quantizer.quantize_range(self.val[lo:hi], lo, hi)
+            else:
+                q, s, _ = quantize_int8_np(self.val[lo:hi])
+            qvals[c, :m] = q
+            scales[c] = s
+        return rows, cols, qvals, scales
 
 
 def merge_by_key(key: np.ndarray, w: np.ndarray

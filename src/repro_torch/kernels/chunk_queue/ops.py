@@ -9,12 +9,23 @@ packed tiles:
   `(steps, slab)` global-index slabs, padding routed to the sacrificial
   row n; `queue_sweep_plain` sweeps it (one gather and one segment
   reduce per slab, sum or max).  It is the counterpart of the
-  reference's `queue_sweep_xla` and the route on the CPU.
+  reference's `queue_sweep_xla` and the route on the CPU.  Its values
+  are fp32, or int8 with one f32 scale per slab (`value_dtype="int8"`,
+  quantised on the host by `distributed.compression.quantize_stream_np`,
+  the reference's, with an error-feedback `StreamingTileQuantizer`); a
+  slab dequantises on the device as it is swept.  An int8 queue is swept
+  this way on every device, the card included: the reference's walker
+  takes fp32 values only, and its int8 sweep is XLA, not Pallas.
 * `TileQueue` (`build_tile_queue`): the tiles dst-sorted with each
   destination interval's span, for the hand-written CUDA kernel
   `csrc/chunk_queue.cu` (`tile_queue_aggregate`, sum with an optional
   relu), and the kernel's work table (`queue_work`), built with it on
-  the host.  `tile_queue_plain` is its plain version.
+  the host.  `tile_queue_plain` is its plain version.  A pass of the
+  walker keeps a T x Fc block in shared memory; the wrapper picks Fc
+  (`feature_chunk`), so a tall interval takes narrower passes.  Both
+  queue kernels take intervals of at most `TILE_MAX` rows
+  (`queue_kernels_take`, the one predicate the launchers and the
+  executor's `queue_plan` share).
 
 Backward.  `tile_queue_aggregate` is an autograd Function under grad:
 its backward is B5^T (`tile_queue_t`, the second launcher of
@@ -60,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.compression import quantize_stream_np
 from repro_torch.graphs.partition import PackedTileStore, pow2_bucket
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (_memo, check_status,
@@ -82,8 +94,39 @@ _SMEM_MAX = 232448 - 128
 PIECE_FLOOR = 256
 PIECE_MAX = 2048
 SMS = 132
+# the tallest interval the queue kernels take: B5^T packs a local column
+# below 2^15 with its rank into one int (csrc/chunk_queue.cu); B5's
+# one-feature pass would fit up to _SMEM_MAX / 4 rows
+TILE_MAX = 32768
 
-_INT8 = ("int8 queue values are not ported yet (ROADMAP A7)")
+
+def queue_kernels_take(tile: int) -> bool:
+    """Whether B5 and B5^T take intervals of `tile` rows.  The launchers
+    refuse a queue it rejects, and `TiledExecutor.queue_plan` declines
+    the kernel route for it (the callback loop runs instead), so the two
+    cannot disagree."""
+    return 0 < tile <= TILE_MAX
+
+
+def _check_tile(tile: int) -> None:
+    if not queue_kernels_take(tile):
+        raise ValueError(f"the queue kernels take intervals of at most "
+                         f"{TILE_MAX} rows, not {tile}")
+
+
+def feature_chunk(tile: int, f: int) -> int:
+    """The features one B5 pass takes over `tile`-row intervals of an
+    F-wide x: the lane mapping's widest pass (`queue_lanes` in
+    csrc/chunk_queue.cu: F rounded up to a power of two, at least 4, up
+    to F = 32; 64 up to F = 64; 128 wider) halved until the pass's
+    T x min(Fc, F) block of floats fits a CTA's shared memory: 16 at
+    T = 2048 and F = 64, 1 at T = 32,768.  The launch argument the
+    wrapper gives the kernel."""
+    fc = 128 if f > 64 else 64 if f > 32 else max(4, 1 << (f - 1)
+                                                  .bit_length())
+    while fc > 1 and tile * min(fc, f) * 4 > _SMEM_MAX:
+        fc //= 2
+    return fc
 
 
 # -- the flat slab queue -------------------------------------------------
@@ -91,16 +134,18 @@ _INT8 = ("int8 queue values are not ported yet (ROADMAP A7)")
 @dataclasses.dataclass(frozen=True)
 class ChunkQueue:
     """The packed store's merged entries as `(steps, slab)` global-index
-    slabs on one device, padding routed to the sacrificial row n."""
+    slabs on one device, padding routed to the sacrificial row n.  int8
+    values carry one f32 scale per slab; fp32 slabs carry scale 1.0
+    (v * 1.0 is v, bit for bit)."""
     n: int                     # real vertices (output rows)
     entries: int               # real merged entries (pre-padding)
     steps: int
     slab: int
     gsrc: torch.Tensor         # (steps, slab) int32 global src vertex
     gdst: torch.Tensor         # (steps, slab) int32 global dst vertex
-    vals: torch.Tensor         # (steps, slab) float32
-    scales: torch.Tensor       # (steps,) float32, all ones
-    value_dtype: str           # "fp32"
+    vals: torch.Tensor         # (steps, slab) float32 or int8
+    scales: torch.Tensor       # (steps,) float32 (all ones when fp32)
+    value_dtype: str           # "fp32" | "int8"
 
     def device_bytes(self) -> int:
         """Resident device bytes of the queue itself."""
@@ -127,13 +172,16 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def build_chunk_queue(packed: PackedTileStore, *, slab: Optional[int] = None,
-                      value_dtype: str = "fp32",
+                      value_dtype: str = "fp32", quantizer=None,
                       device: DeviceLike = None) -> ChunkQueue:
     """Stage a packed store's merged entries as a slab queue on
     `device` (None: `cuda`).  `slab=None` takes the whole stream as one
-    slab; otherwise entries pad up to `steps * slab`."""
-    if value_dtype != "fp32":
-        raise NotImplementedError(_INT8)
+    slab; otherwise entries pad up to `steps * slab`.  With
+    `value_dtype="int8"` the values quantise per slab on the host
+    (`quantize_stream_np`; an error-feedback `StreamingTileQuantizer`
+    carries the residuals across rebuilds)."""
+    if value_dtype not in ("fp32", "int8"):
+        raise ValueError(value_dtype)
     device = resolve_device(device)
     n = packed.num_vertices
     gsrc, gdst, gval = flat_entries(packed)
@@ -148,12 +196,16 @@ def build_chunk_queue(packed: PackedTileStore, *, slab: Optional[int] = None,
         # padding targets the sacrificial row n: exact for sum and max
         gdst = np.concatenate([gdst, np.full(pad, n, np.int32)])
         gval = np.concatenate([gval, np.zeros(pad, np.float32)])
+    gval = gval.reshape(steps, slab)
+    if value_dtype == "int8":
+        gval, scales = quantize_stream_np(gval, quantizer)
+        scales = _upload(scales, device)
+    else:
+        scales = torch.ones(steps, dtype=torch.float32, device=device)
     return ChunkQueue(n, m, steps, slab,
                       _upload(gsrc.reshape(steps, slab), device),
                       _upload(gdst.reshape(steps, slab), device),
-                      _upload(gval.reshape(steps, slab), device),
-                      torch.ones(steps, dtype=torch.float32, device=device),
-                      value_dtype)
+                      _upload(gval, device), scales, value_dtype)
 
 
 def queue_sweep_plain(gsrc: torch.Tensor, gdst: torch.Tensor,
@@ -162,7 +214,9 @@ def queue_sweep_plain(gsrc: torch.Tensor, gdst: torch.Tensor,
                       op: str = "sum") -> torch.Tensor:
     """One gather and one segment reduce per slab, accumulated into the
     (n+1, d) destination buffer (row n swallows padding; the result is
-    sliced to n rows).  An empty max row is 0."""
+    sliced to n rows).  A slab's values dequantise as `vals.float() *
+    scale` (bitwise the values for fp32, whose scales are 1).  An empty
+    max row is 0."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     rows, d = n + 1, x.shape[1]
@@ -259,12 +313,15 @@ def chunk_queue_aggregate(queue: ChunkQueue, x: torch.Tensor, *,
                           ) -> torch.Tensor:
     """The staged-queue aggregate: the CUDA walker over `tile_queue` for
     a sum when one is given (and `impl` is not "plain"), else the plain
-    slab sweep.  x lies on the queue's device."""
+    slab sweep.  An int8 queue is always swept by slabs (the reference's
+    route: its walker is fp32-only and its int8 sweep is XLA).  x lies on
+    the queue's device."""
     if impl not in (None, "plain", "cuda"):
         raise ValueError(impl)
     if impl != "plain" and tile_queue is not None and op == "sum":
         return tile_queue_aggregate(tile_queue, x)
-    if x.device.type == "cuda" and impl != "plain":
+    if (x.device.type == "cuda" and impl != "plain"
+            and queue.value_dtype == "fp32"):
         raise ValueError(
             f"the chunk-queue kernel sweeps sums over a TileQueue; op={op!r}"
             f" without one has no kernel on {x.device} (impl='plain' asks "
@@ -564,7 +621,7 @@ def _lib():
         lib = _build.load("chunk_queue")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.chunk_queue_launch.argtypes = [p, i, p, p, p, p, p, p, i, i, i,
-                                           i, i, p]
+                                           i, i, i, p]
         lib.chunk_queue_launch.restype = i
         lib.chunk_queue_t_launch.argtypes = [p, i, p, p, p, p, p, p, p, p,
                                              p, p, i, i, i, i, i, p]
@@ -594,10 +651,8 @@ def _tile_queue_forward(tq: TileQueue, x: torch.Tensor,
         raise ValueError(f"no chunk_queue kernel for device {x.device}")
     dev = x.device
     _check_queue(tq, x, "x")
+    _check_tile(tq.tile)
     f = x.shape[1]
-    if tq.tile * min(f, 32) * 4 > _SMEM_MAX:
-        raise ValueError(f"a {tq.tile}-row interval block of {min(f, 32)} "
-                         f"features exceeds the walker's shared memory")
     y = torch.empty((tq.n, f), dtype=torch.float32, device=dev)
     # the split intervals' blocks and their arrival counters, zeroed by
     # the launcher; every other block is stored once by its CTA
@@ -607,8 +662,8 @@ def _tile_queue_forward(tq: TileQueue, x: torch.Tensor,
     status = _lib().chunk_queue_launch(
         tq.pieces.data_ptr(), tq.pieces.shape[0], tq.wrows.data_ptr(),
         tq.wsrc.data_ptr(), tq.wvals.data_ptr(), x.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), tq.n_split, tq.n, tq.tile, f, int(relu),
-        stream_handle(dev))
+        scratch.data_ptr(), tq.n_split, tq.n, tq.tile, f,
+        feature_chunk(tq.tile, f), int(relu), stream_handle(dev))
     check_status(status, "chunk_queue")
     LAUNCHES["sum_relu" if relu else "sum"] += 1
     return y
@@ -676,6 +731,7 @@ def _queue_t_table(tq: TileQueue, g: torch.Tensor) -> tuple:
     check_tensor(tq.tpieces, "tpieces", torch.int32, dev, 2)
     if tq.tpieces.shape[1] != 7:
         raise ValueError("the source table does not match the kernel's")
+    _check_tile(tq.tile)
     if _t_bytes(tq.tile, tq.t_piece) > _SMEM_MAX:
         raise ValueError(f"a {tq.t_piece}-entry piece of {tq.tile}-row "
                          f"tiles exceeds B5^T's shared memory")

@@ -221,23 +221,14 @@ def test_entry_points_default_to_cuda():
         rt.EnGNLayer(cfg)
 
 
-@pytest.mark.parametrize("case", ["tiled", "ring", "int8"])
+@pytest.mark.parametrize("case", ["ring"])
 def test_unported_paths_raise_with_their_roadmap_item(case):
     g, _, _ = _graph()
     cfg = t_engn.EnGNConfig(12, 5, backend="blocked", tile=16)
-    item = {"tiled": "A7", "ring": "A8", "int8": "A7"}[case]
+    item = {"ring": "A8"}[case]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if case == "tiled":
-            # the streamed backend runs; its int8 tile values do not yet
-            cfg.backend, cfg.tile_format = "tiled", "packed"
-            cfg.tile_value_dtype = "int8"
-            rt.prepare_graph(g, cfg, device="cpu")
-        elif case == "ring":
-            cfg.backend = case
-            rt.prepare_graph(g, cfg, device="cpu")
-        else:
-            cfg.tile_format, cfg.tile_value_dtype = "packed", "int8"
-            rt.prepare_graph(g, cfg, device="cpu")
+        cfg.backend = case
+        rt.prepare_graph(g, cfg, device="cpu")
 
 
 def test_strict_budget_raises_device_budget_exceeded():

@@ -189,13 +189,190 @@ def test_choose_tile_format_record(requested, tile):
             == t_autotune.choose_tile_format(requested, None).as_dict())
 
 
-def test_measured_choice_waits_for_the_kernels():
-    tp = t_partition.pack_tile_store(t_partition.build_tile_store(
-        t_generate.rmat_graph(40, 200, seed=0), 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        t_autotune.choose_tile_format("auto", tp, measure=True)
+def _measured_pair(monkeypatch, dim=16):
+    """The reference's and the port's measured choice over one graph, each
+    cache emptied first and each store's `densify` spied on (the sample
+    the dense step times)."""
+    g = j_generate.rmat_graph(300, 3000, seed=1)
+    js = j_partition.build_tile_store(g, 32)
+    ts = t_partition.build_tile_store(g, 32)
+    jp, tp = j_partition.pack_tile_store(js), t_partition.pack_tile_store(ts)
+    sampled = {}
+    for name, mod in (("ref", j_partition), ("port", t_partition)):
+        real = mod.EdgeTileStore.densify
+
+        def spy(self, tiles, out, real=real, name=name):
+            sampled[name] = np.asarray(tiles).copy()
+            return real(self, tiles, out)
+        monkeypatch.setattr(mod.EdgeTileStore, "densify", spy)
+    monkeypatch.setattr(j_autotune, "_MEASURED", {})
+    monkeypatch.setattr(t_autotune, "_MEASURED", {})
+    jc = j_autotune.measured_choice(js, jp, dim=dim)
+    tc = t_autotune.measured_choice(ts, tp, dim=dim, device="cpu")
+    return (js, jp, jc), (ts, tp, tc), sampled
+
+
+def test_measured_choice_sample_key_and_record_equal_reference(monkeypatch):
+    """The timed choice: the sample (the 4 densest tiles), the cache key
+    and its hit, and every field but the format and floor picked, which
+    are timed, equal the reference's; the record is the cost model's at
+    the floor that won, with reason "measured"."""
+    (js, jp, jc), (ts, tp, tc), sampled = _measured_pair(monkeypatch)
+    _same = np.testing.assert_array_equal
+    _same(sampled["port"], sampled["ref"])
+    nnz = tp.tile_nnz()
+    assert set(nnz[sampled["port"]]) <= set(np.sort(nnz)[-4:])
+    key = t_autotune._fingerprint(tp, "tiled", 16)
+    assert key == j_autotune._fingerprint(jp, "tiled", 16)
+    assert list(t_autotune._MEASURED) == [key]
+    assert list(j_autotune._MEASURED) == [key]
+    assert tc.reason == jc.reason == "measured"
+    assert tc.bucket_floor in (8, 32) and tc.fmt in ("dense", "packed")
+    model = t_autotune._model_choice(tp, tc.bucket_floor)
+    assert dataclasses.replace(tc, fmt=model.fmt, reason="cost-model") == \
+        model
+    assert model.as_dict() == j_autotune._model_choice(
+        jp, tc.bucket_floor).as_dict()
+    sampled.clear()
+    assert t_autotune.measured_choice(ts, tp, dim=16, device="cpu") is tc
+    assert t_autotune.measured_choice(ts, tp, dim=12, device="cpu") is tc
+    assert sampled == {}     # a hit (dim 12 pads to 16 too) times nothing
+
+
+@pytest.mark.parametrize("vd", ["fp32", "int8"])
+def test_choose_tile_format_measured_equals_reference(monkeypatch, vd):
+    """`choose_tile_format(measure=True)` through the measured choice:
+    the floors it tries, its reason and the value dtype it records equal
+    the reference's; without a store, or for a forced format, it is the
+    cost model's."""
+    (js, jp, _), (ts, tp, _), _ = _measured_pair(monkeypatch)
+    monkeypatch.setattr(j_autotune, "_MEASURED", {})
+    monkeypatch.setattr(t_autotune, "_MEASURED", {})
+    jc = j_autotune.choose_tile_format("auto", jp, measure=True, store=js,
+                                       dim=16, value_dtype=vd)
+    tc = t_autotune.choose_tile_format("auto", tp, measure=True, store=ts,
+                                       dim=16, value_dtype=vd, device="cpu")
+    assert tc.reason == jc.reason == "measured"
+    assert tc.value_dtype == jc.value_dtype == vd
+    assert tc.bucket_floor in (8, 32)
+    for req, kw in (("auto", {}), ("packed", {"store": None}),
+                    ("dense", {})):
+        jkw = dict(kw, store=kw.get("store", js))
+        tkw = dict(kw, store=kw.get("store", ts))
+        if req == "auto":
+            jkw["store"] = tkw["store"] = None
+        assert (t_autotune.choose_tile_format(
+                    req, tp, measure=True, value_dtype=vd, device="cpu",
+                    **tkw).as_dict()
+                == j_autotune.choose_tile_format(
+                    req, jp, measure=True, value_dtype=vd, **jkw).as_dict())
     with pytest.raises(ValueError):
         t_autotune.choose_tile_format("sparse", tp)
+
+
+def test_measured_executor_equals_reference(monkeypatch):
+    """TiledExecutor(autotune_measure=True): the choice is the measured
+    one on both sides (dim from dim_hint), and the aggregate on an
+    integer graph is the reference's whatever format was picked."""
+    monkeypatch.setattr(j_autotune, "_MEASURED", {})
+    monkeypatch.setattr(t_autotune, "_MEASURED", {})
+    from repro.core import tiled as j_tiled
+    from repro_torch.core import tiled as t_tiled
+    g = j_generate.rmat_graph(200, 1500, seed=3)
+    uniq = np.unique(np.stack([g.src, g.dst]), axis=1)
+    g = t_format.COOGraph(200, uniq[0].astype(np.int32),
+                          uniq[1].astype(np.int32),
+                          np.ones(uniq.shape[1], np.float32))
+    x = np.random.default_rng(0).integers(-3, 4, (200, 8)).astype(
+        np.float32)
+    kw = dict(tile=32, autotune_measure=True, dim_hint=8)
+    je = j_tiled.TiledExecutor(g, **kw)
+    te = t_tiled.TiledExecutor(g, device="cpu", **kw)
+    assert te.format_choice.reason == je.format_choice.reason == "measured"
+    assert t_autotune._fingerprint(te.packed, "tiled", 8) in \
+        t_autotune._MEASURED
+    np.testing.assert_array_equal(te.aggregate(x, "sum").numpy(),
+                                  je.aggregate(x, "sum"))
+
+
+# -- the grid partition, the tile schedule and the I/O replay (Table 3) ----------
+
+@pytest.mark.parametrize("q", [1, 2, 3, 8])
+@pytest.mark.parametrize("seed", [0, 4])
+def test_grid_partition_equals_reference(q, seed):
+    g = j_generate.rmat_graph(90, 700, seed=seed)
+    jp = j_partition.grid_partition(g, q)
+    tp = t_partition.grid_partition(g, q)
+    assert type(tp).__name__ == "GridPartition"
+    assert_same(tp, jp)
+    assert sum(len(s) for s in tp.shard_edges) == g.num_edges
+
+
+@pytest.mark.parametrize("order", ["column", "row"])
+@pytest.mark.parametrize("s_shape", [False, True])
+def test_schedule_tiles_equals_reference(order, s_shape):
+    for q in range(1, 8):
+        tiles = t_partition.schedule_tiles(q, order, s_shape)
+        assert tiles == j_partition.schedule_tiles(q, order, s_shape)
+        assert sorted(tiles) == [(i, j) for i in range(q) for j in range(q)]
+    for mod in (j_partition, t_partition):
+        with pytest.raises(ValueError):
+            mod.schedule_tiles(3, "diagonal")
+
+
+@pytest.mark.parametrize("order", ["column", "row"])
+@pytest.mark.parametrize("s_shape", [False, True])
+def test_simulated_io_bytes_equals_reference(order, s_shape):
+    """The replay equals the reference's, and with the S-shape Table 3's
+    closed form in interval units."""
+    for q, f, h, interval, el in ((2, 5, 3, 1, 1), (5, 64, 16, 256, 4),
+                                  (8, 7, 300, 33, 2)):
+        got = t_partition.simulated_io_bytes(q, order, f, h, interval,
+                                             bytes_per_el=el,
+                                             s_shape=s_shape)
+        assert got == j_partition.simulated_io_bytes(
+            q, order, f, h, interval, bytes_per_el=el, s_shape=s_shape)
+        if s_shape and interval == 1 and el == 1:
+            assert got == t_partition.io_cost(order, q, f, h)
+
+
+# -- DAVC, hub coverage, dataset statistics ---------------------------------------
+
+@pytest.mark.parametrize("n,e,seed", [(5, 1, 0), (60, 400, 1),
+                                      (300, 2500, 2), (2000, 20000, 3)])
+@pytest.mark.parametrize("lines,frac", [(1, 0.0), (16, 0.5), (64, 1.0),
+                                        (256, 0.25)])
+def test_simulate_davc_equals_reference(n, e, seed, lines, frac):
+    from repro.core import davc as j_davc
+    from repro_torch.core import davc as t_davc
+    g = j_generate.rmat_graph(n, e, seed=seed)
+    got = t_davc.simulate_davc(g, lines, frac)
+    assert got == j_davc.simulate_davc(g, lines, frac)
+    if e <= 2500:
+        assert t_davc.simulate_davc_reference(g, lines, frac) == \
+            j_davc.simulate_davc_reference(g, lines, frac)
+        assert got == pytest.approx(
+            t_davc.simulate_davc_reference(g, lines, frac), abs=1e-12)
+
+
+@pytest.mark.parametrize("frac", [0.05, 0.2, 1.0])
+def test_hub_edge_coverage_equals_reference(frac):
+    g = j_generate.rmat_graph(2000, 30000, seed=5)
+    got = t_degree.hub_edge_coverage(g, frac)
+    assert got == j_degree.hub_edge_coverage(g, frac)
+    assert (got == 1.0) == (frac == 1.0)
+
+
+def test_dataset_stats_equal_reference():
+    import repro_torch.graphs as t_graphs
+    assert t_graphs.dataset_stats is t_generate.dataset_stats
+    assert set(t_generate.DATASET_STATS) == set(j_generate.DATASET_STATS)
+    for name in j_generate.DATASET_STATS:
+        assert t_generate.dataset_stats(name) == \
+            j_generate.dataset_stats(name)
+    assert t_generate.dataset_stats("cora") == (2708, 10556, 1433, 7)
+    with pytest.raises(KeyError):
+        t_generate.dataset_stats("nope")
 
 
 @pytest.mark.parametrize("backend", ["segment", "blocked", "fused", "ring"])

@@ -644,31 +644,12 @@ def test_strict_budget_raises_and_roomy_budget_stays():
         assert rt.prepare_graph(g, cfg, device="cpu").backend == backend
 
 
-def _deferred(case):
+@pytest.mark.parametrize("case,item", [("updates", "A10")])
+def test_deferred_features_raise_with_their_roadmap_item(case, item):
     g, _ = _real_graph()
     ex = t_tiled.TiledExecutor(g, tile=16, device="cpu")
-    cfg = t_engn.EnGNConfig(12, 5, backend="tiled", tile=16)
-    calls = {
-        "int8_executor": lambda: t_tiled.TiledExecutor(
-            g, tile=16, value_dtype="int8", device="cpu"),
-        "int8_plan": lambda: rt.prepare_graph(
-            g, dataclasses.replace(cfg, tile_format="packed",
-                                   tile_value_dtype="int8"), device="cpu"),
-        "int8_queue": lambda: t_queue.build_chunk_queue(
-            ex.packed, value_dtype="int8"),
-        "updates": lambda: ex.apply_updates(None),
-        "autotune": lambda: t_tiled.TiledExecutor(
-            g, tile=16, autotune_measure=True, device="cpu"),
-    }
-    calls[case]()
-
-
-@pytest.mark.parametrize("case,item", [
-    ("int8_executor", "A7"), ("int8_plan", "A7"), ("int8_queue", "A7"),
-    ("updates", "A10"), ("autotune", "B")])
-def test_deferred_features_raise_with_their_roadmap_item(case, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _deferred(case)
+        {"updates": lambda: ex.apply_updates(None)}[case]()
 
 
 def test_the_executor_defaults_to_cuda():
