@@ -128,9 +128,30 @@ prints no result.  Phases, each of which fails the run if it fails:
    the queue route (B5 at the feature chunk `feature_chunk` gives, B5^T)
    against "segment" (phase 11's tolerances); then B5 and B5^T at that
    queue (`chunk_queue_sum_t2048`, `chunk_queue_sum_t_t2048`, widths 64
-   and 3) against their plain versions, beside `torch.sparse.mm`.
+   and 3) against their plain versions, beside `torch.sparse.mm`;
+13. serving and dynamic graphs, on uncut pubmed (phase 4's graph) with
+   GCN [500, 64, 3] on "segment" on the card and zipf requests as
+   `examples/serve_gnn.py` makes them: (a) 64 requests with exact 2-hop
+   extraction, each response against the full-graph forward
+   (`allclose(rtol=1e-4, atol=1e-5)`); (b) the example's configuration
+   (fanout 16, a 2,048-row cache, half of it pinned), 200 requests: req/s,
+   vertices/s, latency p50 / p99, the hit rate, buckets seen and the mean
+   subgraph, then one batch's time split by stage (extraction, upload +
+   stack, read back; host clock around `torch.cuda.synchronize`); (c) the
+   async pipeline on the example's flash crowd, ok + shed = 200; (d) GCN
+   (fanout 16) and GS-Pool (exact extraction) with a budget under every
+   batch's price: every batch streamed through the tiled executor (B2's
+   tile part, sum and max), held against the unbudgeted engine; (e) two
+   replicas against (a); (f) 1,000 inserts and 1,000 deletes in one epoch:
+   (f1) an exact cached engine through (b)'s traffic and
+   `ServingPipeline.apply_updates` against a cold engine on the epoch
+   graph, (f2) a 30 MB spill of GCN blocked packed through `update_plan`
+   (one merge, one store build) against a fresh plan, and a queue
+   executor through `apply_updates`, whose next sum runs B5 on the merged
+   store, against a fresh executor.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7, 8, 9, 10, 11, 12; in 8 and 9 the first forward of each run)
+calls of 6, 7, 8, 9, 10, 11, 12, 13; in 8 and 9 the first forward of each
+run)
 and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
 phase's, `fused_engn_sum_train` the training phase's); each run must
@@ -2073,11 +2094,333 @@ def main() -> int:
     del tr, state, data, ex, seg_tr, seg_state, seg_data, twin, tq_c3
     del xs_c3, a_c3, at_c3
 
+    # -- serving and dynamic graphs (phase 13) ---------------------------------
+    # Uncut pubmed (merged, degree-sorted, GCN-normalised: phase 4's graph),
+    # GCN [500, 64, 3] on "segment" on the card, zipf requests as
+    # examples/serve_gnn.py makes them: (a) exact serving against the
+    # full-graph forward; (b) the example's configuration, its throughput,
+    # latency and one batch's time split by stage; (c) the async pipeline on
+    # a flash crowd; (d) over the budget: every batch streamed through the
+    # tiled executor (B2's tile part), held against the unbudgeted engine;
+    # (e) two replicas against (a); (f) 1,000 inserts and 1,000 deletes:
+    # (f1) the engine after `apply_updates` against a cold one on the epoch
+    # graph, (f2) a spilled tiled plan through `update_plan` and a queue
+    # executor through `apply_updates` (B5 on the merged store).
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    from repro_torch.graphs.generate import zipf_traffic
+    from repro_torch.graphs.updates import UpdateLog
+    from repro_torch.serving import (GNNServingEngine, ReplicatedServer,
+                                     ServingConfig, ServingPipeline,
+                                     WorkloadSpec, make_trace, replay_closed)
+    t13 = time.perf_counter()
+    g13, x13 = pubmed[0], pubmed[1]
+    dims13 = [f_pub, 64, c_pub]
+    gcn13 = stack("gcn", dims13, "segment")
+    deg13 = g13.degrees()
+
+    def serve_requests(n):
+        """The example's traffic: sizes from default_rng(0), zipf ids."""
+        rng = np.random.default_rng(0)
+        sample = zipf_traffic(deg13, seed=0)
+        return [(rid, sample(int(rng.integers(1, 20)))) for rid in range(n)]
+
+    def serve(server, reqs):
+        for rid, ids in reqs:
+            server.submit(rid, ids)
+        out = {r.rid: r for r in server.drain()}
+        if sorted(out) != [rid for rid, _ in reqs]:
+            raise AssertionError(f"served {len(out)} of {len(reqs)}")
+        return {rid: r.outputs for rid, r in out.items()}
+
+    def hold(label, got, want, rtol=RTOL, atol=ATOL):
+        err = 0.0
+        for rid in want:
+            a, b = got[rid], want[rid]
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{label}: request {rid} shape "
+                                     f"{a.shape} vs {b.shape}")
+            err = max(err, float(np.abs(a - b).max()))
+            if not np.allclose(a, b, rtol=rtol, atol=atol):
+                raise AssertionError(f"{label}: request {rid} differs (max "
+                                     f"abs err {err})")
+        return err
+
+    def exact_cfg(**kw):
+        return ServingConfig(**{"batch_size": 128, "num_hops": 2,
+                                "fanout": None, "cache_capacity": 0, **kw})
+
+    def telemetry_line(eng, dt, n_vertices):
+        tel = eng.telemetry()
+        lat, st13 = tel["latency"], tel["engine"]
+        hit = tel["cache"]["hit_rate"] if "cache" in tel else 0.0
+        return (f"{lat['count']} requests / "
+                f"{n_vertices} vertices in {dt * 1e3:.1f} ms "
+                f"({lat['count'] / dt:.1f} req/s, {n_vertices / dt:.1f} "
+                f"vertices/s), latency p50 {lat['p50_s'] * 1e3:.2f} ms p99 "
+                f"{lat['p99_s'] * 1e3:.2f} ms, cache hit rate {hit:.4f}, "
+                f"{tel['batcher']['batches']} batches, {st13['compiles']} "
+                f"buckets seen, mean subgraph "
+                f"{st13['subgraph_vertices'] / max(st13['subgraphs'], 1):.1f} "
+                f"V / {st13['subgraph_edges'] / max(st13['subgraphs'], 1):.1f}"
+                f" E")
+
+    with torch.inference_mode():
+        full13 = rt.apply_stack(gcn13, rt.prepare_graph(g13, gcn13[0].cfg),
+                                torch.from_numpy(x13).to(dev)).cpu().numpy()
+
+    # (a) exact serving against the full-graph forward
+    reqs_a = serve_requests(64)
+    eng_a = GNNServingEngine(g13, x13, gcn13, None, exact_cfg())
+    t = time.perf_counter()
+    out_a = serve(eng_a, reqs_a)
+    dt = time.perf_counter() - t
+    err_a = hold("serving (a)", out_a, {rid: full13[ids]
+                                        for rid, ids in reqs_a})
+    print(f"serving (a) exact [{smi}]: "
+          f"{telemetry_line(eng_a, dt, sum(i.size for _, i in reqs_a))}; "
+          f"max abs err vs the full-graph forward {err_a:.3g}")
+
+    # (b) the example's configuration, then one batch split by stage
+    cfg_b = ServingConfig(batch_size=128, num_hops=2, fanout=16,
+                          cache_capacity=2048, cache_reserved_frac=0.5)
+    reqs_b = serve_requests(200)
+    eng_b = GNNServingEngine(g13, x13, gcn13, None, cfg_b)
+    t = time.perf_counter()
+    out_b = serve(eng_b, reqs_b)
+    dt = time.perf_counter() - t
+    for rid, ids in reqs_b:
+        if out_b[rid].shape != (ids.size, c_pub):
+            raise AssertionError(f"serving (b): request {rid} shape "
+                                 f"{out_b[rid].shape}")
+    print(f"serving (b) fanout 16, cache 2048 [{smi}]: "
+          f"{telemetry_line(eng_b, dt, sum(i.size for _, i in reqs_b))}")
+    split_eng = GNNServingEngine(g13, x13, gcn13, None, cfg_b)
+    split_ids = np.unique(np.concatenate([i for _, i in reqs_b]))[:128]
+    split = {"extract": [], "upload_stack": [], "readback": [],
+             "infer_batch": []}
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, mask, out, miss = split_eng._probe_batch(split_ids)
+        sub, xs = split_eng._extract_batch(miss)
+        t1 = time.perf_counter()
+        y = split_eng._run_batch(sub, xs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        y = y[:sub.num_seeds].cpu().numpy()
+        t3 = time.perf_counter()
+        split_eng._infer_batch(sub, xs)
+        t4 = time.perf_counter()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[k].append(v * 1e3)
+    print(f"serving (b) one batch of {split_ids.size} seeds "
+          f"({sub.graph.num_vertices} V, {sub.graph.num_edges} E) "
+          f"[{smi}]: median of 5 after a warm call, host clock around "
+          f"synchronize, ms: " + ", ".join(
+              f"{k} {statistics.median(v[1:]):.3f}" for k, v in split.items()))
+    # what upload + stack holds besides the stack: the features padded to
+    # the bucket on the host, and their pageable copy to the card
+    (n_pad, _), = split_eng._buckets
+    pad_ms, h2d_ms = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        xf = np.zeros((n_pad, xs.shape[1]), np.float32)
+        xf[:xs.shape[0]] = xs
+        t1 = time.perf_counter()
+        torch.from_numpy(xf).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pad_ms.append((t1 - t0) * 1e3)
+        h2d_ms.append((t2 - t1) * 1e3)
+    print(f"  of upload + stack: padding {n_pad} x {xs.shape[1]} features "
+          f"on the host {statistics.median(pad_ms[1:]):.3f} ms, their "
+          f"pageable copy to the card {statistics.median(h2d_ms[1:]):.3f} "
+          f"ms ({xf.nbytes} B)")
+
+    # (c) the async pipeline on the example's flash crowd
+    pl_c = ServingPipeline(GNNServingEngine(
+        g13, x13, gcn13, None, ServingConfig(
+            batch_size=128, num_hops=2, fanout=16, cache_capacity=2048,
+            warm_cache=True, warm_cache_max=128, adaptive_batching=True)))
+    trace_c = make_trace(WorkloadSpec(n_requests=200, duration_s=0.5,
+                                      mean_size=8, shape="flash_crowd",
+                                      slo_s=5.0, seed=1), deg13)
+    t = time.perf_counter()
+    res_c = replay_closed(pl_c, trace_c, pump_every=0)
+    dt = time.perf_counter() - t
+    ok_c = sum(r.status == "ok" for r in res_c)
+    shed_c = sum(r.status == "expired" for r in res_c)
+    pst = pl_c.telemetry()["pipeline"]
+    pl_c.close()
+    if ok_c + shed_c != len(trace_c):
+        raise AssertionError(f"serving (c): {ok_c} ok + {shed_c} shed of "
+                             f"{len(trace_c)}")
+    print(f"serving (c) pipeline, flash crowd [{smi}]: {ok_c} ok / {shed_c} "
+          f"shed in {dt * 1e3:.1f} ms ({ok_c / dt:.1f} req/s), "
+          f"{pst['adaptive_merges']} merged admissions, "
+          f"{pl_c.engine.stats['warm_filled']} warm-filled hubs, in-flight "
+          f"high-water mark {pst['inflight_hwm']}")
+
+    # (d) over the budget: every batch through the tiled executor.  GS-Pool
+    # runs exact extraction: sampling draws with replacement, and the
+    # tiles merge the repeated edges by summation before a max sees them
+    # (ROADMAP §C, note 3), so only exact subgraphs hold a streamed max
+    # against the resident one
+    reqs_d = serve_requests(16)
+    for model, fanout, kern in (("gcn", 16, "rer_gather_tile_part_sum"),
+                                ("gs_pool", None,
+                                 "rer_gather_tile_part_max")):
+        layers_d = stack(model, dims13, "segment")
+        kw = dict(batch_size=128, num_hops=2, fanout=fanout,
+                  tiled_tile=128)
+        roomy = GNNServingEngine(g13, x13, layers_d, None,
+                                 ServingConfig(**kw))
+        prices = []
+
+        def priced(sub, xs, run=roomy._run_batch, eng=roomy):
+            prices.append(eng._subgraph_footprint(sub.graph))
+            return run(sub, xs)
+        roomy._run_batch = priced
+        want_d = serve(roomy, reqs_d)
+        budget = min(prices) // 2
+        eng_d = GNNServingEngine(g13, x13, layers_d, None, ServingConfig(
+            engn=rt.EnGNConfig(in_dim=0, out_dim=0,
+                               device_budget_bytes=budget), **kw))
+        before = K.launch_counts()[kern]
+        t = time.perf_counter()
+        got_d = serve(eng_d, reqs_d)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        grew = K.launch_counts()[kern] - before
+        batches = eng_d.batcher.stats["batches"]
+        if eng_d.stats["tiled_batches"] != batches or batches == 0:
+            raise AssertionError(f"serving (d) {model}: "
+                                 f"{eng_d.stats['tiled_batches']} of "
+                                 f"{batches} batches streamed")
+        if grew <= 0:
+            raise AssertionError(f"serving (d) {model}: {kern} was not "
+                                 f"launched")
+        err = hold(f"serving (d) {model}", got_d, want_d)
+        print(f"serving (d) {model} over budget [{smi}]: first batch priced "
+              f"{prices[0]} B, budget {budget} B, {batches} of {batches} "
+              f"batches tiled, {grew} {kern} launches, max abs err vs the "
+              f"unbudgeted engine {err:.3g}, {dt * 1e3:.1f} ms for "
+              f"{len(reqs_d)} requests")
+
+    # (e) two replicas against (a)'s engine
+    srv = ReplicatedServer(g13, x13, gcn13, None, replicas=2,
+                           config=exact_cfg(), balancer="least_outstanding")
+    out_e = serve(srv, reqs_a)
+    routed = srv.routed.tolist()
+    srv.close()
+    err_e = hold("serving (e)", out_e, out_a)
+    print(f"serving (e) 2 replicas, least_outstanding: routed {routed}, max "
+          f"abs err vs (a) {err_e:.3g}")
+
+    # (f) one epoch of 1,000 inserts and 1,000 deletes
+    rng13 = np.random.default_rng(13)
+    log13 = UpdateLog(g13)
+    pick = rng13.choice(g13.num_edges, 1000, replace=False)
+    log13.delete(g13.src[pick], g13.dst[pick])
+    log13.insert(rng13.integers(0, g13.num_vertices, 1000),
+                 rng13.integers(0, g13.num_vertices, 1000),
+                 rng13.choice(g13.weights(), 1000))
+    snap = log13.snapshot()
+    g_new = snap.graph
+    # (f1) an exact engine with a cache through (b)'s traffic, then the
+    # update, then against a cold engine on the epoch graph
+    pl_f = ServingPipeline(GNNServingEngine(
+        g13, x13, gcn13, None, exact_cfg(cache_capacity=2048,
+                                         cache_reserved_frac=0.5)))
+    serve(pl_f, reqs_b)
+    t = time.perf_counter()
+    info = pl_f.apply_updates(snap)
+    upd_ms = (time.perf_counter() - t) * 1e3
+    reqs_f = reqs_a + [(1000 + rid, ids) for rid, ids in reqs_b[:64]]
+    out_f = serve(pl_f, reqs_f)
+    pl_f.close()
+    cold = GNNServingEngine(g_new, x13, gcn13, None, exact_cfg())
+    err_f = hold("serving (f1)", out_f, serve(cold, reqs_f))
+    print(f"updates (f1) engine [{smi}]: {snap.batch.num_deleted} deleted, "
+          f"{snap.batch.num_inserted} inserted, apply_updates {upd_ms:.1f} "
+          f"ms: affected {info['affected']}, invalidated "
+          f"{info['invalidated']}, pin_drift {info['pin_drift']:.4f}, "
+          f"repinned {info['repinned']}; max abs err vs a cold engine "
+          f"{err_f:.3g}")
+
+    # (f2) a spilled tiled plan through update_plan
+    layers_f = stack("gcn", dims13, "blocked", "packed")
+    cfg_f = dataclasses.replace(layers_f[0].cfg,
+                                device_budget_bytes=30_000_000)
+    plan = rt.prepare_graph(g13, cfg_f)
+    if plan.backend != "tiled":
+        raise AssertionError(f"updates (f2): plan on {plan.backend!r}")
+    t = time.perf_counter()
+    plan = rt.update_plan(plan, snap, cfg_f)
+    merge_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fresh = rt.prepare_graph(g_new, cfg_f)
+    fresh_s = time.perf_counter() - t
+    pst = plan.carrier["tiled_exec"].stats
+    refit = pst.store_builds > 1
+    if pst.delta_merges != 1 or (pst.store_builds != 1 and not refit):
+        raise AssertionError(f"updates (f2): {dataclasses.asdict(pst)}")
+    with torch.inference_mode():
+        xd = torch.from_numpy(x13).to(dev)
+        y_m = rt.apply_stack(layers_f, plan, xd)
+        y_f = rt.apply_stack(layers_f, fresh, xd)
+    err_p = float((y_m - y_f).abs().max())
+    if not torch.allclose(y_m, y_f, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"updates (f2): the merged plan's forward "
+                             f"differs from a fresh plan's ({err_p})")
+    print(f"updates (f2) tiled plan [{smi}]: update_plan {merge_s * 1e3:.1f}"
+          f" ms (host) vs a fresh prepare_graph {fresh_s * 1e3:.1f} ms, "
+          f"delta_merges {pst.delta_merges}, store_builds "
+          f"{pst.store_builds}"
+          + (" (the re-fit fell back to a full prepare_tiled)" if refit
+             else "")
+          + f", forward max abs err vs the fresh plan {err_p:.3g}")
+    # a queue executor whose TileQueue was built before the merge
+    ex13 = TiledExecutor(g13, tile=256, tile_format="packed")
+    xq = feats(g13.num_vertices, 64).cpu()
+    ex13.aggregate(xq, "sum")
+    tq_old = ex13._tq
+    t = time.perf_counter()
+    ex13.apply_updates(snap)
+    apply_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ex_fresh = TiledExecutor(g_new, tile=256, tile_format="packed")
+    build_s = time.perf_counter() - t
+    before = K.launch_counts()["chunk_queue_sum"]
+    y_q = ex13.aggregate(xq, "sum")
+    torch.cuda.synchronize()
+    grew = K.launch_counts()["chunk_queue_sum"] - before
+    if grew <= 0 or ex13.stats.queue_launches <= 0 or ex13._tq is tq_old:
+        raise AssertionError(f"updates (f2): B5 did not run on the merged "
+                             f"store ({grew} launches)")
+    y_q_fresh = ex_fresh.aggregate(xq, "sum")
+    err_q = float((y_q - y_q_fresh).abs().max())
+    if not torch.allclose(y_q, y_q_fresh, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"updates (f2): the merged queue sum differs "
+                             f"from a fresh executor's ({err_q})")
+    print(f"updates (f2) queue executor: apply_updates "
+          f"{apply_s * 1e3:.1f} ms (host) vs a fresh TiledExecutor "
+          f"{build_s * 1e3:.1f} ms, then {grew} B5 launch(es) on the merged "
+          f"store, max abs err vs the fresh executor {err_q:.3g}")
+    p13_counts = K.launch_counts()
+    print(f"phase-13 launches: {p13_counts}")
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    del eng_a, eng_b, split_eng, pl_c, eng_d, roomy, cold, plan, fresh
+    del ex13, ex_fresh, full13
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
               "b4": b4_counts, "training": train_counts,
               "staged": staged_counts, "staged_tiled": staged_tiled_counts,
               "staged_training": staged_train_counts,
-              "streamed_training": stream_counts, "phase12": p12_counts}
+              "streamed_training": stream_counts, "phase12": p12_counts,
+              "serving": p13_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

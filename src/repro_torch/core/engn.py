@@ -22,7 +22,9 @@ order decision (S5.2) and the aggregation backend:
 `prepare_graph` builds the carrier on the plan's device: on `cuda` the
 kernels' carriers, on the CPU (only when asked) the plain versions'.  A
 graph over `device_budget_bytes` spills to "tiled" (`auto_spill=True`)
-or raises `DeviceBudgetExceeded`.
+or raises `DeviceBudgetExceeded`.  `update_plan` carries a plan across
+one epoch of edge updates: a tiled plan merges its host stores in
+place, any other re-runs `prepare_graph`.
 
 The resident backends train: their aggregates are autograd Functions
 whose backwards walk the forward carrier itself (the dense tiles, or
@@ -773,6 +775,61 @@ def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
                         "resident_feature_bytes":
                             (2 if cfg.training else 1) * 4
                             * g.num_vertices * (cfg.in_dim + h)}})
+
+
+def update_plan(plan: PreparedPlan, snapshot, cfg: EnGNConfig,
+                out_dim: Optional[int] = None) -> PreparedPlan:
+    """Re-price a `PreparedPlan` for one `EpochSnapshot` of graph
+    updates, on the plan's own device.
+
+    The streamed tiled backend absorbs the delta in place: the
+    executor's stores merge incrementally (`TiledExecutor.
+    apply_updates`, bitwise equal to a fresh build), then the budget
+    gate re-fits the streaming step and re-prices the chunk-queue plan
+    for the grown store (queue pricing is n- and nnz-dependent, so
+    growth can demote a chunk-queue plan to the callback loop).  If the
+    update-time width no longer fits the fitted step (e.g. a plan priced
+    for inference updated under a training config, whose backward
+    streams double the width), the plan falls back to a full
+    `prepare_tiled`, which re-fits the tile: a re-plan, never a silent
+    overflow.  Typed plans with `rel_normalize` rebuild too: the folded
+    relation norms are degree-dependent, so a delta changes them all.
+
+    Device-resident backends keep no mergeable host store, so the epoch
+    graph re-runs `prepare_graph`, which re-prices the footprint and
+    spills to tiled exactly as it would at cold start."""
+    plan = wrap_plan(plan)
+    dev = plan.device
+    h = out_dim if out_dim is not None else cfg.out_dim
+    if plan.backend != "tiled":
+        return prepare_graph(snapshot.graph, cfg, out_dim, device=dev)
+    if (cfg.rel_normalize and snapshot.graph.rel is not None
+            and snapshot.graph.num_relations > 1):
+        return prepare_tiled(snapshot.graph, cfg, out_dim, device=dev)
+    ex: TiledExecutor = plan.carrier["tiled_exec"]
+    ex.apply_updates(snapshot)
+    dim = max(cfg.in_dim, h)
+    try:
+        ex.effective_chunk(dim * (2 if cfg.training else 1))
+    except DeviceBudgetExceeded:
+        # the grown graph broke the fitted step: a full re-plan re-fits
+        # tile and chunk (and the spill chain) for the new size
+        stats = ex.stats
+        new = prepare_tiled(snapshot.graph, cfg, out_dim, device=dev)
+        nex: TiledExecutor = new.carrier["tiled_exec"]
+        nex.stats.delta_merges = stats.delta_merges
+        nex.stats.store_builds += stats.store_builds
+        return new
+    qplan = ex.queue_plan(dim, "sum")
+    meta = plan.carrier["tiled_meta"]
+    meta.update(q=ex.store.q, host_bytes=ex.store.nbytes(),
+                queue_plan=(dataclasses.asdict(qplan)
+                            if qplan else None),
+                resident_feature_bytes=(2 if cfg.training else 1) * 4
+                * snapshot.graph.num_vertices * (cfg.in_dim + h))
+    plan.carrier["n"] = snapshot.graph.num_vertices
+    # re-derive the typed summary over the refreshed carrier
+    return wrap_plan(dict(plan.carrier))
 
 
 def _prepare_packed(g, cfg, d, h, store, packed, choice, order,

@@ -70,8 +70,16 @@ gate instead of keeping edge-shaped residuals; its traffic is counted in
 plain PyTorch on every device, as the reference's are XLA.
 
 `autotune_measure=True` times the tile formats on the executor's device
-(`kernels.autotune.measured_choice`).  Not ported yet: `apply_updates`,
-which raises `NotImplementedError` naming its ROADMAP item (A10).
+(`kernels.autotune.measured_choice`).
+
+Dynamic graphs.  `apply_updates` merges one epoch's edge delta into the
+host stores in place (`graphs/updates.py`: bitwise equal to a fresh
+build of the epoch graph) and drops every piece of state derived from
+the old stores: the x-cache, the transposed view, the differentiable
+callables, the slab queues and their max closures, the `TileQueue`
+(with B5's row-sorted copy and B5^T's source table), its price, the
+mean's device counts and the int8 quantiser, rebuilt for the new
+store's entries.  Each is rebuilt lazily on the next call.
 """
 from __future__ import annotations
 
@@ -94,11 +102,6 @@ from repro_torch.graphs.partition import (EdgeTileStore, PackedTileStore,
                                           transpose_packed_store,
                                           transpose_tile_store)
 from repro_torch.kernels.autotune import packed_entry_bytes
-
-_NOT_PORTED = {
-    "updates": "incremental graph updates are not ported yet (ROADMAP A10)",
-}
-
 
 # the card allocates in 512 B blocks: the queue route's two dozen-odd
 # tensors round up by this much at most
@@ -429,7 +432,7 @@ class TiledStats:
     # value-plane bytes moved vs their f32 size (equal in fp32)
     quant_val_bytes: int = 0
     raw_val_bytes: int = 0
-    # store builds vs incremental merges (merges not ported yet)
+    # store builds vs incremental merges (`apply_updates`)
     store_builds: int = 0
     delta_merges: int = 0
 
@@ -545,19 +548,21 @@ class TiledExecutor:
         self.streaming_mode = streaming_mode
         self.value_dtype = value_dtype
         self.stats = TiledStats(store_builds=1)
+        self._init_derived_state()
+        self._copy = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
+
+    def _init_derived_state(self):
+        """Fresh state derived from the stores: x-cache, transposed view,
+        differentiable callables, queue caches and the error-feedback
+        quantiser (at construction, for a derived view, and after a
+        merge)."""
         self._xcache: OrderedDict = OrderedDict()
         self._transposed: Optional["TiledExecutor"] = None
         # one differentiable callable per op (`make_streamed_*`)
         self._diff_cache: Dict[str, Callable] = {}
         # H of a typed aggregate in flight (`aggregate(rel_channels=H)`)
         self._rel_select: Optional[int] = None
-        self._init_queue_state()
-        self._copy = (torch.cuda.Stream(self.device)
-                      if self.device.type == "cuda" else None)
-
-    def _init_queue_state(self):
-        """Fresh queue caches and error-feedback quantiser (at
-        construction, and for a derived view)."""
         self._queue_cache: Dict[int, object] = {}
         self._queue_max_diff: Dict[int, Callable] = {}
         self._tq = None
@@ -579,11 +584,7 @@ class TiledExecutor:
         ex.store = store
         ex.packed = packed
         ex.stats = TiledStats()
-        ex._xcache = OrderedDict()
-        ex._transposed = None
-        ex._diff_cache = {}
-        ex._rel_select = None
-        ex._init_queue_state()
+        ex._init_derived_state()
         return ex
 
     def transposed(self) -> "TiledExecutor":
@@ -600,7 +601,25 @@ class TiledExecutor:
         return self._transposed
 
     def apply_updates(self, snapshot):
-        raise NotImplementedError(_NOT_PORTED["updates"])
+        """Merge one `EpochSnapshot` delta into this executor's stores
+        in place — no full rebuild (`stats.store_builds` stays put,
+        `stats.delta_merges` counts the epochs).  The merged stores are
+        bitwise equal to building fresh from `snapshot.graph`, so every
+        aggregate after the merge matches a from-scratch executor; all
+        state derived from the old stores (module docstring) is dropped
+        and rebuilt lazily.  `format_choice` is kept.  Returns the
+        `StoreDelta`."""
+        from repro_torch.graphs.updates import (update_packed_store,
+                                                update_tile_store)
+        new_store, delta = update_tile_store(
+            self.store, snapshot.batch, snapshot.graph.num_vertices)
+        if self.packed is not None:
+            self.packed = update_packed_store(self.packed, new_store,
+                                              delta)
+        self.store = new_store
+        self._init_derived_state()
+        self.stats.delta_merges += 1
+        return delta
 
     # -- public API ----------------------------------------------------
     def reset_stats(self):

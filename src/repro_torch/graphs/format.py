@@ -2,8 +2,9 @@
 
 The paper stores the input graph as a COO edge list (src, dst, val) and
 converts it with a hardware "format converter".  Here the converter is
-host preprocessing: COO -> BlockedAdjacency, the dense T x T tiles the
-`rer_spmm` and `fused_engn` kernels consume.  The arrays and their
+host preprocessing: COO -> CSR (the dst-major neighbour lists subgraph
+extraction walks) and COO -> BlockedAdjacency, the dense T x T tiles
+the `rer_spmm` and `fused_engn` kernels consume.  The arrays and their
 order are those of `repro.graphs.format`, field for field.
 """
 from __future__ import annotations
@@ -64,6 +65,30 @@ class COOGraph:
         dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
         val = (dinv[g.src] * dinv[g.dst]).astype(np.float32)
         return COOGraph(g.num_vertices, g.src, g.dst, val, g.rel, g.num_relations)
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRGraph:
+    """Destination-major CSR: for each dst vertex, its in-neighbours."""
+    num_vertices: int
+    indptr: np.ndarray    # (N+1,) int64
+    indices: np.ndarray   # (E,) int32 — source vertex ids
+    val: np.ndarray       # (E,) float32
+    rel: Optional[np.ndarray] = None   # (E,) int32 edge types, if typed
+    num_relations: int = 1
+
+
+def coo_to_csr(g: COOGraph) -> CSRGraph:
+    order = np.argsort(g.dst, kind="stable")
+    dst = g.dst[order]
+    indices = g.src[order].astype(np.int32)
+    val = g.weights()[order]
+    rel = g.rel[order].astype(np.int32) if g.rel is not None else None
+    indptr = np.zeros(g.num_vertices + 1, np.int64)
+    np.add.at(indptr, dst + 1, 1)
+    indptr = np.cumsum(indptr)
+    return CSRGraph(g.num_vertices, indptr, indices, val,
+                    rel=rel, num_relations=int(g.num_relations))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -84,3 +84,21 @@ def make_dataset(name: str, seed: int = 0, max_vertices: int | None = None,
 def random_features(num_vertices: int, dim: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.standard_normal((num_vertices, dim)).astype(np.float32) * 0.1
+
+
+def zipf_traffic(degrees: np.ndarray, a: float = 1.1, seed: int = 0):
+    """Degree-rank-aligned zipf request traffic for serving: rank
+    vertices by degree, sample ranks ~ Zipf(a), so the hubs the cache
+    pins are also the hottest request targets (paper S3.2 skew).
+
+    Returns sample(size) -> (size,) int32 vertex ids; the degree argsort
+    is computed once, not per request.
+    """
+    order = np.argsort(-np.asarray(degrees), kind="stable").astype(np.int32)
+    rng = np.random.default_rng(seed)
+
+    def sample(size: int) -> np.ndarray:
+        ranks = np.minimum(rng.zipf(a, size) - 1, order.size - 1)
+        return order[ranks]
+
+    return sample

@@ -644,14 +644,6 @@ def test_strict_budget_raises_and_roomy_budget_stays():
         assert rt.prepare_graph(g, cfg, device="cpu").backend == backend
 
 
-@pytest.mark.parametrize("case,item", [("updates", "A10")])
-def test_deferred_features_raise_with_their_roadmap_item(case, item):
-    g, _ = _real_graph()
-    ex = t_tiled.TiledExecutor(g, tile=16, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        {"updates": lambda: ex.apply_updates(None)}[case]()
-
-
 def test_the_executor_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
