@@ -148,10 +148,30 @@ prints no result.  Phases, each of which fails the run if it fails:
    graph, (f2) a 30 MB spill of GCN blocked packed through `update_plan`
    (one merge, one store build) against a fresh plan, and a queue
    executor through `apply_updates`, whose next sum runs B5 on the merged
-   store, against a fresh executor.
+   store, against a fresh executor;
+14. the sharded ring (`backend="ring"`, its P shards co-located on the
+   card, feature shards rotating by copies; no kernel of its own, as the
+   reference's ring is XLA): (a) `examples/multipod_ring.py`'s
+   configuration (R-MAT 2,048 V / 40,000 E, GCN 64 -> 32, P = 8) against
+   "segment" (1e-4), with its shards, format, MB a shard, hops and MB
+   rotated an aggregate, and fill factor; (b) uncut pubmed GCN and GS-Pool
+   [500, 64, 3] at P = 4, T = 256, dense and packed, GCN within 1e-4 /
+   1e-5 of "segment", GS-Pool `torch.equal` to phase 4's blocked run of
+   the same format, each forward timed beside that blocked forward; (c)
+   AIFB R-GCN on both formats and pubmed Gated-GCN packed against their
+   "segment" runs, and the gated dense ring refused (B6); (d)
+   `build_gnn` on the ring, GCN and GS-Pool [128, 64, 3], dense and
+   packed, 10 steps, losses against "segment" (rtol 1e-3, atol 1e-4),
+   hops a step, the plan's bytes unchanged; `run_gnn --gnn-backend ring
+   --gnn-shards 4` and its resume; (e) `ElasticGNNTrainer` on GCN: a
+   shard loss (4 -> 3), three straggler strikes (-> 2), a 30 MB per-shard
+   budget and a shard loss (-> `tiled`), the losses on "segment"'s and
+   each re-mesh's seconds; (f) serving pubmed GCN with `ring_shards=4`
+   under a budget every batch's own plan exceeds and its ring plan fits:
+   every batch on the ring, within 1e-5 of the unbudgeted engine.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7, 8, 9, 10, 11, 12, 13; in 8 and 9 the first forward of each
-run)
+calls of 6, 7, 8, 9, 10, 11, 12, 13, 14; in 8 and 9 the first forward of
+each run)
 and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
 phase's, `fused_engn_sum_train` the training phase's); each run must
@@ -2415,12 +2435,384 @@ def main() -> int:
     del eng_a, eng_b, split_eng, pl_c, eng_d, roomy, cold, plan, fresh
     del ex13, ex_fresh, full13
 
+    # -- the sharded ring (phase 14) --------------------------------------------
+    # P shards co-located on the card, source-feature shards rotating
+    # (`core/dataflow.py`): (a) examples/multipod_ring.py's configuration;
+    # (b) uncut pubmed GCN / GS-Pool [500, 64, 3] inference, P = 4, T = 256,
+    # dense and packed, beside the blocked forward of the same format; (c)
+    # AIFB R-GCN on both formats, pubmed Gated-GCN packed, gated dense
+    # refused (B6); (d) `build_gnn` training on the ring, then `run_gnn
+    # --gnn-backend ring --gnn-shards 4` and its resume; (e) the elastic
+    # re-mesh 4 -> 3 -> 2 -> tiled; (f) serving's ring gate.
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    from repro_torch.core import dataflow as ring_df
+    from repro_torch.distributed.chaos import ShardLossError
+    from repro_torch.graphs.generate import rmat_graph
+    t14 = time.perf_counter()
+    ring_p = 4
+
+    def median_fwd_ms(layers, plan, x):
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            rt.apply_stack(layers, plan, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    def counted_forward(layers, plan, x):
+        """One forward and the hops and bytes it rotated."""
+        ring_df.reset_hop_counts()
+        y = rt.apply_stack(layers, plan, x)
+        torch.cuda.synchronize()
+        return y, dict(ring_df.hop_counts)
+
+    def ring_desc(plan, hops, n_layers):
+        meta = plan.meta
+        st = meta["stats"].as_dict()
+        if hops["hops"] != n_layers * meta["shards"]:
+            raise AssertionError(f"{hops['hops']} hops over {n_layers} "
+                                 f"aggregates of a {meta['shards']}-shard "
+                                 f"ring")
+        return (f"{meta['shards']} shards, {meta['tile_format']}, "
+                f"{meta['device_bytes'] / 1e6:.2f} MB/shard, "
+                f"{hops['hops'] // n_layers} hops and "
+                f"{hops['bytes'] / n_layers / 1e6:.3f} MB rotated per "
+                f"aggregate (RingStats at in_dim: {st['ring_steps']} hops, "
+                f"{st['ppermute_bytes'] / 1e6:.3f} MB), fill factor "
+                f"{st['fill_factor']:.4f}")
+
+    with torch.inference_mode():
+        # (a) the reference example: R-MAT 2,048 V / 40,000 E, GCN 64 -> 32
+        g_a = rmat_graph(2048, 40000, seed=0).gcn_normalized()
+        x_a = torch.from_numpy(random_features(2048, 64, seed=1)).to(dev)
+        ring_a = rt.make_gnn("gcn", 64, 32, backend="ring")
+        ring_a.cfg.ring_shards = 8
+        plan_a = rt.prepare_graph(g_a, ring_a.cfg)
+        y_a, hops_a = counted_forward([ring_a], plan_a, x_a)
+        seg_a = rt.make_gnn("gcn", 64, 32)
+        seg_a.load_state_dict(ring_a.state_dict())
+        y_a_ref = seg_a(rt.prepare_graph(g_a, seg_a.cfg), x_a)
+        err = float((y_a - y_a_ref).abs().max())
+        if plan_a.backend != "ring" or not torch.allclose(
+                y_a, y_a_ref, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"ring (a): {plan_a.backend}, max abs err "
+                                 f"{err} vs segment")
+        print(f"ring (a) multipod_ring.py, R-MAT 2048 V / 40000 E, GCN "
+              f"64 -> 32 [{smi}]: {ring_desc(plan_a, hops_a, 1)}; "
+              f"{plan_a.meta['nnzb']} "
+              f"{'entries' if plan_a.tile_format == 'packed' else 'tiles'}"
+              f" vs {4 * 2048 ** 2 / 1e6:.0f} MB dense A; forward "
+              f"{median_fwd_ms([ring_a], plan_a, x_a):.3f} ms (median of 5, "
+              f"host clock), max abs err vs segment {err:.3g}")
+        del plan_a, ring_a, seg_a
+
+        # (b) uncut pubmed on 4 shards beside phase 4's blocked runs
+        seg_y = {}
+        for label, g, x, perm, model, dims, layers, graph, y, grew in built:
+            if not label.startswith("pubmed"):
+                continue
+            fmt = graph.tile_format
+            ring_layers = stack(model, dims, "ring", fmt)
+            for a, b in zip(ring_layers, layers):
+                a.load_state_dict(b.state_dict())
+                a.cfg.ring_shards = ring_p
+            t = time.perf_counter()
+            plan = rt.prepare_graph(g, ring_layers[0].cfg)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t
+            torch.cuda.reset_peak_memory_stats()
+            y_r, hops = counted_forward(ring_layers, plan, x)
+            peak = torch.cuda.max_memory_allocated()
+            if (plan.backend, plan.tile_format) != ("ring", fmt):
+                raise AssertionError(f"ring (b) {label}: plan "
+                                     f"{plan.backend}/{plan.tile_format}")
+            if model == "gs_pool":
+                err = float((y_r - y).abs().max())
+                if not torch.equal(y_r, y):
+                    raise AssertionError(f"ring (b) {label}: the ring max "
+                                         f"differs from blocked ({err})")
+                held_to = "blocked, equal"
+            else:
+                if model not in seg_y:
+                    ref_layers = stack(model, dims, "segment")
+                    for a, b in zip(ref_layers, layers):
+                        a.load_state_dict(b.state_dict())
+                    seg_y[model] = rt.apply_stack(
+                        ref_layers, rt.prepare_graph(g, ref_layers[0].cfg), x)
+                err = float((y_r - seg_y[model]).abs().max())
+                if not torch.allclose(y_r, seg_y[model], rtol=RTOL,
+                                      atol=ATOL):
+                    raise AssertionError(f"ring (b) {label}: differs from "
+                                         f"segment ({err})")
+                held_to = "segment"
+            ring_ms = median_fwd_ms(ring_layers, plan, x)
+            blocked_ms = median_fwd_ms(layers, graph, x)
+            print(f"ring (b) {label.replace('blocked ', '')} [{smi}]: "
+                  f"{ring_desc(plan, hops, len(dims) - 1)}; forward "
+                  f"{ring_ms:.3f} ms vs blocked {fmt} {blocked_ms:.3f} ms "
+                  f"(median of 5 each, host clock), prepare {prep_s:.2f} s, "
+                  f"peak {peak / 2**20:.1f} MiB, max abs err vs {held_to} "
+                  f"{err:.3g}")
+            del plan, ring_layers, y_r
+            gc.collect()
+            torch.cuda.empty_cache()
+        del seg_y
+
+        # (c) the staged contracts: AIFB R-GCN (typed), pubmed Gated-GCN,
+        # each against its "segment" run with the same weights
+        for label, data, model, dims, fmts in (
+                ("aifb rgcn", aifb, "rgcn", aifb_dims, ("dense", "packed")),
+                ("pubmed gated_gcn", (g_pub, x_pub_np), "gated_gcn",
+                 gated_dims, ("packed",))):
+            g, x_np = data[0], data[1]
+            x = torch.from_numpy(x_np).to(dev)
+            seg_layers = staged_stack(model, dims, "segment",
+                                      rels=g.num_relations)
+            y_ref = rt.apply_stack(
+                seg_layers, rt.prepare_graph(g, seg_layers[0].cfg), x)
+            for fmt in fmts:
+                layers = staged_stack(model, dims, "ring", fmt,
+                                      rels=g.num_relations)
+                for ly, ref_ly in zip(layers, seg_layers):
+                    ly.load_state_dict(ref_ly.state_dict())
+                    ly.cfg.ring_shards = ring_p
+                t = time.perf_counter()
+                plan = rt.prepare_graph(g, layers[0].cfg)
+                torch.cuda.synchronize()
+                prep_s = time.perf_counter() - t
+                y_r, hops = counted_forward(layers, plan, x)
+                err = float((y_r - y_ref).abs().max())
+                if (plan.tile_format != fmt or not torch.allclose(
+                        y_r, y_ref, rtol=RTOL, atol=ATOL)):
+                    raise AssertionError(f"ring (c) {label} {fmt}: "
+                                         f"{plan.tile_format}, max abs err "
+                                         f"{err} vs segment")
+                print(f"ring (c) {label} {fmt} [{smi}]: "
+                      f"{ring_desc(plan, hops, len(dims) - 1)}; forward "
+                      f"{median_fwd_ms(layers, plan, x):.3f} ms (median of "
+                      f"5, host clock), prepare {prep_s:.2f} s, max abs err "
+                      f"vs segment {err:.3g}")
+                del plan, layers, y_r
+                gc.collect()
+                torch.cuda.empty_cache()
+            del seg_layers, y_ref
+        layers = staged_stack("gated_gcn", gated_dims, "ring", "dense")
+        layers[0].cfg.ring_shards = ring_p
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        try:
+            rt.prepare_graph(g_pub, layers[0].cfg)
+            raise AssertionError("ring (c): the gated dense ring at pubmed "
+                                 "was not refused")
+        except DeviceBudgetExceeded as exc:
+            if "B6" not in str(exc) or (torch.cuda.memory_allocated()
+                                        != mem0):
+                raise AssertionError(f"ring (c): refusal {exc!s} with "
+                                     f"{torch.cuda.memory_allocated() - mem0}"
+                                     f" B allocated")
+            print(f"ring (c) pubmed gated_gcn dense: refused before "
+                  f"allocating: {exc}")
+        del layers
+
+    # (d) training on the ring: uncut pubmed as build_gnn makes it,
+    # against the same runs on "segment"
+    def ring_run(model, fmt, budget=None):
+        step, state, data, _, aux = train_mod.build_gnn(
+            model=model, dataset="pubmed", backend="ring", steps=TRAIN_STEPS,
+            hidden=64, batch=256, max_vertices=None, max_edges=None,
+            ring_shards=ring_p, device_budget_bytes=budget)
+        tr = aux["trainer"]
+        if model == "gs_pool":
+            tr.graph = merged(tr.graph)
+        for layer in tr.layers:
+            layer.cfg.tile_format = fmt
+        tr.rebuild()
+        return tr, state, data
+
+    ring_seg, seg_ms = {}, {}
+    for model in ("gcn", "gs_pool"):
+        tr, state, data = build_run(model, "segment", "auto")
+        ps, opt = state["params"], state["opt"]
+        ring_seg[model], times = [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            ps, opt, m = tr.step(ps, opt, next(data))
+            ring_seg[model].append(float(m["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+        seg_ms[model] = statistics.median(times[1:])
+        del tr, state, data, ps, opt
+    ring_train = []
+    for model, fmt in (("gcn", "dense"), ("gcn", "packed"),
+                       ("gs_pool", "dense"), ("gs_pool", "packed")):
+        label = f"pubmed {model} ring {fmt}"
+        tr, state, data = ring_run(model, fmt)
+        if (tr.plan.backend, tr.plan.tile_format) != ("ring", fmt):
+            raise AssertionError(f"ring (d) {label}: plan "
+                                 f"{tr.plan.backend}/{tr.plan.tile_format}")
+        held = tr.plan.held_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ring_df.reset_hop_counts()
+        ps, opt, losses, times = state["params"], state["opt"], [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            ps, opt, m = tr.step(ps, opt, next(data))
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+        hops = dict(ring_df.hop_counts)
+        ref = np.asarray(ring_seg[model])
+        lerr = float(np.abs(np.asarray(losses) - ref).max())
+        if not np.allclose(losses, ref, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+            raise AssertionError(f"ring (d) {label}: losses {losses} vs "
+                                 f"segment {ref.tolist()}")
+        if tr.plan.held_bytes() != held:
+            raise AssertionError(f"ring (d) {label}: the plan held {held} B "
+                                 f"before training, {tr.plan.held_bytes()} "
+                                 f"after")
+        row = {"run": label, "ms_per_step": statistics.median(times[1:]),
+               "first_step_ms": times[0],
+               "hops_per_step": hops["hops"] / TRAIN_STEPS,
+               "bwd_hops_per_step": hops["bwd_hops"] / TRAIN_STEPS,
+               "mb_rotated_per_step": (hops["bytes"] + hops["bwd_bytes"])
+               / TRAIN_STEPS / 1e6,
+               "device_bytes_per_shard": tr.plan.meta["device_bytes"],
+               "held_bytes": held,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "max_loss_err_vs_segment": lerr}
+        ring_train.append(row)
+        print(f"ring (d) train {label} [{smi}]: median "
+              f"{row['ms_per_step']:.3f} ms/step (host clock, steps 2-"
+              f"{TRAIN_STEPS}; first {times[0]:.1f} ms) vs segment "
+              f"{seg_ms[model]:.3f}; {row['hops_per_step']:g} forward + "
+              f"{row['bwd_hops_per_step']:g} backward hops a step, "
+              f"{row['mb_rotated_per_step']:.2f} MB rotated a step; plan "
+              f"holds {held} B before and after; peak "
+              f"{row['peak_mib']:.1f} MiB; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, max loss err vs segment {lerr:.3g}")
+        del tr, state, data, ps, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"ring training runs: {json.dumps(ring_train)}")
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "smoke_ckpt_ring"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ring_args = dict(gnn_args, gnn_backend="ring", gnn_shards=ring_p,
+                     ckpt_dir=str(ckpt_dir))
+    first = train_mod.run_gnn(argparse.Namespace(**ring_args, steps=2))
+    second = train_mod.run_gnn(argparse.Namespace(**ring_args, steps=4))
+    if (first["start"], first["steps"], first["saves"]) != (0, 2, 1) or (
+            second["start"], second["steps"]) != (2, 4):
+        raise AssertionError(f"run_gnn on the ring did not checkpoint and "
+                             f"resume: {first} / {second}")
+    print(f"run_gnn --gnn-backend ring --gnn-shards {ring_p}: 2 steps, "
+          f"saved; resumed at step {second['start']} to {second['steps']}, "
+          f"losses {first['losses']} + {second['losses']}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (e) the elastic re-mesh: shard loss 4 -> 3, three straggler strikes
+    # -> 2, then a per-shard budget the survivor cannot hold -> tiled
+    tr, state, data = ring_run("gcn", "auto")
+    ps, opt, losses, events = state["params"], state["opt"], [], []
+
+    def steps(k, ps, opt):
+        for _ in range(k):
+            ps, opt, m = tr.step(ps, opt, next(data))
+            losses.append(float(m["loss"]))
+        return ps, opt
+
+    ps, opt = steps(2, ps, opt)
+    spent = tr.stats["remesh_s"]
+    tr.on_failure(ShardLossError(lost_shards=1))
+    events.append(("shard loss", tr.backend, tr.shards,
+                   tr.stats["remesh_s"] - spent))
+    ps, opt = steps(2, ps, opt)
+    spent = tr.stats["remesh_s"]
+    for k in range(3):
+        tr.on_straggler(k, 99.0)
+    events.append(("3 straggler strikes", tr.backend, tr.shards,
+                   tr.stats["remesh_s"] - spent))
+    ps, opt = steps(2, ps, opt)
+    spent = tr.stats["remesh_s"]
+    for layer in tr.layers:
+        layer.cfg.device_budget_bytes = 30_000_000
+    tr.on_failure(ShardLossError(lost_shards=1))
+    events.append(("shard loss under 30 MB", tr.backend, tr.shards,
+                   tr.stats["remesh_s"] - spent))
+    ps, opt = steps(TRAIN_STEPS - 6, ps, opt)
+    shape = [(e[1], e[2]) for e in events]
+    if shape != [("ring", 3), ("ring", 2), ("tiled", None)] or (
+            tr.stats["remesh_count"], tr.stats["degraded"]) != (3, 1):
+        raise AssertionError(f"ring (e): re-meshes {events}, stats "
+                             f"{tr.stats}")
+    ref = np.asarray(ring_seg["gcn"])
+    lerr = float(np.abs(np.asarray(losses) - ref).max())
+    if not np.allclose(losses, ref, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+        raise AssertionError(f"ring (e): losses {losses} vs segment "
+                             f"{ref.tolist()}")
+    print(f"ring (e) elastic re-mesh [{smi}]: " + "; ".join(
+        f"{what} -> {b}" + (f" x{p}" if p else "") + f" in {s:.3f} s"
+        for what, b, p, s in events)
+        + f" (remesh host seconds, plan rebuild included); "
+        f"{tr.plan.streaming_mode} route after the spill; {len(losses)} "
+        f"losses within {lerr:.3g} of segment's")
+    del tr, state, data, ps, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) serving's ring gate: a budget every batch's own plan exceeds
+    # and every batch's per-shard ring plan fits
+    reqs_r = serve_requests(16)
+    roomy = GNNServingEngine(g13, x13, gcn13, None, exact_cfg())
+    priced = []
+
+    def price(sub, xs, run=roomy._run_batch, eng=roomy):
+        dims_r = [f_pub, 64, c_pub]
+        priced.append((eng._subgraph_footprint(sub.graph), min(
+            ring_df.ring_stripe_bytes(sub.graph, ring_p,
+                                      tile=eng.config.ring_tile,
+                                      in_dim=max(dims_r),
+                                      out_dim=max(dims_r), tile_format=f)
+            for f in ("dense", "packed"))))
+        return run(sub, xs)
+    roomy._run_batch = price
+    want_r = serve(roomy, reqs_r)
+    budget = max(r for _, r in priced)
+    if budget >= min(fp for fp, _ in priced):
+        raise AssertionError(f"ring (f): no budget lies between the ring "
+                             f"prices and the batches' own {priced}")
+    eng_r = GNNServingEngine(g13, x13, gcn13, None, exact_cfg(
+        engn=rt.EnGNConfig(in_dim=0, out_dim=0, device_budget_bytes=budget,
+                           ring_shards=ring_p)))
+    t = time.perf_counter()
+    got_r = serve(eng_r, reqs_r)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    batches = eng_r.batcher.stats["batches"]
+    if (eng_r.stats["ring_batches"], eng_r.stats["tiled_batches"]) != (
+            batches, 0) or batches == 0:
+        raise AssertionError(f"ring (f): {eng_r.stats['ring_batches']} ring "
+                             f"and {eng_r.stats['tiled_batches']} tiled of "
+                             f"{batches} batches")
+    err = hold("ring (f)", got_r, want_r, rtol=1e-5, atol=1e-5)
+    print(f"ring (f) serving pubmed gcn, ring_shards {ring_p} [{smi}]: budget "
+          f"{budget} B under every batch's own price (smallest "
+          f"{min(fp for fp, _ in priced)} B), {batches} of {batches} "
+          f"batches on the ring, {dt * 1e3:.1f} ms for {len(reqs_r)} "
+          f"requests, max abs err vs the unbudgeted engine {err:.3g}")
+    del roomy, eng_r
+    p14_counts = K.launch_counts()
+    print(f"phase-14 launches: {p14_counts}")
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
               "b4": b4_counts, "training": train_counts,
               "staged": staged_counts, "staged_tiled": staged_tiled_counts,
               "staged_training": staged_train_counts,
               "streamed_training": stream_counts, "phase12": p12_counts,
-              "serving": p13_counts}
+              "serving": p13_counts, "ring": p14_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

@@ -36,7 +36,7 @@ training as the reference does (`cfg.training=True` doubles the
 activations).
 
 The typed and gated stage contracts (R-GCN, Gated-GCN: `stage_spec`)
-run on "segment", "blocked" and, for inference, "tiled".  Typed dense
+run on "segment", "blocked", "ring" and "tiled".  Typed dense
 tiles keep one `rer_spmm` plan per relation, each launched on its own
 contiguous H-wide payload slice; typed packed plans carry the flat
 entries with a relation column, and gated packed plans the flat entries
@@ -56,9 +56,14 @@ run B5^T over the device queue); the layer then returns a device tensor.
 Under `torch.no_grad()` / `torch.inference_mode()` a tiled layer keeps
 its host-streamed inference path.
 
-The sharded "ring" backend is not ported yet and raises
-`NotImplementedError` naming its ROADMAP item; nothing falls back to
-another backend.
+The sharded "ring" backend (`prepare_ring`, `core/dataflow.py`) splits
+the destination vertices into P shards, each keeping its stripe of the
+graph (dense tiles or packed entries) and its accumulator, while the
+source-feature shards rotate: every model and contract runs on it,
+forward and backward (the rotation is an autograd Function).  The P
+shards live on the plan's device as P sets of tensors; the budget is per
+shard, as in the reference, and on `cuda` the co-located shards are also
+priced together against the card's free memory.
 """
 from __future__ import annotations
 
@@ -82,11 +87,6 @@ from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.partition import tile_schedule_order
 
 AggregateOp = str  # "sum" | "max" | "mean"
-
-_NOT_PORTED = {
-    "ring": "the sharded 'ring' backend is not ported yet (ROADMAP A8)",
-}
-
 
 def segment_aggregate(edge_vals: torch.Tensor, dst: torch.Tensor, n: int,
                       op: AggregateOp) -> torch.Tensor:
@@ -119,7 +119,7 @@ class EnGNConfig:
     out_dim: int
     aggregate_op: AggregateOp = "sum"
     stage_order: str = "auto"          # "auto" | "fau" | "afu"
-    backend: str = "segment"           # "segment" | "blocked" | "fused"
+    backend: str = "segment"           # segment|blocked|fused|ring|tiled
     tile: int = 256                    # T for the tile backends
     tile_format: str = "auto"          # "dense" | "packed" | "auto"
     packed_bucket_floor: int = 8
@@ -227,8 +227,6 @@ class EnGNLayer(nn.Module):
             if self._differentiated(x):
                 return self._apply_tiled_diff(graph, x)
             return self._apply_tiled(graph, x)
-        if backend == "ring":
-            raise NotImplementedError(_NOT_PORTED[backend])
         x = torch.as_tensor(x, dtype=self.cfg.dtype, device=self.device)
         agg = partial(self._aggregate, graph)
         linear_sum = (self.cfg.aggregate_op == "sum"
@@ -258,9 +256,7 @@ class EnGNLayer(nn.Module):
         if backend == "fused":
             raise ValueError(
                 "the fused Fig. 8 kernel serves the default contract "
-                "only; use blocked/tiled for staged models")
-        if backend == "ring":
-            raise NotImplementedError(_NOT_PORTED[backend])
+                "only; use blocked/tiled/ring for staged models")
         if spec["kind"] == "typed":
             return self._staged_typed(graph, x, spec, backend)
         if spec["kind"] == "gated":
@@ -308,6 +304,11 @@ class EnGNLayer(nn.Module):
                 ev = self.extract(x[src], x[dst], val, rel)
                 agg = segment_aggregate(ev, dst, n, "sum")
             return self.update(x, agg)
+        if backend == "ring":
+            y = graph["ring_fn"](*graph["ring_operands"],
+                                 _pad_rows(graph, self.src_payload(x)),
+                                 graph["ring_counts"])
+            return self.update(x, y[:n])
         if backend != "blocked":
             raise ValueError(backend)
         xw = self.src_payload(x)                          # (n, r*h)
@@ -353,12 +354,23 @@ class EnGNLayer(nn.Module):
             src, dst, val = _segment_edges(graph, x.device)
             ev = self.extract(x[src], x[dst], val, None)
             return self.update(x, segment_aggregate(ev, dst, n, "sum"))
+        ph, pc = self.gate_dst(x), self.gate_src(x)
+        pad = partial(_pad_rows, graph)
+        if backend == "ring":
+            # ph stays on its destination shard, (pc || x) rotates
+            meta = graph["ring_meta"]
+            if x.device.type == "cuda" and meta["tile_format"] == "dense":
+                check_gated_ring(meta["shards"], meta["s_max"],
+                                 meta["tile"], x.shape[1],
+                                 self.cfg.device_budget_bytes, x.device)
+            y = graph["ring_fn"](*graph["ring_operands"], pad(ph),
+                                 torch.cat([pad(pc), pad(x)], dim=1),
+                                 graph["ring_counts"])
+            return self.update(x, y[:n])
         if backend != "blocked":
             raise ValueError(backend)
-        ph, pc = self.gate_dst(x), self.gate_src(x)
         meta = graph["blocks_meta"]
         pad_n = meta["padded"]
-        pad = partial(_pad_rows, graph)
         if "packed_flat" in graph:
             gsrc, gdst, gval = graph["packed_flat"]
             gsrc, gdst = gsrc.long(), gdst.long()
@@ -466,7 +478,9 @@ class EnGNLayer(nn.Module):
             raise RuntimeError("the streamed tiled backend runs through "
                                "EnGNLayer._apply_tiled, not _aggregate")
         if backend == "ring":
-            raise NotImplementedError(_NOT_PORTED[backend])
+            y = graph["ring_fn"](*graph["ring_operands"],
+                                 _pad_rows(graph, feat), graph["ring_counts"])
+            return y[:graph["n"]]
         if backend not in ("blocked", "fused"):
             raise ValueError(backend)
         n = graph["n"]
@@ -518,9 +532,11 @@ def _segment_edges(graph: Dict[str, Any], dev: torch.device):
 
 
 def _pad_rows(graph: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """x (n, F) zero-padded to the tile grid's q*T rows."""
+    """x (n, F) zero-padded to the tile grid's q*T rows (the ring's P
+    shards of n_loc)."""
     n = graph["n"]
-    xf = torch.zeros((graph["blocks_meta"]["padded"], x.shape[1]),
+    meta = graph.get("blocks_meta") or graph["ring_meta"]
+    xf = torch.zeros((meta["padded"], x.shape[1]),
                      dtype=x.dtype, device=x.device)
     xf[:n] = x
     return xf
@@ -593,6 +609,17 @@ def check_gated_dense(nbytes: int, budget: Optional[int],
             f"tile_format='packed' or 'auto'")
 
 
+def check_gated_ring(p: int, s_max: int, tile: int, f: int,
+                     budget: Optional[int], dev: torch.device) -> None:
+    """`check_gated_dense` for a dense ring stripe on the card: a shard's
+    aggregate materialises (s_max, T, T, F) tensors for each of its P
+    steps, priced against the per-shard budget, and the P co-located
+    shards together against the card's free memory."""
+    per_shard = gated_dense_bytes(p * s_max, tile, f)
+    check_gated_dense(per_shard, budget, None)
+    check_gated_dense(p * per_shard, None, torch.cuda.mem_get_info(dev)[0])
+
+
 def typed_dense_bytes(g: COOGraph, tile: int, in_dim: int, out_dim: int,
                       training: bool = False) -> int:
     """Device bytes of a typed dense plan (`_prepare_blocked_typed` with
@@ -659,7 +686,8 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
         return prepare_tiled(g, cfg, out_dim, device=dev,
                              rel_normed=rel_normed)
     if backend == "ring":
-        raise NotImplementedError(_NOT_PORTED[backend])
+        return prepare_ring(g, cfg, out_dim, rel_normed=rel_normed,
+                            device=dev)
     d: Dict[str, Any] = {"n": g.num_vertices, "backend": backend,
                          "device": dev}
     if backend == "segment":
@@ -775,6 +803,143 @@ def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
                         "resident_feature_bytes":
                             (2 if cfg.training else 1) * 4
                             * g.num_vertices * (cfg.in_dim + h)}})
+
+
+def prepare_ring(g: COOGraph, cfg: EnGNConfig,
+                 out_dim: Optional[int] = None, plan=None, mesh=None,
+                 rel_normed: bool = False,
+                 device: DeviceLike = None) -> PreparedPlan:
+    """The `PreparedPlan` of the sharded ring backend (C2): destination
+    vertices (and their stripe of edges) split into P shards, each
+    keeping its stripe and accumulator while the source-feature shards
+    rotate (`core/dataflow.py`).  The shards live on the mesh's device
+    (`device`, `cuda` unless the caller passes "cpu", when no `mesh` is
+    given), P sets of tensors on one device: shard d holds one tensor an
+    operand for each source shard s, up to that pair's last live slot
+    (`dataflow.pair_counts`; the reference pads every pair to one
+    length, a price the budget gate still charges).
+
+    `cfg.tile_format` picks the stripe carrier: dense T x T tiles,
+    packed (row, col, val) entries at pow2 nnz buckets, or "auto",
+    whichever stages fewer bytes (priced by `ring_stripe_bytes` before
+    any build).  A prebuilt `plan` (either class) pins the format.
+
+    `device_budget_bytes` is per shard and is checked against the plan as
+    built: over it the plan spills to the streamed tiled executor
+    (`auto_spill`) or raises, as the reference's does.  On `cuda` the P
+    co-located shards must also fit the card's free memory together,
+    else `DeviceBudgetExceeded` before anything is allocated; a gated
+    dense stripe is priced by `check_gated_ring` (ROADMAP B6)."""
+    from repro_torch.core import dataflow as df
+    from repro_torch.distributed.sharding import ring_mesh
+    h = out_dim if out_dim is not None else cfg.out_dim
+    g, rel_normed = _maybe_fold_rel_norm(g, cfg, rel_normed)
+    typed = (cfg.stage_contract == "typed" and g.rel is not None
+             and g.num_relations > 1)
+    if mesh is None:
+        mesh = ring_mesh(cfg.ring_shards, cfg.ring_axis, device=device)
+    dev, p = mesh.device, mesh.num_shards
+    if plan is None:
+        fmt = cfg.tile_format
+        if fmt == "auto":
+            dense_b = df.ring_stripe_bytes(g, p, tile=cfg.tile,
+                                           tile_format="dense")
+            packed_b = df.ring_stripe_bytes(
+                g, p, tile=cfg.tile, tile_format="packed",
+                bucket_floor=cfg.packed_bucket_floor,
+                value_dtype=cfg.tile_value_dtype)
+            fmt = "packed" if packed_b < dense_b else "dense"
+        if fmt == "packed":
+            plan = df.build_packed_ring_shards(
+                g, p, bucket_floor=cfg.packed_bucket_floor)
+        else:
+            plan = df.build_ring_tile_shards(g, p, tile=cfg.tile)
+    packed = isinstance(plan, df.PackedRingShards)
+    # the staged contracts widen the rotating shard: typed rotates the
+    # (N, R*H) stacked payload, gated the (pc || x) 2F stream
+    feat_f = cfg.in_dim
+    if typed:
+        feat_f = max(feat_f, g.num_relations * h)
+    elif cfg.stage_contract == "gated":
+        feat_f = max(feat_f, 2 * cfg.in_dim)
+    feat_need = df.ring_feature_bytes(plan.n_loc, feat_f, h)
+    if cfg.training:
+        feat_need *= 2          # cotangent twins of the rotating shards
+    need = plan.device_bytes() + feat_need
+    if cfg.device_budget_bytes and need > cfg.device_budget_bytes:
+        if not cfg.auto_spill:
+            raise DeviceBudgetExceeded(
+                f"ring backend needs ~{need} device bytes per shard "
+                f"({p} shards), budget is {cfg.device_budget_bytes} "
+                f"per shard (more shards shrink the stripe; "
+                f"auto_spill=True streams tiles out-of-core instead)")
+        return prepare_tiled(g, cfg, out_dim, device=dev,
+                             rel_normed=rel_normed)
+    if dev.type == "cuda":
+        free = torch.cuda.mem_get_info(dev)[0]
+        if p * need > free:
+            raise DeviceBudgetExceeded(
+                f"the ring's {p} shards are co-located on {dev}: {p} x "
+                f"{need} B per shard is over the card's free memory "
+                f"({free} B)")
+        if cfg.stage_contract == "gated" and not packed:
+            check_gated_ring(p, plan.s_max, plan.tile, cfg.in_dim,
+                             cfg.device_budget_bytes, dev)
+    if packed:
+        operands = [plan.rows, plan.cols, plan.vals]
+        if typed:
+            if plan.rels is None:
+                raise ValueError(
+                    "typed stage contract needs a relation-typed ring "
+                    "plan (build from the typed COOGraph)")
+            operands.append(plan.rels)
+            ring_fn = df.make_ring_typed_sum_packed(
+                mesh, cfg.ring_axis, plan.n_loc, g.num_relations)
+        elif cfg.stage_contract == "gated":
+            ring_fn = df.make_ring_gated_packed(mesh, cfg.ring_axis,
+                                                plan.n_loc)
+        else:
+            ring_fn = df.make_ring_packed_aggregate(
+                mesh, cfg.ring_axis, cfg.aggregate_op, plan.n_loc)
+    else:
+        operands = [plan.blocks, plan.tile_row, plan.tile_col]
+        if typed:
+            if plan.tile_rel is None:
+                raise ValueError(
+                    "typed stage contract needs a relation-typed ring "
+                    "plan (build from the typed COOGraph)")
+            operands.append(plan.tile_rel)
+            ring_fn = df.make_ring_typed_sum_tiled(
+                mesh, cfg.ring_axis, plan.q_loc, plan.tile,
+                g.num_relations)
+        elif cfg.stage_contract == "gated":
+            ring_fn = df.make_ring_gated_tiled(mesh, cfg.ring_axis,
+                                               plan.q_loc, plan.tile)
+        else:
+            ring_fn = df.make_ring_tiled_aggregate(
+                mesh, cfg.ring_axis, cfg.aggregate_op, plan.q_loc,
+                plan.tile)
+
+    # each shard pair's slots are uploaded up to its last live one: the
+    # pads after it only exist to give the reference's stripes one static
+    # shape, and swept eagerly they would all land on local row 0
+    live = df.pair_counts(plan)
+
+    def pairs(a: np.ndarray):
+        """Shard d's operand: one tensor per source shard s."""
+        return [[_upload(a[d, s, :live[d, s]], dev) for s in range(p)]
+                for d in range(p)]
+    return wrap_plan({
+        "n": g.num_vertices, "backend": "ring", "device": dev,
+        "ring_operands": tuple(pairs(a) for a in operands),
+        "ring_counts": [_upload(c, dev) for c in plan.in_counts],
+        "ring_fn": ring_fn,
+        "ring_meta": {"shards": p, "padded": plan.padded_vertices,
+                      "mesh": mesh, "tile": plan.tile,
+                      "q_loc": plan.q_loc, "s_max": plan.s_max,
+                      "nnzb": plan.nnzb, "device_bytes": need,
+                      "tile_format": "packed" if packed else "dense",
+                      "stats": plan.stats(cfg.in_dim, h)}})
 
 
 def update_plan(plan: PreparedPlan, snapshot, cfg: EnGNConfig,

@@ -10,7 +10,7 @@
 
 R-GCN and Gated-GCN ride the typed and gated stage contracts
 (`stage_spec()` with `src_payload` / `gate_dst` / `gate_src`) on
-"segment", "blocked" and, for inference, "tiled"; "fused" serves the
+"segment", "blocked", "ring" and "tiled"; "fused" serves the
 default contract only and refuses them, as the reference does.  Their
 parameters are the reference's by name and shape (`w0`, `wr` of shape
 (R, F, H); `w_h`, `w_c`, `w`), so `interop.load_reference_params`

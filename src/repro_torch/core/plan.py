@@ -25,7 +25,8 @@ class PreparedPlan:
                      segment.
     streaming_mode:  the tiled backend's landed regime ("chunk_queue" |
                      "callback"), None for device-resident backends.
-    footprint_bytes: device bytes the plan claims for resident backends;
+    footprint_bytes: device bytes the plan claims for resident backends
+                     (per shard for the ring);
                      host store bytes + resident feature bytes for the
                      streamed tiled backend (0 when the backend records
                      no estimate).
@@ -46,9 +47,11 @@ class PreparedPlan:
 
     @property
     def meta(self) -> Dict[str, Any]:
-        """`blocks_meta` or `tiled_meta`, or {} (segment carries none)."""
+        """`blocks_meta`, `tiled_meta` or `ring_meta`, or {} (segment
+        carries none)."""
         return (self.carrier.get("blocks_meta")
-                or self.carrier.get("tiled_meta") or {})
+                or self.carrier.get("tiled_meta")
+                or self.carrier.get("ring_meta") or {})
 
     @property
     def device(self):
@@ -101,7 +104,8 @@ def wrap_plan(carrier: Dict[str, Any]) -> PreparedPlan:
     if isinstance(carrier, PreparedPlan):
         return carrier
     backend = carrier.get("backend", "segment")
-    meta = carrier.get("blocks_meta") or carrier.get("tiled_meta") or {}
+    meta = (carrier.get("blocks_meta") or carrier.get("tiled_meta")
+            or carrier.get("ring_meta") or {})
     footprint = int(meta.get("device_bytes") or 0)
     if not footprint and backend in ("blocked", "fused"):
         # dense block carriers price their uploaded operands directly

@@ -10,16 +10,22 @@ runner and atomic checkpoints.
     PYTHONPATH=src python -m repro_torch.launch.train --gnn gcn \\
         --gnn-backend blocked --device cpu --steps 20
 
+    # the sharded ring: 4 shards, co-located on the one card
+    PYTHONPATH=src python -m repro_torch.launch.train --gnn gcn \\
+        --gnn-backend ring --gnn-shards 4 --steps 30
+
 Backends `segment`, `blocked` (dense or packed tiles, as the format
-autotuner picks), `fused` and the streamed `tiled` train, `tiled`
-directly or by a budget spill (`--device-budget`: a plan over it streams
-the graph from the host, its backward re-streaming the transposed tiles
-or running B5^T over the device queue); `--gnn rgcn` (a 3-type edge
-colouring, `rel = (src + dst) % 3`) and `--gnn gated_gcn` train on
-`segment`, `blocked` and `tiled`, and refuse `fused` as the reference
-does.  Not ported yet, each raising `NotImplementedError` with its
-ROADMAP item: the sharded `ring` (A8), the chaos schedule
-(`--chaos-seed`, A11) and the LM mode (`--arch`, A12).
+autotuner picks), `fused`, the sharded `ring` and the streamed `tiled`
+train, `tiled` directly or by a budget spill (`--device-budget`: a plan
+over it streams the graph from the host, its backward re-streaming the
+transposed tiles or running B5^T over the device queue; on the ring the
+budget is per shard); `--gnn rgcn` (a 3-type edge colouring, `rel =
+(src + dst) % 3`) and `--gnn gated_gcn` train on `segment`, `blocked`,
+`ring` and `tiled`, and refuse `fused` as the reference does.  Shard
+loss and straggler strikes re-mesh the ring (`ElasticGNNTrainer`).  Not
+ported yet, each raising `NotImplementedError` with its ROADMAP item:
+the chaos schedule (`--chaos-seed`, A11) and the LM mode (`--arch`,
+A12).
 """
 from __future__ import annotations
 
@@ -31,7 +37,6 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.core.engn import _NOT_PORTED
 from repro_torch.distributed.fault import FaultConfig, FaultTolerantRunner
 
 _NOT_YET = {
@@ -45,13 +50,16 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
               ring_shards=None, device_budget_bytes=None,
               max_vertices: int = 4000, max_edges: int = 30_000,
               peak_lr: float = 5e-3, seed: int = 0, device=None,
-              reference_params=None):
+              reference_params=None, strike_limit: int = 3):
     """Assemble (train_step, init_state, data, plan, aux) for a 2-layer
     EnGN stack, as the reference's `build_gnn`: the dataset's R-MAT
     stand-in (F capped at 128), GCN-normalised; labels from a hidden
     GCN teacher [F, 16, classes] on the `segment` backend; the student
     [F, hidden, classes] on `backend` with `cfg.training=True`, so the
-    budget gate prices the backward's buffers.
+    budget gate prices the backward's buffers.  `backend="ring"` trains
+    on `ring_shards` shards (default: the visible devices), gradients
+    flowing back through the rotation; the trainer (`aux["trainer"]`)
+    re-meshes it on shard loss or `strike_limit` straggler strikes.
 
     `rgcn` colours the (untyped) dataset's edges with 3 types, `rel =
     (src + dst) % 3`, as the reference does, so the typed contract runs
@@ -72,8 +80,6 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
     from repro_torch.launch.elastic_gnn import ElasticGNNTrainer
     from repro_torch.training.optimizer import init_opt_state
 
-    if backend == "ring" or ring_shards is not None:
-        raise NotImplementedError(_NOT_PORTED["ring"])
     dev = resolve_device(device)
     refs = reference_params or {}
     g, f, classes = make_dataset(dataset, max_vertices=max_vertices,
@@ -99,6 +105,7 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
     layers = make_gnn_stack(model, [f, hidden, classes], backend=backend,
                             num_relations=num_rel, device=dev, seed=seed)
     for layer in layers:
+        layer.cfg.ring_shards = ring_shards
         layer.cfg.device_budget_bytes = device_budget_bytes
         # price the budget gate for forward AND backward buffers
         layer.cfg.training = True
@@ -108,7 +115,8 @@ def build_gnn(*, model: str, dataset: str, backend: str, steps: int,
 
     trainer = ElasticGNNTrainer(layers=layers, graph=gn, x=x,
                                 y_true=y_true, hidden=hidden,
-                                peak_lr=peak_lr, steps=steps)
+                                peak_lr=peak_lr, steps=steps,
+                                strike_limit=strike_limit)
     data = GraphNodeStream(g.num_vertices, classes, batch=batch, seed=1)
     state = {"params": params, "opt": init_opt_state(params)}
     aux = {"layers": layers, "graph": trainer.plan, "x": x,
@@ -127,7 +135,8 @@ def run_gnn(args):
         steps=args.steps, hidden=args.gnn_hidden, batch=args.batch,
         ring_shards=args.gnn_shards,
         device_budget_bytes=args.device_budget or None,
-        device=args.device)
+        device=args.device,
+        strike_limit=getattr(args, "straggler_strikes", 3))
     trainer = aux["trainer"]
     shown = {k: v for k, v in gd.meta.items() if k not in ("mesh", "stats")}
     print(f"gnn={args.gnn} backend={gd.backend} device={gd.device} "
@@ -160,7 +169,12 @@ def run_gnn(args):
     mgr.wait()
     traj = (f"loss {losses[0]:.3f} -> {losses[-1]:.3f}" if losses
             else "no steps run (checkpoint already at --steps)")
-    print(f"done: {last} steps, {traj}, saves={runner.stats['saves']}")
+    recov = (f", remesh={trainer.stats['remesh_count']} "
+             f"lost_steps={runner.stats['lost_steps']:.0f} "
+             f"mttr={runner.stats['mttr_s']:.2f}s"
+             if runner.stats["failures"] else "")
+    print(f"done: {last} steps, {traj}, saves={runner.stats['saves']}"
+          f"{recov}")
     return {"start": start, "steps": last, "losses": losses,
             "saves": runner.stats["saves"]}
 
@@ -176,11 +190,13 @@ def main(argv=None):
                     choices=["segment", "blocked", "fused", "ring",
                              "tiled"])
     ap.add_argument("--gnn-shards", type=int, default=None,
-                    help="ring backend: devices in the ring (ROADMAP A8)")
+                    help="ring backend: shards in the ring (default: the "
+                         "visible devices; co-located on one card)")
     ap.add_argument("--gnn-hidden", type=int, default=32)
     ap.add_argument("--dataset", default="pubmed")
     ap.add_argument("--device-budget", type=int, default=0,
-                    help="device budget in bytes (0 = off)")
+                    help="device budget in bytes, per shard on the ring "
+                         "(0 = off)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     ap.add_argument("--steps", type=int, default=100)
@@ -189,6 +205,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--chaos-seed", type=int, default=None,
                     help="seeded fault schedule (ROADMAP A11)")
+    ap.add_argument("--straggler-strikes", type=int, default=3,
+                    help="straggler episodes before the ring sheds the "
+                         "slow shard")
     args = ap.parse_args(argv)
     if args.gnn:
         return run_gnn(args)

@@ -40,11 +40,12 @@ instead — same results, bounded device footprint, counted in
 `stats["tiled_batches"]`.  On a card its packed chunks run B2's tile
 part (`rer_gather_part_launch`).
 
-Shard-aware gate: where the reference would try its sharded ring plan
-(`ring_shards` set, a batch over budget, one aggregation op and stage
-contract across the stack), the port raises `NotImplementedError`
-naming ROADMAP A8: the ring backend is not ported, and a batch the
-reference serves on the ring is not sent to host streaming instead.
+Shard-aware gate: with `ring_shards` set, an over-budget batch whose
+per-shard ring plan fits the budget (the budget is per shard) runs on
+the sharded ring backend instead of host streaming, counted in
+`stats["ring_batches"]`; a stack mixing aggregation ops or stage
+contracts skips the ring.  The ring's shards are co-located on the
+engine's device, where the reference, short of devices, would stream.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.engn import _NOT_PORTED, EnGNConfig, fold_rel_norm
+from repro_torch.core.engn import EnGNConfig, fold_rel_norm
 from repro_torch.core.models import apply_stack
 from repro_torch.core.tiled import TiledExecutor, dense_footprint_bytes
 from repro_torch.graphs.format import COOGraph
@@ -395,12 +396,14 @@ class GNNServingEngine:
     def _run_batch(self, sub, xs: np.ndarray) -> torch.Tensor:
         """Upload one subgraph and its features and run the stack: the
         output on the device (a CPU tensor from the streamed route),
-        over-budget batches routed through the streamed-tiled fallback
-        (the ring gate raises: A8)."""
+        over-budget batches routed through the ring or the streamed-tiled
+        fallback."""
         g = sub.graph
         budget = self.config.engn.device_budget_bytes
         if budget and self._subgraph_footprint(g) > budget:
-            self._try_ring_plan(g)
+            ring_gd = self._try_ring_plan(g)
+            if ring_gd is not None:
+                return self._run_subgraph_ring(xs, ring_gd)
             return self._run_subgraph_tiled(sub, xs)
         if not self._can_bucket:
             gd = {"n": g.num_vertices, "src": self._upload(g.src),
@@ -477,22 +480,70 @@ class GNNServingEngine:
             f = max(f, 2 * layer.cfg.in_dim)
         return f
 
-    def _try_ring_plan(self, g: COOGraph) -> None:
-        """The reference's shard-aware gate: with `ring_shards` set and
-        one aggregation op and stage contract across the stack, it plans
-        the batch on the sharded ring.  That backend is not ported, so
-        the port raises there; a mixed stack skips the ring in both
-        packages and streams."""
-        if not self.config.engn.ring_shards:
-            return
+    def _try_ring_plan(self, g: COOGraph):
+        """Shard-aware footprint gate (DESIGN.md C2): price the per-shard
+        ring plan of this batch's subgraph and return it prepared when
+        it fits the per-shard budget, else None (the batch then streams).
+        The ring aggregate is built per aggregation op, so mixed-op
+        stacks skip the ring."""
+        p = self.config.engn.ring_shards
+        if not p:
+            return None
         ops = {ly.cfg.aggregate_op for ly in self.layers}
         contracts = {ly.cfg.stage_contract for ly in self.layers}
         if len(ops) != 1 or len(contracts) != 1:
-            return
-        raise NotImplementedError(
-            f"{_NOT_PORTED['ring']}: this batch's subgraph "
-            f"({g.num_vertices} V, {g.num_edges} E) is over the device "
-            f"budget with ring_shards={self.config.engn.ring_shards}")
+            return None
+        contract = contracts.pop()
+        from repro_torch.core.dataflow import (build_packed_ring_shards,
+                                               build_ring_tile_shards,
+                                               ring_stripe_bytes)
+        from repro_torch.core.engn import prepare_ring
+        from repro_torch.distributed.sharding import ring_mesh
+        mesh = ring_mesh(p, device=self.device)
+        # typed contract: fold the per-(dst, rel) normalisation into the
+        # edge weights before the plan build (prepare_ring is told not
+        # to fold again)
+        rel_normed = False
+        if (g.rel is not None and g.num_relations > 1
+                and any(ly.cfg.rel_normalize for ly in self.layers)):
+            g = fold_rel_norm(g)
+            rel_normed = True
+        # price both stripe carriers before building: an over-budget
+        # batch pays nothing, and the cheaper format is built once
+        dims = ([self._staged_feat_dim(self.layers[0])]
+                + [ly.cfg.out_dim for ly in self.layers])
+        dense_b = ring_stripe_bytes(g, p, tile=self.config.ring_tile,
+                                    in_dim=max(dims), out_dim=max(dims),
+                                    tile_format="dense")
+        packed_b = ring_stripe_bytes(g, p, tile=self.config.ring_tile,
+                                     in_dim=max(dims), out_dim=max(dims),
+                                     tile_format="packed")
+        if min(dense_b, packed_b) > self.config.engn.device_budget_bytes:
+            return None
+        if packed_b <= dense_b:
+            plan = build_packed_ring_shards(g, p)
+        else:
+            plan = build_ring_tile_shards(g, p, tile=self.config.ring_tile)
+        cfg = EnGNConfig(in_dim=self.layers[0].cfg.in_dim,
+                         out_dim=self.layers[-1].cfg.out_dim,
+                         aggregate_op=ops.pop(), backend="ring",
+                         tile=self.config.ring_tile, ring_shards=p,
+                         stage_contract=contract,
+                         num_relations=max(ly.cfg.num_relations
+                                           for ly in self.layers),
+                         rel_normalize=any(ly.cfg.rel_normalize
+                                           for ly in self.layers))
+        return prepare_ring(g, cfg, plan=plan, mesh=mesh,
+                            rel_normed=rel_normed)
+
+    def _run_subgraph_ring(self, xs: np.ndarray, gd) -> torch.Tensor:
+        """Run the stack over the subgraph's ring plan: each shard holds
+        its stripe, the feature shards rotate, so the per-shard budget
+        admits subgraphs ~P x larger than one shard before host
+        streaming is needed."""
+        y = self._stack(gd, self._upload(np.asarray(xs, np.float32)))
+        self.stats["ring_batches"] += 1
+        return y
 
     def _run_subgraph_tiled(self, sub, xs: np.ndarray) -> torch.Tensor:
         """Run the stack through the streamed tiled executor: the

@@ -58,9 +58,7 @@ class EngineFailure(RuntimeError):
     """The whole engine (device/replica) is unusable — escalate instead
     of mapping to per-request errors.  `ReplicatedServer` catches this
     to evict the replica and requeue its requests; everything else
-    raised inside a batch becomes ``Response.status == "error"``, except
-    the `NotImplementedError` of a route not ported yet, which reaches
-    the caller too."""
+    raised inside a batch becomes ``Response.status == "error"``."""
 
 
 @dataclass
@@ -212,11 +210,9 @@ class ServingPipeline:
                                                 t.miss, y)
             else:
                 out = t.out
-        except (EngineFailure, NotImplementedError):
+        except EngineFailure:
             # whole-replica failure: put the ticket back so an evicting
-            # ReplicatedServer can requeue its requests, then escalate;
-            # a route the port has not built yet (the ring gate, A8) is
-            # no per-request error either: it reaches the caller
+            # ReplicatedServer can requeue its requests, then escalate
             self.inflight.appendleft(t)
             raise
         except Exception:  # noqa: BLE001 — map to status="error"

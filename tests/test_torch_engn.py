@@ -221,16 +221,6 @@ def test_entry_points_default_to_cuda():
         rt.EnGNLayer(cfg)
 
 
-@pytest.mark.parametrize("case", ["ring"])
-def test_unported_paths_raise_with_their_roadmap_item(case):
-    g, _, _ = _graph()
-    cfg = t_engn.EnGNConfig(12, 5, backend="blocked", tile=16)
-    item = {"ring": "A8"}[case]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cfg.backend = case
-        rt.prepare_graph(g, cfg, device="cpu")
-
-
 def test_strict_budget_raises_device_budget_exceeded():
     g, _, _ = _graph()
     for fmt in ("dense", "packed"):

@@ -557,20 +557,22 @@ def test_engine_rejects_layers_on_two_devices():
         GNNServingEngine(g, np.zeros((300, 8), np.float32), layers, None)
 
 
-def test_ring_gate_raises_naming_a8():
-    """With ring_shards set, an over-budget batch is where the reference
-    plans its ring: the port raises naming A8 (it does not stream the
-    batch instead); a batch under the budget serves as usual."""
-    _, _, _, te = _engines(batch_size=8, engn={
-        "device_budget_bytes": 50_000, "ring_shards": 2})
-    te.submit(0, np.arange(25, dtype=np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        te.drain()
-    assert te.stats["tiled_batches"] == 0
+def test_ring_gate_serves_over_budget_batches_on_the_ring():
+    """With ring_shards set, a batch over the budget whose per-shard ring
+    plan fits it is served on the ring, as the reference serves it (no
+    batch streams); a batch under the budget serves as usual."""
+    _, _, je, te = _engines(batch_size=8, engn={
+        "device_budget_bytes": 100_000, "ring_shards": 2})
+    reqs = [(0, np.arange(25, dtype=np.int32))]
+    want, got = _serve(je, reqs), _serve(te, reqs)
+    assert te.stats["ring_batches"] == je.stats["ring_batches"] > 0
+    assert te.stats["tiled_batches"] == je.stats["tiled_batches"] == 0
+    _assert_close(got, want)
     _, _, _, roomy = _engines(batch_size=8, engn={
         "device_budget_bytes": 10 ** 9, "ring_shards": 2})
     assert _serve(roomy, [(0, np.arange(5, dtype=np.int32))])[0].shape \
         == (5, 4)
+    assert roomy.stats["ring_batches"] == 0
 
 
 def test_ring_gate_skips_a_mixed_stack_as_the_reference_does():

@@ -903,7 +903,8 @@ def test_gnn_training_trajectory_tiled_matches_reference(model):
 def test_launcher_budget_spill_trains_streamed():
     """A blocked run whose budget the plan exceeds spills to "tiled" and
     trains along the segment run from the same weights (the reference's
-    launcher case spills a ring; the port has no ring yet, A8)."""
+    launcher case spills a ring; the port's ring spill is held in
+    `tests/test_torch_ring_train.py`)."""
     kw = _gnn_kw(3)
     seg, _, refs = _reference_run("segment", **kw)
     spill, gd = _port_run("blocked", reference_params=refs,

@@ -616,24 +616,46 @@ def test_launcher_main_trains_on_the_cpu_when_asked(tmp_path):
     assert out["steps"] == 2 and len(out["losses"]) == 2
 
 
-@pytest.mark.parametrize("case,item", [
-    ("ring", "A8"), ("shards", "A8"), ("chaos", "A11"), ("lm", "A12"),
-    ("remesh", "A8")])
+@pytest.mark.parametrize("case,item", [("chaos", "A11"), ("lm", "A12")])
 def test_unported_training_paths_raise_with_their_roadmap_item(case, item,
                                                               tmp_path):
-    kw = dict(_gnn_kw(2), device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if case == "ring":
-            t_train.build_gnn(backend="ring", **kw)
-        elif case == "shards":
-            t_train.build_gnn(backend="blocked", ring_shards=2, **kw)
-        elif case == "chaos":
+        if case == "chaos":
             t_train.run_gnn(_args(tmp_path, chaos_seed=3))
-        elif case == "lm":
-            t_train.main(["--arch", "granite_3_2b"])
         else:
-            _, _, _, _, aux = t_train.build_gnn(backend="segment", **kw)
-            aux["trainer"].remesh(2)
+            t_train.main(["--arch", "granite_3_2b"])
+
+
+@pytest.mark.parametrize("case", ["ring", "shards", "remesh"])
+def test_formerly_unported_ring_paths_run_as_the_reference(case):
+    """The ring paths that raised before the ring was ported: a ring
+    build trains, `ring_shards` off the ring leaves the backend alone,
+    and a re-mesh off the ring re-plans the same backend and counts as
+    degraded, each as the reference's launcher does."""
+    from repro.launch.train import build_gnn as j_build_gnn
+    kw = _gnn_kw(2)
+    if case == "ring":
+        step, state, data, gd, _ = t_train.build_gnn(
+            backend="ring", ring_shards=2, device="cpu", **kw)
+        assert (gd.backend, gd.meta["shards"]) == ("ring", 2)
+        ps, opt = state["params"], state["opt"]
+        for _ in range(2):
+            ps, opt, m = step(ps, opt, next(data))
+            assert np.isfinite(float(m["loss"]))
+        return
+    _, _, _, jgd, jaux = j_build_gnn(backend="blocked", ring_shards=2, **kw)
+    _, _, _, gd, aux = t_train.build_gnn(backend="blocked", ring_shards=2,
+                                         device="cpu", **kw)
+    assert (gd.backend, gd.tile_format) == (jgd.backend, jgd.tile_format)
+    if case == "remesh":
+        plan = aux["trainer"].remesh(2)
+        jaux["trainer"].remesh(2)
+        assert plan.backend == "blocked"
+        stats = {k: v for k, v in aux["trainer"].stats.items()
+                 if k != "remesh_s"}
+        assert stats == {k: v for k, v in jaux["trainer"].stats.items()
+                         if k != "remesh_s"}
+        assert stats["degraded"] == 1
 
 
 def test_launcher_defaults_to_cuda():
@@ -650,7 +672,9 @@ def test_trainer_hooks_are_no_ops_off_the_ring():
     plan = tr.plan
     tr.on_failure(RuntimeError("transient"))
     tr.on_straggler(3, 1.0)
-    assert tr.plan is plan and tr.stats == {"strikes": 1}
+    assert tr.plan is plan and tr.stats == {
+        "remesh_count": 0, "remesh_s": 0.0, "strikes": 1, "degraded": 0,
+        "shards": None}
 
 
 # -- checkpoints across the two packages --------------------------------------
