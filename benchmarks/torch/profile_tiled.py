@@ -136,9 +136,12 @@ def _device_profile(run, top_n):
         return float(getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0.0))
 
-    device_ms = sum(dev_us(e) for e in events) / 1e3
+    # an operator's self device time is its kernels' time, which the
+    # kernels' own entries list again: sum the device-side entries only
+    device_ms = sum(dev_us(e) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     print(f"profiler: wall {wall_ms:.1f} ms under the profiler, device "
-          f"{device_ms:.1f} ms (sum of self device times)")
+          f"{device_ms:.1f} ms (kernels and copies)")
     for e in sorted(events, key=dev_us, reverse=True)[:top_n]:
         if dev_us(e) <= 0:
             break

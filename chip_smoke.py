@@ -168,10 +168,33 @@ prints no result.  Phases, each of which fails the run if it fails:
    budget and a shard loss (-> `tiled`), the losses on "segment"'s and
    each re-mesh's seconds; (f) serving pubmed GCN with `ring_shards=4`
    under a budget every batch's own plan exceeds and its ring plan fits:
-   every batch on the ring, within 1e-5 of the unbudgeted engine.
+   every batch on the ring, within 1e-5 of the unbudgeted engine;
+15. seeded chaos, elastic restore and the LM stack: (a) the reference's
+   chaos acceptance scenario (a transient at step-call 3, a torn "leaf"
+   save at 5, the loss of 2 shards at 7, a 50 s straggler at 10) against
+   GCN on an 8-shard co-located ring, 12 steps, pubmed as `build_gnn`
+   makes it (4,000 V, hidden 32, batch 256): each fault fired once, 12
+   steps, one re-mesh to 6 shards, 2 failures, a restore, MTTR > 0 on
+   the virtual clock, the last loss within rtol 5e-3 of the fault-free
+   "segment" run's; (b) `run_gnn --gnn gcn --gnn-backend blocked
+   --chaos-seed 3 --steps 20 --ckpt-every 4` with dense and with packed
+   tiles: the plan `FaultPlan.sample(3, 20)`, every event fired, the
+   last loss finite and below the first, B1 / B2 and their backwards
+   launched; (c) `elastic_restore` of (b)'s newest good checkpoint onto
+   `make_elastic_mesh()`: parameters and moments on the card, count and
+   cursor kept, the resumed step's loss within rtol 1e-5 of an
+   uninterrupted run's; (d) `launch/train.py --arch granite_3_2b` at its
+   full config (40 layers, d_model 2048, batch 1, seq 512, 4 steps):
+   finite losses that change each step, the median step time of steps
+   2-4, tokens/s, peak memory, model FLOPs (6 x params x tokens) and
+   their rate; (e) one config of each other family at full width and
+   seq 512, two steps: moonshot and falcon-mamba at 2 layers,
+   llama-3.2-vision at one period (5 layers), seamless whole, jamba at
+   SMOKE (one full-width period is 45 B parameters).  The LM runs
+   launch no kernel (the reference's LM stack is XLA).
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7, 8, 9, 10, 11, 12, 13, 14; in 8 and 9 the first forward of
-each run)
+calls of 6, 7, 8, 9, 10, 11, 12, 13, 14, 15; in 8 and 9 the first
+forward of each run)
 and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
 phase's, `fused_engn_sum_train` the training phase's); each run must
@@ -2807,12 +2830,292 @@ def main() -> int:
     print(f"phase-14 launches: {p14_counts}")
     print(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
+    # -- seeded chaos, elastic restore and the LM stack (phase 15) --------------
+    # (a) the chaos acceptance scenario on an 8-shard co-located ring; (b)
+    # run_gnn --chaos-seed 3 on "blocked", dense and packed tiles; (c)
+    # elastic_restore of (b)'s newest good checkpoint onto the elastic
+    # mesh and a resumed step; (d) launch/train.py --arch granite_3_2b at
+    # its full config; (e) one config of each other family at full width,
+    # its depth cut, two steps each.
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    from repro_torch.checkpoint.elastic import elastic_restore
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.configs import get_smoke as lm_smoke
+    from repro_torch.distributed.chaos import (ChaosInjector, FaultEvent,
+                                               FaultPlan, VirtualClock)
+    from repro_torch.distributed.fault import (FaultConfig,
+                                               FaultTolerantRunner)
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.nn import transformer as lm_T
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    t15 = time.perf_counter()
+    p15_dir = Path(__file__).resolve().parent / "build" / "smoke_ckpt_chaos"
+
+    def chaos_losses(step, state, data, n):
+        ps, opt, out = state["params"], state["opt"], []
+        for _ in range(n):
+            ps, opt, m = step(ps, opt, next(data))
+            out.append(float(m["loss"]))
+        return out
+
+    # (a) GCN, 12 steps, pubmed as build_gnn makes it (4,000 V, hidden 32,
+    # batch 256), the plan of tests/test_elastic_ring.py
+    chaos_steps = 12
+    seg_a = chaos_losses(*train_mod.build_gnn(
+        model="gcn", dataset="pubmed", backend="segment",
+        steps=chaos_steps)[:3], chaos_steps)
+    step, state, data, gd, aux = train_mod.build_gnn(
+        model="gcn", dataset="pubmed", backend="ring", steps=chaos_steps,
+        ring_shards=8)
+    trainer = aux["trainer"]
+    if (gd.backend, gd.meta["shards"]) != ("ring", 8):
+        raise AssertionError(f"chaos (a): plan {gd.backend} {gd.meta}")
+    losses_a = []
+
+    def logged_a(ps, opt, batch):
+        ps, opt, m = step(ps, opt, batch)
+        losses_a.append(float(m["loss"]))
+        return ps, opt, m
+
+    plan_a = FaultPlan((FaultEvent(3, "transient"),
+                        FaultEvent(5, "torn_ckpt", style="leaf"),
+                        FaultEvent(7, "shard_loss", lost_shards=2),
+                        FaultEvent(10, "straggler", delay_s=50.0)), seed=0)
+    clock = VirtualClock()
+    inj = ChaosInjector(plan_a, clock=clock, base_step_s=1.0)
+    shutil.rmtree(p15_dir, ignore_errors=True)
+    mgr = train_mod.CheckpointManager(p15_dir / "a", keep=3)
+    runner = FaultTolerantRunner(
+        inj.wrap_step(logged_a), inj.wrap_checkpoint(mgr),
+        FaultConfig(ckpt_every=2, retry_backoff_s=0.5),
+        on_failure=trainer.on_failure, on_straggler=trainer.on_straggler,
+        clock=clock, sleep=clock.sleep)
+    t = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        state, last = runner.run(state, data, num_steps=chaos_steps)
+        mgr.wait()
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t
+    st = runner.stats
+    checks = {
+        "each kind once": inj.stats == {"shard_loss": 1, "transient": 1,
+                                        "straggler": 1, "torn_ckpt": 1},
+        "12 steps": last == chaos_steps
+        and int(state["opt"]["count"]) == chaos_steps,
+        "one re-mesh to 6": trainer.stats["remesh_count"] == 1
+        and trainer.plan.backend == "ring"
+        and trainer.plan.meta["shards"] == 6,
+        "recovery": st["failures"] == 2 and st["restores"] >= 1
+        and st["lost_steps"] >= 1 and st["mttr_s"] > 0
+        and st["stragglers"] == 1,
+        "finite": all(np.isfinite(losses_a)),
+        "segment's last loss": bool(np.isclose(losses_a[-1], seg_a[-1],
+                                               rtol=5e-3, atol=1e-4)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"chaos (a): {checks}; stats {st}, trainer "
+                             f"{trainer.stats}, injector {inj.stats}, "
+                             f"losses {losses_a} vs segment {seg_a}")
+    print(f"chaos (a) pubmed gcn ring 8 -> 6 [{smi}]: {last} steps in "
+          f"{len(losses_a)} step calls, {wall_a:.2f} s (host clock); "
+          f"failures {st['failures']:.0f}, restores {st['restores']:.0f}, "
+          f"lost steps {st['lost_steps']:.0f}, mttr {st['mttr_s']:.2f} s "
+          f"(virtual clock), re-mesh {trainer.stats['remesh_s']:.3f} s "
+          f"(host); {sum('corrupt' in str(w.message) for w in caught)} "
+          f"corrupt-checkpoint fallback(s); last loss {losses_a[-1]:.6f} vs "
+          f"segment {seg_a[-1]:.6f}")
+    del step, state, data, gd, aux, trainer, runner, mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) run_gnn --gnn gcn --gnn-backend blocked --chaos-seed 3 --steps 20
+    # --ckpt-every 4, once with dense and once with packed tiles (the
+    # launcher has no format flag: its build_gnn is wrapped to pin one)
+    real_build_gnn = train_mod.build_gnn
+
+    def pinned_build(fmt):
+        def build(**kw):
+            step, state, data, _, aux = real_build_gnn(**kw)
+            tr = aux["trainer"]
+            for layer in tr.layers:
+                layer.cfg.tile_format = fmt
+            tr.rebuild()
+            return tr.step, state, data, tr.plan, aux
+        return build
+
+    chaos_args = dict(gnn="gcn", gnn_backend="blocked", gnn_shards=None,
+                      gnn_hidden=32, dataset="pubmed", device_budget=0,
+                      batch=256, steps=20, ckpt_every=4, chaos_seed=3,
+                      device=None, straggler_strikes=3)
+    want_plan = FaultPlan.sample(3, 20)
+    chaos_runs = {}
+    for fmt in ("dense", "packed"):
+        before = K.launch_counts()
+        train_mod.build_gnn = pinned_build(fmt)
+        try:
+            t = time.perf_counter()
+            out = train_mod.run_gnn(argparse.Namespace(
+                **chaos_args, ckpt_dir=str(p15_dir / fmt)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            train_mod.build_gnn = real_build_gnn
+        after = K.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        inj, ls = out["injector"], out["losses"]
+        kernels = (("rer_spmm_sum", "rer_spmm_sum_t") if fmt == "dense"
+                   else ("rer_gather_sum", "rer_gather_sum_t"))
+        checks = {
+            "the sampled plan": inj.plan == want_plan,
+            "every event fired": json.loads(inj.describe())["fired"]
+            == [0, 1, 2, 3] and set(inj.stats.values()) == {1},
+            "20 steps": out["steps"] == 20,
+            "finite, below the first": all(np.isfinite(ls))
+            and ls[-1] < ls[0],
+            "its kernels": all(launched.get(k, 0) > 0 for k in kernels),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"chaos (b) {fmt}: {checks}; {out}, "
+                                 f"launches {launched}")
+        chaos_runs[fmt] = out
+        print(f"chaos (b) run_gnn --chaos-seed 3 blocked {fmt} [{smi}]: "
+              f"{out['steps']} steps in {len(ls)} step calls, {wall:.2f} s "
+              f"(host clock, build included); failures "
+              f"{out['runner']['failures']:.0f}, restores "
+              f"{out['runner']['restores']:.0f}, lost steps "
+              f"{out['runner']['lost_steps']:.0f}, mttr "
+              f"{out['runner']['mttr_s']:.2f} s (virtual); loss {ls[0]:.4f} "
+              f"-> {ls[-1]:.4f}; launches {launched}")
+
+    # (c) elastic_restore of (b)'s newest good checkpoint (packed) onto
+    # make_elastic_mesh(), then one resumed step against an uninterrupted
+    # run's same step
+    step, state, data, gd, aux = pinned_build("packed")(
+        model="gcn", dataset="pubmed", backend="blocked", steps=20,
+        hidden=32, batch=256)
+    mesh = make_elastic_mesh()
+    like = tree_map(lambda v: v.cpu(), state)
+    shardings = tree_map(lambda _: NamedSharding(mesh, P()), like["params"])
+    mgr = train_mod.CheckpointManager(p15_dir / "packed", keep=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a torn newest
+        r_mesh, restored, meta, at = elastic_restore(
+            None, mgr, like, shardings=shardings,
+            on_placement_error="raise")
+    placed = (tree_leaves(restored["params"])
+              + tree_leaves(restored["opt"]["m"])
+              + tree_leaves(restored["opt"]["v"]))
+    if not all(v.device.type == "cuda" for v in placed) or (
+            int(restored["opt"]["count"]), meta["cursor"]) != (at, at):
+        raise AssertionError(f"chaos (c): restored step {at}, count "
+                             f"{int(restored['opt']['count'])}, meta {meta}, "
+                             f"devices {sorted({str(v.device) for v in placed})}")
+    straight = chaos_losses(step, state, data, at + 1)
+    data.seek(meta["cursor"])
+    _, _, m = step(restored["params"], restored["opt"], next(data))
+    resumed = float(m["loss"])
+    if not np.isclose(resumed, straight[at], rtol=1e-5, atol=0):
+        raise AssertionError(f"chaos (c): resumed step {at + 1} loss "
+                             f"{resumed} vs uninterrupted {straight[at]}")
+    print(f"chaos (c) elastic_restore onto {r_mesh.shape} on "
+          f"{r_mesh.device}: step {at}, cursor {meta['cursor']}, "
+          f"{len(placed)} tensors placed on the card; resumed step "
+          f"{at + 1} loss {resumed:.7f} vs uninterrupted "
+          f"{straight[at]:.7f}")
+    del step, state, data, gd, aux, restored, placed, mgr
+    shutil.rmtree(p15_dir, ignore_errors=True)
+    p15_gnn_counts = K.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) launch/train.py --arch granite_3_2b at its full config
+    lm_rows = []
+
+    def lm_row(label, cfg, losses, step_s, params, tokens):
+        ms = statistics.median(step_s[1:]) * 1e3
+        flops = 6.0 * params * tokens
+        row = {"run": label, "params": params, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "tokens_per_step": tokens,
+               "losses": losses, "median_step_ms": ms,
+               "first_step_ms": step_s[0] * 1e3,
+               "tokens_per_s": tokens / (ms / 1e3),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "model_flops_per_step": flops,
+               "model_tflops_per_s": flops / (ms / 1e3) / 1e12}
+        if not (all(np.isfinite(losses))
+                and all(a != b for a, b in zip(losses, losses[1:]))):
+            raise AssertionError(f"lm {label}: losses {losses}")
+        lm_rows.append(row)
+        print(f"lm {label} [{smi}]: {params / 1e9:.3f} B params, "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}; median "
+              f"{ms:.1f} ms/step of steps 2-{len(step_s)} (host clock to "
+              f"the loss; first {step_s[0] * 1e3:.1f}), "
+              f"{row['tokens_per_s']:.0f} tokens/s, peak "
+              f"{row['peak_gib']:.2f} GiB, {flops / 1e12:.2f} model TFLOP a "
+              f"step = {row['model_tflops_per_s']:.1f} TFLOP/s; losses "
+              f"{[round(v, 4) for v in losses]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    out = train_mod.main(["--arch", "granite_3_2b", "--batch", "1", "--seq",
+                          "512", "--steps", "4", "--ckpt-dir",
+                          str(p15_dir / "lm")])
+    lm_row("granite_3_2b full (launch/train.py --arch)",
+           lm_config("granite_3_2b"), out["losses"], out["step_s"],
+           out["params"], 512)
+    shutil.rmtree(p15_dir, ignore_errors=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) one config of each other family at full width, depth cut, two
+    # steps each (jamba: SMOKE; one full-width period is 45 B parameters)
+    for arch, layers in (("moonshot_v1_16b_a3b", 2), ("falcon_mamba_7b", 2),
+                         ("llama_3_2_vision_11b", 5),
+                         ("seamless_m4t_large_v2", None),
+                         ("jamba_1_5_large_398b", 0)):
+        if layers == 0:
+            cfg = lm_smoke(arch)
+        elif layers is None:
+            cfg = lm_config(arch)
+        else:
+            cfg = dataclasses.replace(lm_config(arch), num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        _, step, state, data, cfg = train_mod.build(
+            arch, smoke=False, batch=1, seq=512, steps=2, cfg=cfg)
+        ps, opt, losses, step_s = state["params"], state["opt"], [], []
+        for _ in range(2):
+            t = time.perf_counter()
+            ps, opt, m = step(ps, opt, train_mod.batch_to_device(
+                cfg, next(data), dev))
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t)
+        cut = ("SMOKE" if layers == 0 else "whole" if layers is None
+               else f"{layers} of {lm_config(arch).num_layers} layers")
+        lm_row(f"{arch} ({cut})", cfg, losses, step_s,
+               lm_T.param_count(cfg), 512)
+        del step, state, data, ps, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"lm runs: {json.dumps(lm_rows)}")
+    p15_counts = K.launch_counts()
+    if p15_counts != p15_gnn_counts:
+        raise AssertionError("lm: the LM runs launched a GNN kernel: "
+                             f"{p15_counts} vs {p15_gnn_counts}")
+    print(f"phase-15 launches: {p15_counts}")
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
               "b4": b4_counts, "training": train_counts,
               "staged": staged_counts, "staged_tiled": staged_tiled_counts,
               "staged_training": staged_train_counts,
               "streamed_training": stream_counts, "phase12": p12_counts,
-              "serving": p13_counts, "ring": p14_counts}
+              "serving": p13_counts, "ring": p14_counts,
+              "chaos": p15_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

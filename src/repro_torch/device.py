@@ -22,3 +22,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def visible_devices(device: torch.device) -> int:
+    """Devices a mesh or ring spans by default, as the reference counts
+    `jax.devices()`: the cards on `cuda`, 1 on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1

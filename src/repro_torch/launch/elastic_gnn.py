@@ -15,7 +15,8 @@ stable `step()` callable, so the fault-tolerance hooks of
 
 Checkpoints hold the parameters and optimizer state only, so the
 runner's restore-and-replay works unchanged across a re-mesh.  The
-seeded chaos schedule that raises these faults is ROADMAP A11.
+seeded chaos schedule (`distributed/chaos.py`, `launch/train.py
+--chaos-seed`) raises these faults.
 """
 from __future__ import annotations
 

@@ -4,9 +4,11 @@ dicts of tensors; any nesting of dicts, lists and tuples works).
 
 The reference's exact formula, which `torch.optim.AdamW` with default
 parameter groups does not give: b2 = 0.95, weight decay only on tensors
-with more than one dimension, bias correction on the step count.  The
-updates return new tensors and never write into their arguments, so a
-checkpoint or a caller's reference stays as it was.
+with more than one dimension, bias correction on the step count.  By
+default the updates return new tensors and never write into their
+arguments, so a checkpoint or a caller's reference stays as it was;
+`inplace=True` writes the same values into them instead (the LM
+launcher's step, whose state would not fit twice on one card).
 """
 from __future__ import annotations
 
@@ -76,14 +78,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, inplace: bool = False):
+    """(clipped grads, global norm).  `inplace` scales the gradient
+    tensors themselves (the caller owns them) and returns the same tree."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    if inplace:
+        for g in tree_leaves(grads):
+            g.copy_(g * scale)
+        return grads, norm
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr):
-    """Returns (new_params, new_opt_state)."""
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr,
+                 inplace: bool = False):
+    """Returns (new_params, new_opt_state).  With `inplace` the same
+    formula is written into the parameter and moment tensors themselves
+    (the counterpart of the reference launcher's donated buffers: no
+    second copy of the state), and the same trees are returned with the
+    new count."""
     count = opt_state["count"] + 1
     b1, b2 = cfg.b1, cfg.b2
     c = count.to(torch.float32)
@@ -99,6 +112,18 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr):
         newp = p - lr * (step + decay * p.to(torch.float32))
         return newp.to(p.dtype), m, v
 
+    if inplace:
+        with torch.no_grad():
+            for g, m, v, p in zip(
+                    tree_leaves(grads), tree_leaves(opt_state["m"]),
+                    tree_leaves(opt_state["v"]), tree_leaves(params)):
+                newp, newm, newv = upd(g, m, v, p)
+                m.copy_(newm)
+                v.copy_(newv)
+                p.copy_(newp)
+                del newp, newm, newv
+        return params, {"m": opt_state["m"], "v": opt_state["v"],
+                        "count": count}
     out = [upd(*leaves) for leaves in zip(
         tree_leaves(grads), tree_leaves(opt_state["m"]),
         tree_leaves(opt_state["v"]), tree_leaves(params))]

@@ -3,11 +3,12 @@ fault paths (`repro_torch.serving`) on the CPU, against the reference
 where both run the same traffic: deadline shedding, bounded in-flight
 batches, pipeline against the sync engine, the three balancers, the
 traces of every workload shape (exactly the reference's), cache warm
-fill, the `ServingConfig` / `EnGNConfig` split, and the non-chaos fault
-paths (`GNNBatcher.fail`, the pipeline's mapping of inference and
-extraction failures, replica eviction and requeue).  The chaos-driven
-fault tests wait for the chaos injector's port (ROADMAP A11): here a
-plain wrapper raises on the chosen calls."""
+fill, the `ServingConfig` / `EnGNConfig` split, and the fault paths
+(`GNNBatcher.fail`, the pipeline's mapping of inference and extraction
+failures, replica eviction and requeue): the three chaos tests of
+`tests/test_serving_fault.py` fail a stage through the port's
+`ChaosInjector.wrap_callable`, the others through a plain wrapper that
+raises on the chosen calls."""
 import time
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro.serving import pipeline as j_pipeline
 from repro.serving import workload as j_workload
 import repro_torch as rt
 from repro_torch.core.engn import EnGNConfig
+from repro_torch.distributed.chaos import ChaosInjector, FaultPlan
 from repro_torch.graphs.format import COOGraph
 from repro_torch.interop import load_reference_params
 from repro_torch.serving import (GNNBatcher, GNNServingEngine,
@@ -456,6 +458,44 @@ def test_pipeline_maps_extraction_failure_to_error_response(workers):
     pl.close()
     statuses = {r.status for r in responses}
     assert statuses == {"error", "ok"} and len(responses) == 8
+
+
+def test_chaos_inference_failure_maps_to_error_response():
+    """`tests/test_serving_fault.py:67`: the injector fails the 2nd
+    inference; the loop keeps serving and answers every request."""
+    pl = ServingPipeline(GNNServingEngine(*_fixture()))
+    inj = ChaosInjector(FaultPlan())
+    pl.engine._infer_batch = inj.wrap_callable(pl.engine._infer_batch,
+                                               calls=(1,))
+    for rid, ids in _requests(12):
+        pl.submit(rid, ids)
+    responses = pl.drain()
+    pl.close()
+    by_status = {}
+    for r in responses:
+        by_status.setdefault(r.status, []).append(r.rid)
+    assert by_status.get("error"), "no error responses mapped"
+    assert by_status.get("ok"), "the stage loop stopped serving"
+    assert len(responses) == 12
+    assert pl.stats["batch_errors"] >= 1 and inj.stats["transient"] == 1
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_chaos_extraction_failure_maps_to_error_response(workers):
+    """`tests/test_serving_fault.py:88` (inline extraction) and `:104`
+    (worker threads: the failure surfaces from the future)."""
+    g, x, layers, params, cfg = _fixture(extract_workers=workers)
+    pl = ServingPipeline(GNNServingEngine(g, x, layers, params, cfg))
+    inj = ChaosInjector(FaultPlan())
+    pl.engine._extract_batch = inj.wrap_callable(pl.engine._extract_batch,
+                                                 calls=(0,))
+    for rid, ids in _requests(8):
+        pl.submit(rid, ids)
+    responses = pl.drain()
+    pl.close()
+    statuses = {r.status for r in responses}
+    assert "error" in statuses and "ok" in statuses
+    assert len(responses) == 8 and inj.stats["transient"] == 1
 
 
 def test_engine_failure_escalates_out_of_pipeline():

@@ -616,14 +616,46 @@ def test_launcher_main_trains_on_the_cpu_when_asked(tmp_path):
     assert out["steps"] == 2 and len(out["losses"]) == 2
 
 
-@pytest.mark.parametrize("case,item", [("chaos", "A11"), ("lm", "A12")])
-def test_unported_training_paths_raise_with_their_roadmap_item(case, item,
-                                                              tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if case == "chaos":
-            t_train.run_gnn(_args(tmp_path, chaos_seed=3))
-        else:
-            t_train.main(["--arch", "granite_3_2b"])
+def test_formerly_unported_chaos_path_runs_as_the_reference(tmp_path,
+                                                            capsys):
+    """`--chaos-seed`, which raised before the chaos schedule was ported:
+    the run prints the reference's plan (`FaultPlan.sample(3, 20)`,
+    described as the reference describes it), fires each of its four
+    faults once and finishes every step, as the reference's launcher
+    does for the same arguments."""
+    from repro.distributed import chaos as j_chaos
+    out = t_train.run_gnn(_args(tmp_path, chaos_seed=3, steps=20,
+                                ckpt_every=4))
+    text = capsys.readouterr().out
+    want = j_chaos.ChaosInjector(j_chaos.FaultPlan.sample(3, 20)).describe()
+    assert f"chaos: {want}" in text
+    inj = out["injector"]
+    assert inj.stats == {"shard_loss": 1, "transient": 1, "straggler": 1,
+                         "torn_ckpt": 1}
+    assert out["steps"] == 20 and all(np.isfinite(out["losses"]))
+    assert out["runner"]["failures"] == 2 and out["runner"]["mttr_s"] > 0
+    assert "chaos fired: {'shard_loss': 1" in text
+
+
+def test_formerly_unported_lm_path_runs_as_the_reference(tmp_path, capsys):
+    """`--arch`, which raised before the LM stack was ported: the SMOKE
+    granite trains on the CPU through the fault-tolerant runner with
+    the reference's arguments and lines (`arch=... params=...M mesh=...`,
+    `done: ...`), its parameter count the reference's."""
+    from repro.configs import get_smoke as j_get_smoke
+    from repro.nn import transformer as j_T
+    out = t_train.main(["--arch", "granite_3_2b", "--smoke", "--steps", "4",
+                        "--seq", "16", "--batch", "2", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path)])
+    text = capsys.readouterr().out
+    n = j_T.param_count(j_get_smoke("granite_3_2b"))
+    assert out["params"] == n
+    assert (f"arch=granite-smoke params={n / 1e6:.1f}M "
+            f"mesh={{'data': 1, 'model': 1}}") in text
+    assert out["steps"] == 4 and len(out["losses"]) == 4
+    assert all(np.isfinite(out["losses"]))
+    assert out["losses"][-1] != out["losses"][0]
+    assert "done: 4 steps, loss" in text
 
 
 @pytest.mark.parametrize("case", ["ring", "shards", "remesh"])
