@@ -191,9 +191,36 @@ prints no result.  Phases, each of which fails the run if it fails:
    seq 512, two steps: moonshot and falcon-mamba at 2 layers,
    llama-3.2-vision at one period (5 layers), seamless whole, jamba at
    SMOKE (one full-width period is 45 B parameters).  The LM runs
-   launch no kernel (the reference's LM stack is XLA).
+   launch no kernel (the reference's LM stack is XLA);
+16. prefill, decode, the all-to-all MoE and the dry run: (a)
+   granite_3_2b whole (40 layers, d_model 2048) serving a 512-token
+   prompt from `SyntheticTokenStream` (seed 0) at batch 8, then 64 greedy
+   `decode_step`s: prefill ms, decode ms a token (median of steps 2-64),
+   tokens/s, peak GiB, KV-cache MiB and the step's byte bound ((bf16
+   weights + the live KV) / 3.35 TB/s), on a bf16 compute copy made once
+   (`cast_params_for_compute`, timed), beside 8 decode steps on the fp32
+   weights (the reference's cast at every use); weights drawn at std 0.02
+   (ROADMAP §C note 4); (b) at granite's full width, prefill(511) plus
+   `decode_step` of token 512 against prefill(512)'s last logits (rtol =
+   atol = 3e-2, `tests/test_arch_smoke.py::test_smoke_decode_matches_
+   prefill_suffix`), held in fp32, with the bf16 difference printed
+   beside bf16 prefill's own distance from fp32 prefill; (c) falcon-mamba, llama-3.2-vision, seamless and
+   moonshot whole, jamba SMOKE, bf16, the same prompt length, 16 decode
+   steps each; (d) `moe_ffn_a2a` on a co-located (2, 4) mesh: moonshot at
+   full width cut to 2 layers in fp32, a training step's loss and
+   gradients and a prefill + 8 decode steps against the dense dispatch
+   on no mesh (output rtol = atol = 2e-4, gradients rtol 5e-3 / atol
+   5e-4, `tests/test_moe_a2a.py`'s) at capacity factor ceil(E / k) = 11,
+   where no block drops a token (counted: none may), every MoE call of
+   the mesh runs through the a2a; the same at 8.0 (the reference test's
+   no-drop setting for its 8 experts top-2) with its drops and
+   differences printed; then one training step at 1.25 timed beside the
+   dense one; (e) the dry run
+   (`launch/dryrun.py::run_cell`) of granite_3_2b's train_4k,
+   prefill_32k and decode_32k cells on the single (16, 16) mesh, on
+   `meta`: status and roofline terms.  No kernel of its own.
 Launch counters are zeroed just before each path phase (4, 5, the B4
-calls of 6, 7, 8, 9, 10, 11, 12, 13, 14, 15; in 8 and 9 the first
+calls of 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16; in 8 and 9 the first
 forward of each run)
 and read just after (a record's launches are its
 kernel's over every phase; `fused_engn_sum` counts the inference
@@ -212,6 +239,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -3109,13 +3137,357 @@ def main() -> int:
     print(f"phase-15 launches: {p15_counts}")
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
+    # -- prefill, decode, the all-to-all MoE and the dry run (phase 16) ---------
+    # (a) granite_3_2b whole: prefill a 512-token prompt at batch 8, then 64
+    # greedy decode steps; (b) prefill(k) + decode(k+1) against
+    # prefill(k+1) at granite's full width; (c) one config of each other
+    # family; (d) moe_ffn_a2a on a co-located (2, 4) mesh against the
+    # dense dispatch; (e) the dry run of granite's train / prefill / decode
+    # cells on `meta`.  The LM stack launches no kernel of its own (the
+    # reference's is XLA).
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    from repro_torch.data.pipeline import SyntheticTokenStream
+    from repro_torch.distributed.sharding import Constrainer
+    from repro_torch.launch import dryrun as lm_dry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn import moe as lm_M
+    from repro_torch.nn import moe_a2a as lm_A
+    from repro_torch.nn.param import ParamSpec, map_tree
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_lib import (cast_params_for_compute,
+                                                make_loss_fn, make_train_step,
+                                                value_and_grad)
+    t16 = time.perf_counter()
+    LM_BATCH, PROMPT = 8, 512
+
+    def lm_weights(cfg, seed, dtype):
+        """Weights on the card at std 0.02 (norm scales ones, biases
+        zeros: the tests' numpy draw, ROADMAP §C note 4), each stacked
+        leaf drawn one period slice at a time straight into `dtype`."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def draw(spec):
+            if spec.init in ("zeros", "ones"):
+                fill = torch.zeros if spec.init == "zeros" else torch.ones
+                return fill(spec.shape, dtype=dtype, device=dev)
+            out = torch.empty(spec.shape, dtype=dtype, device=dev)
+            for part in (out if out.dim() > 2 else (out,)):
+                part.copy_(torch.randn(part.shape, generator=gen, device=dev)
+                           .mul_(0.02))
+            return out
+        return map_tree(draw, lm_T.model_specs(cfg),
+                        is_leaf=lambda x: isinstance(x, ParamSpec))
+
+    def tree_bytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def lm_extras(cfg, b, s, seed=0):
+        rng = np.random.default_rng(seed)
+        if cfg.family == "vlm":
+            return {"image_embeds": torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)}
+        if cfg.family == "encdec":
+            return {"frames": torch.from_numpy(rng.standard_normal(
+                (b, s, cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)}
+        return {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def greedy(logits, cfg):
+        return (torch.argmax(logits, -1).to(torch.int32)[:, None]
+                % cfg.vocab_size)
+
+    def serve(cfg, params, tokens, extras, steps, max_len):
+        """Prefill `tokens`, then `steps` greedy decode steps: (prefill
+        ms, per-step ms, last logits, state)."""
+        with torch.no_grad():
+            (logits, state), pre_ms = timed(lambda: lm_T.prefill(
+                cfg, params, tokens, extras, max_len=max_len))
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"lm {cfg.name}: prefill logits")
+            step_ms = []
+            for _ in range(steps):
+                tok = greedy(logits, cfg)
+                (logits, state), ms = timed(
+                    lambda: lm_T.decode_step(cfg, params, state, tok))
+                step_ms.append(ms)
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"lm {cfg.name}: decode logits")
+        if int(state["pos"]) != tokens.shape[1] + steps:
+            raise AssertionError(f"lm {cfg.name}: pos {int(state['pos'])}")
+        return pre_ms, step_ms, logits, state
+
+    serve_rows = []
+
+    def serve_row(label, cfg, params, pre_ms, step_ms, state, prompt, extra):
+        ms = statistics.median(step_ms[1:])
+        kv = sum(t.numel() * t.element_size()
+                 for slot in state["layers"].values()
+                 for name, t in slot.items() if name in ("k", "v"))
+        row = {"run": label, "params": lm_T.param_count(cfg),
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "batch": LM_BATCH, "prompt": prompt, "prefill_ms": pre_ms,
+               "decode_steps": len(step_ms), "decode_ms_per_token": ms,
+               "tokens_per_s": LM_BATCH / (ms / 1e3),
+               "weight_bytes": tree_bytes(params), "kv_cache_bytes": kv,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        row.update(extra)
+        serve_rows.append(row)
+        print(f"serve {label} [{smi}]: {row['params'] / 1e9:.3f} B params, "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}; prefill "
+              f"{LM_BATCH} x {prompt} {pre_ms:.1f} ms, decode "
+              f"{ms:.2f} ms/token (median of steps 2-{len(step_ms)}, host "
+              f"clock around a synchronise), {row['tokens_per_s']:.0f} "
+              f"tokens/s, KV cache {kv / 2**20:.1f} MiB, peak "
+              f"{row['peak_gib']:.2f} GiB"
+              + "".join(f", {k} {v}" for k, v in extra.items()))
+        return row
+
+    # (a) granite_3_2b whole, batch 8, a 512-token prompt, 64 decode steps
+    g_cfg = lm_config("granite_3_2b")
+    stream = SyntheticTokenStream(g_cfg.vocab_size, LM_BATCH, PROMPT, seed=0)
+    prompt = torch.from_numpy(next(stream)["tokens"]).to(dev)
+    g_max = PROMPT + 64
+    master = lm_weights(g_cfg, 0, torch.float32)
+    # (b) first, on the same prompt: prefill(511) + decode(token 512)
+    # against prefill(512)'s last logits at test_smoke_decode_matches_
+    # prefill_suffix's tolerance, in fp32 (the decode path's positions,
+    # cache and masks; bf16 rounding at full width is measured beside it:
+    # decode against prefill, and prefill against its fp32 self)
+    suffix = {}
+    for name, cfg in (("fp32", dataclasses.replace(g_cfg, dtype="float32")),
+                      ("bf16", g_cfg)):
+        with torch.no_grad():
+            full, _ = lm_T.prefill(cfg, master, prompt, max_len=PROMPT)
+            _, st = lm_T.prefill(cfg, master, prompt[:, :-1], max_len=PROMPT)
+            dec, _ = lm_T.decode_step(cfg, master, st, prompt[:, -1:])
+        suffix[name] = (full, float((dec - full).abs().max()),
+                        bool(torch.allclose(dec, full, rtol=3e-2, atol=3e-2)))
+        del st, dec
+    floor = float((suffix["bf16"][0] - suffix["fp32"][0]).abs().max())
+    if not suffix["fp32"][2]:
+        raise AssertionError(f"lm (b): fp32 decode vs prefill suffix, max "
+                             f"abs {suffix['fp32'][1]}")
+    print(f"serve (b) granite_3_2b full width, batch 8: prefill(511) + "
+          f"decode(512) vs prefill(512), max |diff| fp32 "
+          f"{suffix['fp32'][1]:.3g} (rtol = atol = 3e-2: held), bf16 "
+          f"{suffix['bf16'][1]:.3g} (allclose at 3e-2: "
+          f"{suffix['bf16'][2]}) beside bf16 prefill vs fp32 prefill "
+          f"{floor:.3g}, over logits of max "
+          f"|{float(suffix['fp32'][0].abs().max()):.3f}|")
+    suffix_row = {k: v[1] for k, v in suffix.items()}
+    suffix_row["bf16_vs_fp32_prefill"] = floor
+    del suffix
+    # the reference casts each fp32 weight to bf16 at every use; the port's
+    # layers do too on fp32 weights (a "per-use" row), and the serving runs
+    # use a bf16 compute copy made once, which gives the same numbers
+    pu_pre, pu_steps, _, _ = serve(g_cfg, master, prompt, {}, 8, g_max)
+    g16, cast_ms = timed(lambda: cast_params_for_compute(g_cfg, master))
+    per_use_ms = statistics.median(pu_steps[1:])
+    del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pre_ms, step_ms, _, state = serve(g_cfg, g16, prompt, {}, 64, g_max)
+    w_bytes = tree_bytes(g16)
+    kv_tok = 2 * g_cfg.num_layers * g_cfg.n_kv_heads * g_cfg.hd * 2
+    live = LM_BATCH * (PROMPT + 33) * kv_tok      # the median step's
+    bound_ms = (w_bytes + live) / HBM_BYTES_PER_S * 1e3
+    serve_row("granite_3_2b whole (prefill + 64 decode steps)", g_cfg, g16,
+              pre_ms, step_ms, state, PROMPT,
+              {"bound_ms_per_token": round(bound_ms, 4),
+               "bf16_weight_gb": round(w_bytes / 1e9, 3),
+               "kv_bytes_per_token": kv_tok,
+               "per_use_cast_decode_ms": round(per_use_ms, 3),
+               "suffix_max_abs": suffix_row,
+               "per_use_cast_prefill_ms": round(pu_pre, 1),
+               "bf16_copy_cast_ms": round(cast_ms, 1)})
+    del g16, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one config of each other family, bf16 weights drawn once, batch
+    # 8, 16 decode steps; depth cuts recorded
+    c_runs = (("falcon_mamba_7b", None, PROMPT),
+              ("llama_3_2_vision_11b", None, PROMPT),
+              ("seamless_m4t_large_v2", None, PROMPT),
+              ("moonshot_v1_16b_a3b", None, PROMPT),
+              ("jamba_1_5_large_398b", 0, PROMPT))
+    for arch, layers, plen in c_runs:
+        cfg = (lm_smoke(arch) if layers == 0 else lm_config(arch)
+               if layers is None else
+               dataclasses.replace(lm_config(arch), num_layers=layers))
+        params = lm_weights(cfg, 0, torch.bfloat16)
+        toks = torch.from_numpy(next(SyntheticTokenStream(
+            cfg.vocab_size, LM_BATCH, plen, seed=0))["tokens"]).to(dev)
+        ex = lm_extras(cfg, LM_BATCH, plen)
+        torch.cuda.reset_peak_memory_stats()
+        pre_ms, step_ms, _, state = serve(cfg, params, toks, ex, 16,
+                                          plen + 16)
+        cut = ("SMOKE" if layers == 0 else "whole" if layers is None
+               else f"{layers} of {lm_config(arch).num_layers} layers")
+        serve_row(f"{arch} ({cut})", cfg, params, pre_ms, step_ms, state,
+                  plen, {})
+        del params, state, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) moe_ffn_a2a on a co-located (2, 4) mesh (64 experts over model
+    # = 4), moonshot at full width cut to 2 layers in fp32: a training
+    # step's loss and gradients and a prefill + 8 decode steps through the
+    # a2a against the dense dispatch on no mesh, at a capacity factor no
+    # token is dropped at; then one training step timed at 1.25.  The
+    # reference test's 8.0 keeps every token for its 8 experts top-2 (a
+    # block's capacity is cf * k / E of its tokens: 4x); moonshot's 64
+    # experts top-6 need cf >= E / k = 10.7 for that, so the check runs at
+    # ceil(E / k) = 11, every dropped token counted (none allowed), and
+    # 8.0 runs beside it with its drops and differences printed
+    m_cfg = dataclasses.replace(lm_config("moonshot_v1_16b_a3b"),
+                                num_layers=2, dtype="float32")
+    m_params = lm_weights(m_cfg, 1, torch.float32)
+    mesh24 = Constrainer(make_mesh((2, 4), ("data", "model")))
+    if lm_A.model_axis_size(mesh24.mesh, mesh24.rules) != 4:
+        raise AssertionError("a2a: the mesh's model axis is not 4")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        SyntheticTokenStream(m_cfg.vocab_size, 2, 64, seed=0)).items()}
+    real_a2a, real_moe, real_route = lm_A.moe_ffn_a2a, lm_M.moe_ffn, lm_M.route
+
+    def a2a_vs_dense(cf):
+        """(worst |a2a - dense| of loss / gradients / logits, whether all
+        are within tests/test_moe_a2a.py's tolerances, a2a calls in
+        training and serving, tokens dropped by each path)."""
+        calls, drops = [], {"dense": 0, "a2a": 0}
+
+        def counted_a2a(*a, **kw):
+            calls.append(kw.get("capacity_factor"))
+            return real_a2a(*a, **kw)
+
+        def at_cf(cfg, p, x, sc=lm_T.no_sc, **kw):
+            return real_moe(cfg, p, x, sc, capacity_factor=cf)
+
+        def counted_route(*a, **kw):
+            r = real_route(*a, **kw)
+            path = "a2a" if r["slot"].dim() > 1 else "dense"
+            drops[path] += int((~r["keep"]).sum())
+            return r
+
+        lm_A.moe_ffn_a2a, lm_M.moe_ffn = counted_a2a, at_cf
+        lm_M.route = lm_A.route = counted_route
+        try:
+            grads = []
+            for sc in (lm_T.no_sc, mesh24):
+                loss, g = value_and_grad(make_loss_fn(
+                    m_cfg, sc, q_chunk=64, loss_chunk=64), m_params, batch)
+                grads.append((float(loss), g))
+            n_train = len(calls)
+            logits = []
+            for sc in (lm_T.no_sc, mesh24):
+                with torch.no_grad():
+                    lg, st = lm_T.prefill(m_cfg, m_params, batch["tokens"],
+                                          sc=sc, max_len=64 + 8)
+                    out = [lg]
+                    for _ in range(8):
+                        lg, st = lm_T.decode_step(m_cfg, m_params, st,
+                                                  greedy(out[0], m_cfg), sc)
+                        out.append(lg)
+                logits.append(out)
+        finally:
+            lm_A.moe_ffn_a2a, lm_M.moe_ffn = real_a2a, real_moe
+            lm_M.route = lm_A.route = real_route
+        (l_dense, g_dense), (l_a2a, g_a2a) = grads
+        worst = {"loss": abs(l_a2a - l_dense), "grad": 0.0, "logits": 0.0}
+        ok = bool(np.isclose(l_a2a, l_dense, rtol=2e-4, atol=2e-4))
+        for x, y in zip(tree_leaves(g_a2a), tree_leaves(g_dense)):
+            ok &= bool(torch.allclose(x, y, rtol=5e-3, atol=5e-4))
+            worst["grad"] = max(worst["grad"], float((x - y).abs().max()))
+        for x, y in zip(logits[1], logits[0]):
+            ok &= bool(torch.allclose(x, y, rtol=2e-4, atol=2e-4))
+            worst["logits"] = max(worst["logits"], float((x - y).abs().max()))
+        return {"cf": cf, "max_abs": worst, "within": ok,
+                "a2a_calls": (n_train, len(calls) - n_train),
+                "dropped": drops, "loss": (l_a2a, l_dense)}
+
+    no_drop_cf = float(math.ceil(m_cfg.n_experts / m_cfg.top_k))
+    checked = a2a_vs_dense(no_drop_cf)
+    # every MoE call of the mesh runs went through the a2a: the training
+    # forward's (and its recomputation's), the prefill's and 8 decodes'
+    n_train, served = checked["a2a_calls"]
+    if (not checked["within"] or n_train < m_cfg.num_layers
+            or served != m_cfg.num_layers * 9
+            or any(checked["dropped"].values())):
+        raise AssertionError(f"a2a (d): {checked}")
+    at_8 = a2a_vs_dense(8.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = {}
+    for name, sc in (("dense", lm_T.no_sc), ("a2a", mesh24)):
+        ps = tree_map(torch.clone, m_params)
+        step = make_train_step(m_cfg, sc=sc, q_chunk=64, loss_chunk=64,
+                               donate=True)
+        opt = init_opt_state(ps)
+        ps, opt, m = step(ps, opt, batch)          # warm
+        _, ms = timed(lambda: step(ps, opt, batch))
+        step_ms[name] = ms
+        del ps, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"a2a (d) moonshot full width, 2 of 48 layers, fp32, (2, 4) mesh "
+          f"[{smi}]: at capacity factor {no_drop_cf} (no token dropped) "
+          f"loss {checked['loss'][0]:.6f} vs dense {checked['loss'][1]:.6f}, "
+          f"max |diff| loss {checked['max_abs']['loss']:.2e}, gradients "
+          f"{checked['max_abs']['grad']:.2e}, prefill + 8 decode logits "
+          f"{checked['max_abs']['logits']:.2e}; a2a calls (training, "
+          f"serving) {checked['a2a_calls']}; at 8.0 the a2a dropped "
+          f"{at_8['dropped']['a2a']} routed tokens, the dense path "
+          f"{at_8['dropped']['dense']}, max |diff| {at_8['max_abs']}; one "
+          f"step (batch 2 x 64) at 1.25: a2a {step_ms['a2a']:.1f} ms, dense "
+          f"{step_ms['dense']:.1f} ms (host clock)")
+    a2a_row = {"checked": checked, "at_8": at_8, "step_ms_cf125": step_ms}
+    del m_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the dry run of granite_3_2b on the single (16, 16) mesh, on meta
+    dry_rows = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = lm_dry.run_cell("granite_3_2b", shape, "single",
+                              Path(__file__).resolve().parent / "build"
+                              / "smoke_dryrun")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {shape}: {rec}")
+        r = rec["roofline"]
+        dry_rows[shape] = {k: r[k] for k in ("compute_s", "memory_s",
+                                             "dominant",
+                                             "roofline_fraction")}
+        dry_rows[shape]["model_flops_ratio"] = rec["model_flops_ratio"]
+        print(f"dry run granite_3_2b {shape} single: {rec['status']}, "
+              f"compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s "
+              f"a device ({r['dominant']}, fraction "
+              f"{r['roofline_fraction']:.3f}), model / counted FLOPs "
+              f"{rec['model_flops_ratio']:.3f}, traced in {rec['trace_s']} s")
+    print(f"serve runs: {json.dumps(serve_rows)}")
+    print(f"phase-16 a2a and dry run: {json.dumps({'a2a': a2a_row, 'dry': dry_rows})}")
+    p16_counts = K.launch_counts()
+    if any(p16_counts.values()):
+        raise AssertionError(f"lm serving launched a GNN kernel: {p16_counts}")
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
     phases = {"inference": path_counts, "tiled": tiled_counts,
               "b4": b4_counts, "training": train_counts,
               "staged": staged_counts, "staged_tiled": staged_tiled_counts,
               "staged_training": staged_train_counts,
               "streamed_training": stream_counts, "phase12": p12_counts,
               "serving": p13_counts, "ring": p14_counts,
-              "chaos": p15_counts}
+              "chaos": p15_counts, "lm_serving": p16_counts}
     for rec in records:
         # a B4 record's launches are its own stage's; every other record
         # reads its launch counter over its phases

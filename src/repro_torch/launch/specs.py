@@ -1,5 +1,4 @@
-"""Input stand-ins and sharding specs per (arch x shape), the training
-half (the decode-state specs are ROADMAP A12b).
+"""Input stand-ins and sharding specs per (arch x shape).
 
 The four assigned input shapes:
     train_4k    seq=4096   global_batch=256   -> train_step
@@ -9,7 +8,8 @@ The four assigned input shapes:
                                                  archs only
 
 A stand-in is a `meta` tensor: the reference's ShapeDtypeStruct, shape
-and dtype without storage.
+and dtype without storage; `decode_state_specs` is `init_decode_state`
+on `meta`, where the reference `jax.eval_shape`s it.
 """
 from __future__ import annotations
 
@@ -17,8 +17,12 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import batch_pspec, make_rules
+from repro_torch.distributed.sharding import (batch_pspec, make_rules,
+                                             mesh_shape_dict)
+from repro_torch.nn import transformer as T
 from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.param import PartitionSpec as P
+from repro_torch.nn.param import _axis_size
 
 SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -71,3 +75,54 @@ def train_batch_pspecs(cfg: ModelConfig, mesh, rules=None):
     if extras:
         b["extras"] = extras
     return b
+
+
+def _pspec_from_logical(shape, logical, mesh_shape, rules):
+    used = set()
+    out = []
+    for dim, ax in zip(shape, logical):
+        mesh_ax = rules.get(ax) if ax is not None else None
+        key = tuple(mesh_ax) if isinstance(mesh_ax, tuple) else mesh_ax
+        if (mesh_ax is None or dim % _axis_size(mesh_shape, mesh_ax) != 0
+                or key in used):
+            out.append(None)
+        else:
+            out.append(mesh_ax)
+            used.add(key)
+    return P(*out)
+
+
+def decode_state_logical(cfg: ModelConfig):
+    """Logical axes per decode-state leaf kind."""
+    return {
+        "k": (None, "batch", "seq", None, None),
+        "v": (None, "batch", "seq", None, None),
+        "mk": (None, "batch", "seq", None, None),
+        "mv": (None, "batch", "seq", None, None),
+        "conv": (None, "batch", None, "mlp"),
+        "ssm": (None, "batch", "mlp", None),
+        "pos": (),
+    }
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode state's stand-in tree (`meta` tensors)."""
+    return T.init_decode_state(cfg, batch, max_len, device="meta")
+
+
+def decode_state_pspecs(cfg: ModelConfig, state_sds, mesh, rules=None):
+    """A PartitionSpec per decode-state leaf, keyed by the leaf's name
+    (as the reference's `tree_map_with_path` keys it)."""
+    rules = rules or make_rules(mesh)
+    ms = mesh_shape_dict(mesh)
+    logical = decode_state_logical(cfg)
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        la = logical.get(name)
+        if la is None or node.dim() == 0:
+            return P()
+        return _pspec_from_logical(tuple(node.shape), la, ms, rules)
+
+    return walk(state_sds, None)

@@ -1,6 +1,5 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP
-(the training half of the reference's module; one-token decode is
-ROADMAP A12b).
+"""Core transformer layers: RMSNorm, RoPE, GQA attention (full
+sequence, cross, and one-token decode against a KV cache), SwiGLU MLP.
 
 All functions are pure over tensors; parameters are declared via
 ParamSpec trees so init / abstract shapes / PartitionSpecs derive from
@@ -21,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.param import ParamSpec
+from repro_torch.nn.scan import scan
 
 Constrainer = Callable[[torch.Tensor, tuple], torch.Tensor]
 
@@ -134,8 +134,13 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask_fn, q_offset, sc: Constrainer,
         out = chunk_attn(q, 0)
     else:
         assert sq % q_chunk == 0, (sq, q_chunk)
-        out = torch.cat([chunk_attn(q[:, i:i + q_chunk], i)
-                         for i in range(0, sq, q_chunk)], dim=1)
+
+        def body(_, i):
+            i0 = i * q_chunk
+            return None, chunk_attn(q[:, i0:i0 + q_chunk], i0)
+
+        _, outs = scan(body, None, sq // q_chunk)
+        out = torch.cat(outs, dim=1)
     return sc(out, ("batch", None, "heads", None))
 
 
@@ -156,6 +161,26 @@ def attention_train(cfg: ModelConfig, p, x, cos, sin, sc: Constrainer = no_sc,
     out = _sdpa(cfg, q, k, v, _causal if causal else _everything, 0, sc,
                 q_chunk)
     return _out_proj(out, p["wo"]), (k, v)
+
+
+def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos,
+                     cos_t, sin_t, sc: Constrainer = no_sc):
+    """One-token decode: x (B, 1, D); cache (B, S, KV, hd); pos a 0-d
+    int tensor (never read on the host).  The token's k / v are written
+    into the caches in place at `pos`, clamped to the last slot as
+    `dynamic_update_slice` clamps its start (so `pos >= S` overwrites
+    slot S - 1 and does not fail); returns (out, cache_k, cache_v)."""
+    q, k, v = _qkv(cfg, p, x, x, sc)
+    q = apply_rope(q, cos_t, sin_t)
+    k = apply_rope(k, cos_t, sin_t)
+    at = torch.clamp(pos, 0, cache_k.shape[1] - 1).reshape(1).long()
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    cache_k = sc(cache_k, ("batch", "seq", None, None))
+    cache_v = sc(cache_v, ("batch", "seq", None, None))
+    out = _sdpa(cfg, q, cache_k.to(x.dtype), cache_v.to(x.dtype),
+                lambda qp, kp: kp <= pos, pos, sc)
+    return _out_proj(out, p["wo"]), cache_k, cache_v
 
 
 def attention_cross(cfg: ModelConfig, p, x, mem_k, mem_v,

@@ -9,12 +9,13 @@ otherwise blow up the dense compute buffer, so overflow tokens are
 dropped exactly as the paper bounds its on-chip working set.
 
 The reference's dense dispatch, op for op (stable sort by expert,
-capacity ceil(T k / E * capacity_factor), drops past it).  Its
-expert-parallel all-to-all path (`moe_a2a`) is ROADMAP A12c: where a
-mesh has a model axis above 1 the dispatcher raises instead of quietly
-taking the dense path.
+capacity ceil(T k / E * capacity_factor), drops past it); on a mesh
+whose model axis is above 1 the dispatcher takes the expert-parallel
+all-to-all path (`moe_a2a.py`), as the reference's does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,54 +45,53 @@ def moe_specs(cfg: ModelConfig):
     return sp
 
 
-def model_axis_size(mesh, rules) -> int:
-    """Devices along the mesh axes the "experts" rule names."""
-    ax = rules.get("experts")
-    axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
-    shape = dict(zip(mesh.axis_names, mesh.devices.shape))
-    return int(np.prod([shape.get(a, 1) for a in axes]))
-
-
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, sc: Constrainer = no_sc,
             capacity_factor: float = 1.25) -> torch.Tensor:
-    """Dispatcher: the reference takes the expert-parallel all-to-all
-    path when the constrainer carries a mesh with a model axis > 1, else
-    the single-device dense dispatch.  The all-to-all path is not
-    ported yet, so such a mesh raises."""
+    """Dispatcher: the expert-parallel all-to-all path when the
+    constrainer carries a mesh with a model axis > 1, else the
+    single-device dense dispatch."""
     mesh = getattr(sc, "mesh", None)
     rules = getattr(sc, "rules", None)
     if mesh is not None and rules is not None:
+        from repro_torch.nn.moe_a2a import model_axis_size, moe_ffn_a2a
         if model_axis_size(mesh, rules) > 1:
-            raise NotImplementedError(
-                "the expert-parallel all-to-all MoE (moe_a2a) for a mesh "
-                "with a model axis above 1 is not ported yet "
-                "(ROADMAP A12c)")
+            return moe_ffn_a2a(cfg, p, x, mesh, rules,
+                               capacity_factor=capacity_factor)
     return moe_ffn_dense(cfg, p, x, sc, capacity_factor)
 
 
 def route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor,
-          capacity_factor: float = 1.25):
-    """The dense dispatch's routing of xf (T, D): a dict of the top-k
-    probabilities and experts (T, k), the capacity `cap`, and per routed
-    token in expert order its expert `ge`, token `gt`, weight `gp`,
-    position in its group `pos`, `keep` (pos < cap) and buffer `slot`
-    (e * cap for a drop)."""
-    t = xf.shape[0]
+          capacity_factor: float = 1.25, cap: Optional[int] = None):
+    """The routing of xf (..., T, D), each leading index a block routed
+    on its own: a dict of the top-k probabilities and experts (..., T,
+    k), the capacity `cap` (ceil(T k / E * capacity_factor) unless
+    given: the all-to-all path passes its per-block one), and per routed
+    token in expert order (..., T*k) its expert `ge`, token `gt`, weight
+    `gp`, position in its group `pos`, `keep` (pos < cap) and buffer
+    `slot` (e * cap for a drop)."""
+    t = xf.shape[-2]
+    lead = xf.shape[:-2]
     e, k = cfg.n_experts, cfg.top_k
+    dev = xf.device
     logits = xf.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.topk(probs, k, dim=-1)               # (T, k)
+    top_p, top_i = torch.topk(probs, k, dim=-1)               # (..., T, k)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
-    cap = int(np.ceil(t * k / e * capacity_factor))
-    flat_e = top_i.reshape(-1)                                 # (T*k,)
-    flat_t = torch.arange(t, device=xf.device).repeat_interleave(k)
-    flat_p = top_p.reshape(-1)
+    if cap is None:
+        cap = int(np.ceil(t * k / e * capacity_factor))
+    flat_e = top_i.reshape(lead + (t * k,))                    # (..., T*k)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    flat_p = top_p.reshape(lead + (t * k,))
 
-    order = torch.argsort(flat_e, stable=True)                 # by expert
-    ge, gt, gp = flat_e[order], flat_t[order], flat_p[order]
-    group_start = torch.searchsorted(ge, torch.arange(e, device=xf.device))
-    pos = torch.arange(t * k, device=xf.device) - group_start[ge]
+    order = torch.argsort(flat_e, dim=-1, stable=True)         # by expert
+    ge = torch.take_along_dim(flat_e, order, dim=-1)
+    gt = flat_t[order]
+    gp = torch.take_along_dim(flat_p, order, dim=-1)
+    experts = torch.arange(e, device=dev).expand(lead + (e,)).contiguous()
+    group_start = torch.searchsorted(ge.contiguous(), experts)
+    pos = (torch.arange(t * k, device=dev)
+           - torch.take_along_dim(group_start, ge, dim=-1))
     keep = pos < cap
     slot = torch.where(keep, ge * cap + pos,
                        torch.full_like(pos, e * cap))

@@ -42,11 +42,9 @@ from repro.training import optimizer as j_opt
 from repro.training import train_lib as j_train
 from repro_torch.configs import ARCH_IDS, all_configs, get_config, get_smoke
 from repro_torch.data.pipeline import SyntheticTokenStream
-from repro_torch.distributed.sharding import Constrainer
 from repro_torch.interop import load_reference_lm_params
 from repro_torch.launch import specs as SP
 from repro_torch.launch import train as t_train
-from repro_torch.launch.mesh import make_mesh
 from repro_torch.nn import moe as TM
 from repro_torch.nn import transformer as T
 from repro_torch.training.optimizer import (init_opt_state, tree_leaves,
@@ -383,18 +381,6 @@ def test_moe_routing_and_drops_equal_the_reference(arch, capacity_factor):
             p, "cpu"), torch.from_numpy(x))),
         float(JM.aux_load_balance_loss(jcfg, jax.tree.map(jnp.asarray, p),
                                        jnp.asarray(x))), rtol=1e-6)
-
-
-def test_moe_raises_on_a_model_axis_above_one():
-    cfg = get_smoke("moonshot_v1_16b_a3b")
-    params = T.init_params(cfg, seed=0, device="cpu")
-    p = T._unstack(params["layers"]["slot0"]["ffn"], cfg.num_layers)[0]
-    x = torch.zeros((1, 4, cfg.d_model))
-    sc = Constrainer(make_mesh((1, 2), ("data", "model"), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12c"):
-        TM.moe_ffn(cfg, p, x, sc)
-    one = Constrainer(make_mesh((2, 1), ("data", "model"), device="cpu"))
-    assert TM.moe_ffn(cfg, p, x, one).shape == x.shape
 
 
 # -------------------------------------------------- test_training.py
