@@ -1,0 +1,7 @@
+"""Share of the traced steps' window in which the device ran nothing,
+in %: 1 - (union of device operations) / (window)."""
+from portbench.lib.readers import device_idle
+
+
+def read(ctx):
+    return device_idle(ctx, train=True)
