@@ -68,6 +68,7 @@ priced together against the card's free memory.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from functools import partial
 from typing import Any, Dict, Optional
 
@@ -85,6 +86,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.compression import quantize_int8_np
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.partition import tile_schedule_order
+from repro_torch.tracing import span, stage
 
 AggregateOp = str  # "sum" | "max" | "mean"
 
@@ -241,9 +243,26 @@ class EnGNLayer(nn.Module):
                                  self.w, q=graph["blocks_meta"]["q"],
                                  columns=graph.get("fused_columns"))
             return self.update(x, y[:graph["n"]])
+        return self._three_stages(agg, x, linear_sum)
+
+    def _three_stages(self, agg, x, linear_sum: bool) -> torch.Tensor:
+        """Extraction, `agg` and the update in DASR's order, each in its
+        `engn.*` span: (AX)W for a linear sum the order puts aggregation
+        first, A(XW) otherwise."""
+        # each stage rebinds y, so an intermediate lives no longer than
+        # in the nested calls
         if linear_sum and self.dasr_order() == "afu":
-            return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
-        return self.update(x, agg(self.feature_extraction(x)))      # A(XW)
+            with span("engn.aggregate"):
+                y = agg(x)
+            with span("engn.extract"):
+                y = self.feature_extraction(y)                    # (AX)W
+        else:
+            with span("engn.extract"):
+                y = self.feature_extraction(x)
+            with span("engn.aggregate"):
+                y = agg(y)                                        # A(XW)
+        with span("engn.update"):
+            return self.update(x, y)
 
     # -- staged models (typed and gated stage contracts) ------------------
     def _apply_staged(self, graph, x, spec) -> torch.Tensor:
@@ -311,27 +330,12 @@ class EnGNLayer(nn.Module):
             return self.update(x, y[:n])
         if backend != "blocked":
             raise ValueError(backend)
-        xw = self.src_payload(x)                          # (n, r*h)
-        if "typed_flat" in graph:
-            gsrc, gdst, gval, grel = graph["typed_flat"]
-            ev = gval[:, None] * xw.reshape(n * r, h)[gsrc.long() * r
-                                                       + grel.long()]
-            return self.update(x, segment_aggregate(ev, gdst, n, "sum"))
-        from repro_torch.kernels.rer_spmm import blocked_spmm
-        pad_n = graph["blocks_meta"]["padded"]
-        # one contiguous (pad_n, H) slice per relation, the rows B1 reads;
-        # its gradient reaches the payload (and W_r) through the unbind
-        parts = (_pad_rows(graph, xw).reshape(pad_n, r, h)
-                 .permute(1, 0, 2).contiguous().unbind(0))
-        y = None
-        for blk in graph["typed_blocks"]:      # relations with tiles only
-            part = blocked_spmm(blk["blocks"], blk["block_row"],
-                                blk["block_col"], parts[blk["rel"]],
-                                q=blk["q"], op="sum")
-            y = part if y is None else y + part
-        agg = (y[:n] if y is not None
-               else torch.zeros((n, h), dtype=x.dtype, device=x.device))
-        return self.update(x, agg)
+        with span("engn.extract"):
+            xw = self.src_payload(x)                      # (n, r*h)
+        with span("engn.aggregate"):
+            agg = _typed_blocked_sum(graph, xw, n, r, h)
+        with span("engn.update"):
+            return self.update(x, agg)
 
     def _staged_gated(self, graph, x, backend) -> torch.Tensor:
         """Dst+src sigmoid-gated messages (Gated-GCN, Eq. 4): message =
@@ -435,9 +439,7 @@ class EnGNLayer(nn.Module):
         linear_sum = (cfg.aggregate_op == "sum"
                       and type(self).feature_extraction
                       is EnGNLayer.feature_extraction)
-        if linear_sum and self.dasr_order() == "afu":
-            return self.update(x, self.feature_extraction(agg(x)))  # (AX)W
-        return self.update(x, agg(self.feature_extraction(x)))      # A(XW)
+        return self._three_stages(agg, x, linear_sum)
 
     def _apply_tiled(self, graph, x) -> torch.Tensor:
         """The layer through the streamed executor: extraction runs on
@@ -521,6 +523,32 @@ class EnGNLayer(nn.Module):
         return _finish(y)
 
 
+def _typed_blocked_sum(graph: Dict[str, Any], xw: torch.Tensor, n: int,
+                       r: int, h: int) -> torch.Tensor:
+    """The typed aggregate of a blocked plan over the (n, R*H) payload:
+    the flat entries' gather and segment sum, or one B1 launch per
+    relation's dense tiles."""
+    if "typed_flat" in graph:
+        gsrc, gdst, gval, grel = graph["typed_flat"]
+        ev = gval[:, None] * xw.reshape(n * r, h)[gsrc.long() * r
+                                                   + grel.long()]
+        return segment_aggregate(ev, gdst, n, "sum")
+    from repro_torch.kernels.rer_spmm import blocked_spmm
+    pad_n = graph["blocks_meta"]["padded"]
+    # one contiguous (pad_n, H) slice per relation, the rows B1 reads;
+    # its gradient reaches the payload (and W_r) through the unbind
+    parts = (_pad_rows(graph, xw).reshape(pad_n, r, h)
+             .permute(1, 0, 2).contiguous().unbind(0))
+    y = None
+    for blk in graph["typed_blocks"]:      # relations with tiles only
+        part = blocked_spmm(blk["blocks"], blk["block_row"],
+                            blk["block_col"], parts[blk["rel"]],
+                            q=blk["q"], op="sum")
+        y = part if y is None else y + part
+    return (y[:n] if y is not None
+            else torch.zeros((n, h), dtype=xw.dtype, device=xw.device))
+
+
 def _segment_edges(graph: Dict[str, Any], dev: torch.device):
     """(src, dst, val) of a segment carrier as index and float32 tensors,
     val 1 where the graph is unweighted."""
@@ -542,15 +570,22 @@ def _pad_rows(graph: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return xf
 
 
+def _upload_stage(dev: torch.device):
+    """The `plan.upload` stage where the target is a card."""
+    return stage("plan.upload") if dev.type == "cuda" else nullcontext()
+
+
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    with _upload_stage(dev):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
 def upload_groups(groups, dev: torch.device):
     """A plan's bucket groups on `dev`, with the `rer_gather` kernel's
     work table built from the host arrays beside them (`PlanGroups`)."""
     from repro_torch.kernels.rer_gather import PlanGroups
-    return PlanGroups(groups, dev)
+    with _upload_stage(dev):
+        return PlanGroups(groups, dev)
 
 
 def fold_rel_norm(g: COOGraph) -> COOGraph:
@@ -572,7 +607,8 @@ def _maybe_fold_rel_norm(g: COOGraph, cfg: EnGNConfig, rel_normed: bool):
     most once across the prepare_* call chain."""
     if (cfg.rel_normalize and not rel_normed and g.rel is not None
             and g.num_relations > 1):
-        return fold_rel_norm(g), True
+        with stage("plan.fold"):
+            return fold_rel_norm(g), True
     return g, rel_normed
 
 
@@ -718,11 +754,14 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
         from repro_torch.graphs.partition import (build_tile_store,
                                                   pack_tile_store)
         from repro_torch.kernels.autotune import choose_tile_format
-        store = build_tile_store(g, cfg.tile)
-        packed = pack_tile_store(store)
-        choice = choose_tile_format(
-            cfg.tile_format, packed, backend="blocked",
-            bucket_floor=cfg.packed_bucket_floor)
+        with stage("plan.tiles"):
+            store = build_tile_store(g, cfg.tile)
+        with stage("plan.pack"):
+            packed = pack_tile_store(store)
+        with stage("plan.format"):
+            choice = choose_tile_format(
+                cfg.tile_format, packed, backend="blocked",
+                bucket_floor=cfg.packed_bucket_floor)
         if choice.fmt == "packed":
             return _prepare_packed(g, cfg, d, h, store, packed, choice,
                                    order, dev, rel_normed)
@@ -1014,7 +1053,8 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
     which the plan holds."""
     from repro_torch.kernels import rer_gather
     if dev.type == "cpu" or cfg.stage_contract == "gated":
-        flat = rer_gather.flat_entries(packed)
+        with stage("plan.groups"):
+            flat = rer_gather.flat_entries(packed)
         if (cfg.tile_value_dtype == "int8"
                 and cfg.stage_contract != "gated"):
             qv, sc, _ = quantize_int8_np(flat[2])
@@ -1026,8 +1066,9 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
             d["packed_flat"] = tuple(_upload(a, dev) for a in flat)
             tile_bytes = sum(a.nbytes for a in flat)
     else:
-        groups = rer_gather.prepare_packed_groups(packed,
-                                                  cfg.packed_bucket_floor)
+        with stage("plan.groups"):
+            groups = rer_gather.prepare_packed_groups(
+                packed, cfg.packed_bucket_floor)
         d["packed_groups"] = upload_groups(groups, dev)
         tile_bytes = sum(gr.nbytes() for gr in groups)
     # re-check the plan as built (the closed-form gate prices nnz bounds)
@@ -1082,11 +1123,16 @@ def _prepare_blocked_typed(g: COOGraph, cfg: EnGNConfig, d: Dict[str, Any],
                             "format_choice": None, "num_relations": r}
         return wrap_plan(d)
     from repro_torch.kernels.rer_gather import flat_entries
-    ps = pack_tile_store(build_tile_store(g, t))
-    gsrc, gdst, gval = flat_entries(ps)
-    tile_of = np.repeat(np.arange(ps.nnzb, dtype=np.int64),
-                        np.diff(ps.entry_ptr))
-    grel = ps.block_rel[tile_of].astype(np.int32)
+    with stage("plan.tiles"):
+        store = build_tile_store(g, t)
+    with stage("plan.pack"):
+        ps = pack_tile_store(store)
+    del store
+    with stage("plan.groups"):
+        gsrc, gdst, gval = flat_entries(ps)
+        tile_of = np.repeat(np.arange(ps.nnzb, dtype=np.int64),
+                            np.diff(ps.entry_ptr))
+        grel = ps.block_rel[tile_of].astype(np.int32)
     d["typed_flat"] = tuple(_upload(a, dev)
                             for a in (gsrc, gdst, gval, grel))
     d["blocks_meta"] = {"q": ps.q, "padded": ps.padded_vertices,

@@ -6,20 +6,23 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.graphs.format import COOGraph
+from repro_torch.tracing import stage
 
 
 def degree_sort_permutation(g: COOGraph) -> np.ndarray:
     """perm[new_id] = old_id, descending total degree (stable)."""
-    deg = g.degrees()
-    return np.argsort(-deg, kind="stable").astype(np.int32)
+    with stage("graph.relabel"):
+        deg = g.degrees()
+        return np.argsort(-deg, kind="stable").astype(np.int32)
 
 
 def apply_vertex_permutation(g: COOGraph, perm: np.ndarray) -> COOGraph:
     """Relabel vertices: new graph where vertex i is old vertex perm[i]."""
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
-    return COOGraph(g.num_vertices, inv[g.src], inv[g.dst],
-                    g.val, g.rel, g.num_relations)
+    with stage("graph.relabel"):
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+        return COOGraph(g.num_vertices, inv[g.src], inv[g.dst],
+                        g.val, g.rel, g.num_relations)
 
 
 def permute_features(x: np.ndarray, perm: np.ndarray) -> np.ndarray:

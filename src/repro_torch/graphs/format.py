@@ -14,6 +14,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.tracing import stage
+
 
 @dataclasses.dataclass(frozen=True)
 class COOGraph:
@@ -59,12 +61,16 @@ class COOGraph:
                         val, rel, self.num_relations)
 
     def gcn_normalized(self) -> "COOGraph":
-        """Edge weights D~^-1/2 A~ D~^-1/2 (GCN Eq. 1), computed host-side."""
-        g = self.with_self_loops()
-        deg = np.bincount(g.dst, weights=np.ones(g.num_edges), minlength=g.num_vertices)
-        dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
-        val = (dinv[g.src] * dinv[g.dst]).astype(np.float32)
-        return COOGraph(g.num_vertices, g.src, g.dst, val, g.rel, g.num_relations)
+        """Edge weights D~^-1/2 A~ D~^-1/2 (GCN Eq. 1), computed host-side
+        (the `graph.normalise` stage)."""
+        with stage("graph.normalise"):
+            g = self.with_self_loops()
+            deg = np.bincount(g.dst, weights=np.ones(g.num_edges),
+                              minlength=g.num_vertices)
+            dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
+            val = (dinv[g.src] * dinv[g.dst]).astype(np.float32)
+            return COOGraph(g.num_vertices, g.src, g.dst, val, g.rel,
+                            g.num_relations)
 
 
 @dataclasses.dataclass(frozen=True)

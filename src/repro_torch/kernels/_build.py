@@ -11,7 +11,8 @@ all started together, into `build/repro_torch/<hash>/` at the repository
 root; the hash covers the sources and the flags, so an edited kernel
 builds anew and an unchanged one is reused.  Each compiler log (with
 `-Xptxas -v`: registers, shared memory, spills) stays beside its
-library as `<name>.log`.
+library as `<name>.log`.  The `build.compiled` counter of
+`repro_torch.tracing` counts the libraries nvcc built in this process.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+from repro_torch.tracing import count
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -59,6 +62,7 @@ def build_all() -> Path:
     out = build_dir()
     todo = [k for k in KERNELS if not (out / f"lib{k}.so").exists()]
     if not todo:
+        count("build.compiled", 0)
         return out
     out.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -79,6 +83,7 @@ def build_all() -> Path:
             os.replace(tmp, out / f"lib{name}.so")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    count("build.compiled", len(todo))
     return out
 
 

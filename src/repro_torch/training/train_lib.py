@@ -13,6 +13,10 @@ whose backward is a kernel over the forward carrier (the sums' A^T G,
 the max backward kernels), so one step's launches are the forward's
 plus the backward's.  The LM stack reaches no kernel of its own (the
 reference's is XLA).
+
+Every step's phases are `repro_torch.tracing` spans: `step.forward`
+(the loss), `step.backward` (autograd) and `step.optimizer` (the
+schedule, the clip and AdamW).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.nn import transformer as T
+from repro_torch.tracing import span
 from repro_torch.nn.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             clip_by_global_norm, tree_map)
@@ -55,8 +60,10 @@ def value_and_grad(loss_fn: Callable, params, batch):
     where the loss does not reach one, as under `jax.grad`)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = loss_fn(leaves, batch)
-        loss.backward()
+        with span("step.forward"):
+            loss = loss_fn(leaves, batch)
+        with span("step.backward"):
+            loss.backward()
     grads = tree_map(lambda p: (p.grad if p.grad is not None
                                 else torch.zeros_like(p)), leaves)
     return loss.detach(), grads
@@ -92,10 +99,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
         loss, grads = value_and_grad(loss_fn, params, batch)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        lr = sched(opt_state["count"] + 1, peak_lr=peak_lr, warmup=warmup,
-                   total=total_steps)
-        params, opt_state, gnorm = _apply_update(opt_cfg, grads, opt_state,
-                                                 params, lr, donate)
+        with span("step.optimizer"):
+            lr = sched(opt_state["count"] + 1, peak_lr=peak_lr,
+                       warmup=warmup, total=total_steps)
+            params, opt_state, gnorm = _apply_update(
+                opt_cfg, grads, opt_state, params, lr, donate)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "lr": lr}
 
@@ -131,10 +139,11 @@ def make_grad_accum_train_step(cfg: ModelConfig,
         grads = tree_map(lambda g: g / micro_steps, gsum)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        lr = sched(opt_state["count"] + 1, peak_lr=peak_lr, warmup=warmup,
-                   total=total_steps)
-        params, opt_state, gnorm = _apply_update(opt_cfg, grads, opt_state,
-                                                 params, lr, donate)
+        with span("step.optimizer"):
+            lr = sched(opt_state["count"] + 1, peak_lr=peak_lr,
+                       warmup=warmup, total=total_steps)
+            params, opt_state, gnorm = _apply_update(
+                opt_cfg, grads, opt_state, params, lr, donate)
         return params, opt_state, {"loss": lsum / micro_steps,
                                    "grad_norm": gnorm, "lr": lr}
 
@@ -156,10 +165,11 @@ def make_gnn_train_step(loss_fn: Callable, *,
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(loss_fn, params, batch)
-        lr = cosine_schedule(opt_state["count"] + 1, peak_lr=peak_lr,
-                             warmup=warmup, total=total_steps)
-        params, opt_state, gnorm = _apply_update(opt_cfg, grads, opt_state,
-                                                 params, lr, False)
+        with span("step.optimizer"):
+            lr = cosine_schedule(opt_state["count"] + 1, peak_lr=peak_lr,
+                                 warmup=warmup, total=total_steps)
+            params, opt_state, gnorm = _apply_update(
+                opt_cfg, grads, opt_state, params, lr, False)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "lr": lr}
 
