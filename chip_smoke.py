@@ -8,7 +8,7 @@ prints no result.  Phases, each of which fails the run if it fails:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit (every time below stands beside them);
-2. build: the seven CUDA kernel sources, from `src/repro_torch/csrc/`, one
+2. build: the eight CUDA kernel sources, from `src/repro_torch/csrc/`, one
    `nvcc` each, in parallel, into `build/repro_torch/`;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the calls one forward of its main-path run makes (max variants
@@ -75,12 +75,17 @@ prints no result.  Phases, each of which fails the run if it fails:
 8. staged models (R-GCN, Gated-GCN): first B1 once per relation
    (`rer_spmm_sum_typed_aifb` / `_pubmed`: every relation's calls of one
    forward against the plain version, in the record; each relation's
-   time, bound and `torch.sparse.mm` on its A, printed); then inference
+   time, bound and `torch.sparse.mm` on its A, printed); then the typed
+   pair projection at the BGS packed plan's pairs, both layers' widths
+   (`typed_pairs_project_bgs`, `_grad_w_bgs`, `_grad_x_bgs`: each pass
+   against its plain version, beside the (N, R*H) einsum payload route
+   it replaced); then inference
    through the entry points: the AIFB stand-in (8,285 V, 29,043 E, 45
    relations) R-GCN [91, 16, 4] on "segment", "blocked" dense (B1 once
    per relation a layer) and packed; the BGS stand-in (333,845 V,
    2,166,243 E, 103 relations) R-GCN [207, 16, 2] on "segment" and
-   "blocked" packed; merged pubmed Gated-GCN [500, 64, 3] on "segment"
+   "blocked" packed (the packed R-GCN runs on the pair kernels); merged
+   pubmed Gated-GCN [500, 64, 3] on "segment"
    and "blocked" packed, each against "segment" (`allclose(rtol=1e-4,
    atol=1e-5)`), each with its plan bytes beside what the budget gate
    priced; the gated dense plan at pubmed refused before it allocates;
@@ -89,7 +94,8 @@ prints no result.  Phases, each of which fails the run if it fails:
    resident result, with its `TiledStats`;
 10. staged training: `build_gnn` on uncut pubmed, 10 steps, R-GCN (3-type
    colouring) on "segment" and "blocked" dense (6 B1 and 6 B1^T launches
-   a step) and packed, Gated-GCN on "segment" and "blocked" packed:
+   a step) and packed (the pair kernels' forward, dW and dX), Gated-GCN
+   on "segment" and "blocked" packed:
    losses against "segment" (rtol=1e-3, atol=1e-4), one step's gradients
    against "segment"'s, the plan's bytes unchanged by training;
 11. streamed training: `build_gnn` on uncut pubmed [128, 64, 3], batch
@@ -1383,6 +1389,75 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    from repro_torch.kernels.typed_pairs import ops as pair_ops
+
+    def typed_pair_rows(label, g, dims):
+        """The typed pair projection at one packed plan's pairs, both
+        layers' widths: the forward, dW and dX kernels, each against its
+        plain version, beside the route it replaced (the (N, R*H) einsum
+        payload and the gather of the pairs' rows; the gradients through
+        that payload)."""
+        layers = staged_stack("rgcn", dims, "blocked", "packed",
+                              rels=g.num_relations)
+        pairs = rt.prepare_graph(g, layers[0].cfg).carrier["typed_pairs"]
+        n, r, p = g.num_vertices, pairs.num_relations, pairs.num_pairs
+        rel = torch.repeat_interleave(
+            torch.arange(r, device=dev),
+            torch.from_numpy(np.diff(pairs.pair_ptr)).to(dev))
+        key = pairs.pair_src.long() * r + rel
+        shapes = list(zip(dims[:-1], dims[1:]))
+        xs = [feats(n, f) for f, _ in shapes]
+        ws = [feats(r * f, h).view(r, f, h) for f, h in shapes]
+        dys = [feats(p, h) for _, h in shapes]
+
+        def payload_grad(dy):
+            return torch.zeros((n * r, dy.shape[1]), device=dev).index_add_(
+                0, key, dy).view(n, r, -1)
+        ops = sum(2 * p * f * h for f, h in shapes)
+        cases = {
+            "project": (
+                [(lambda x=x, w=w: pair_ops._project(x, w, pairs),
+                  lambda x=x, w=w: pair_ops.typed_pair_project_plain(
+                      x, w, pairs)) for x, w in zip(xs, ws)],
+                lambda: [torch.einsum("nf,rfh->nrh", x, w).reshape(
+                    n * r, -1)[key] for x, w in zip(xs, ws)],
+                sum(4 * (p * f + p * h + r * f * h + p) for f, h in shapes)),
+            "grad_w": (
+                [(lambda x=x, w=w, d=d: pair_ops._grad_w(x, d, pairs,
+                                                         w.shape),
+                  lambda x=x, w=w, d=d: pair_ops.typed_pair_grad_w_plain(
+                      x, d, pairs, w.shape))
+                 for x, w, d in zip(xs, ws, dys)],
+                lambda: [torch.einsum("nf,nrh->rfh", x, payload_grad(d))
+                         for x, d in zip(xs, dys)],
+                sum(4 * (p * f + p * h + r * f * h + p) for f, h in shapes)),
+            "grad_x": (
+                [(lambda x=x, w=w, d=d: pair_ops._grad_x(d, w, pairs,
+                                                         x.shape),
+                  lambda x=x, w=w, d=d: pair_ops.typed_pair_grad_x_plain(
+                      d, w, pairs, x.shape))
+                 for x, w, d in zip(xs, ws, dys)],
+                lambda: [torch.einsum("nrh,rfh->nf", payload_grad(d), w)
+                         for w, d in zip(ws, dys)],
+                sum(4 * (p * h + p + n * f + r * f * h) for f, h in shapes))}
+        print(f"typed pairs {label}: N {n}, R {r}, P {p} pairs "
+              f"({100 * p / (n * r):.2f}% of N R), "
+              f"{pairs.blocks.shape[0]} blocks, widths {shapes}")
+        for name, (calls, library, nbytes) in cases.items():
+            kernel_case(
+                f"typed_pairs_{name}_{label}",
+                "src/repro_torch/csrc/typed_pairs.cu",
+                "none: the reference's XLA einsum "
+                "(src/repro/core/models.py::RGCNLayer.src_payload)",
+                calls, exact=False, rel=NEW_RTOL, nbytes=nbytes, ops=ops,
+                library=library, counter=f"typed_pairs_{name}",
+                phases=("staged", "staged_training"))
+
+    with torch.inference_mode():
+        typed_pair_rows("bgs", bgs[0], [bgs[2], 16, bgs[3]])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # inference: each graph's "segment" run first, its twins with the
     # same weights
     g_pub, x_pub_np = pubmed[0], pubmed[1]
@@ -1395,11 +1470,11 @@ def main() -> int:
         ("aifb rgcn blocked dense", aifb[0], aifb[1], "rgcn", aifb_dims,
          "blocked", "dense", ("rer_spmm_sum",)),
         ("aifb rgcn blocked packed", aifb[0], aifb[1], "rgcn", aifb_dims,
-         "blocked", "packed", ()),
+         "blocked", "packed", ("typed_pairs_project",)),
         ("bgs rgcn segment", bgs[0], bgs[1], "rgcn", bgs_dims, "segment",
          "auto", ()),
         ("bgs rgcn blocked packed", bgs[0], bgs[1], "rgcn", bgs_dims,
-         "blocked", "packed", ()),
+         "blocked", "packed", ("typed_pairs_project",)),
         ("pubmed gated_gcn segment", g_pub, x_pub_np, "gated_gcn",
          gated_dims, "segment", "auto", ()),
         ("pubmed gated_gcn blocked packed", g_pub, x_pub_np, "gated_gcn",
@@ -1563,7 +1638,8 @@ def main() -> int:
         ("pubmed rgcn segment", "rgcn", "segment", "auto", ()),
         ("pubmed rgcn blocked dense", "rgcn", "blocked", "dense",
          ("rer_spmm_sum", "rer_spmm_sum_t")),
-        ("pubmed rgcn blocked packed", "rgcn", "blocked", "packed", ()),
+        ("pubmed rgcn blocked packed", "rgcn", "blocked", "packed",
+         ("typed_pairs_project", "typed_pairs_grad_w", "typed_pairs_grad_x")),
         ("pubmed gated_gcn segment", "gated_gcn", "segment", "auto", ()),
         ("pubmed gated_gcn blocked packed", "gated_gcn", "blocked",
          "packed", ()),

@@ -39,10 +39,13 @@ The typed and gated stage contracts (R-GCN, Gated-GCN: `stage_spec`)
 run on "segment", "blocked", "ring" and "tiled".  Typed dense
 tiles keep one `rer_spmm` plan per relation, each launched on its own
 contiguous H-wide payload slice; typed packed plans carry the flat
-entries with a relation column, and gated packed plans the flat entries
-on every device, as the reference's do (plain PyTorch gathers on the
-card: the reference's are XLA, not Pallas).  Gated dense tiles run the
-reference's (nnzb, T, T, F) formulation, which on `cuda` is priced
+entries with a relation column, as the reference's do, and beside them
+their distinct (src, relation) pairs (`typed_pairs`): the layer projects
+only those, once each (`typed_pairs` kernels on the card), and the
+entries gather their pair's row.  Gated packed plans carry the flat
+entries on every device, as the reference's do (plain PyTorch gathers
+on the card: the reference's are XLA, not Pallas).  Gated dense tiles
+run the reference's (nnzb, T, T, F) formulation, which on `cuda` is priced
 first and refused with `DeviceBudgetExceeded` over the budget or the
 card's free memory (ROADMAP B6).  The reference's `aggregate_fn`
 refusal has no counterpart: `forward` takes no `aggregate_fn`.
@@ -86,7 +89,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.compression import quantize_int8_np
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.partition import tile_schedule_order
-from repro_torch.tracing import span, stage
+from repro_torch.tracing import count, span, stage
 
 AggregateOp = str  # "sum" | "max" | "mean"
 
@@ -194,8 +197,9 @@ class EnGNLayer(nn.Module):
         feature_extraction(x_src)).  A model whose messages read the edge
         type or the destination endpoint returns its spec:
         {"kind": "typed", "num_relations": R, "channels": H, "normalize":
-        bool} with `src_payload(x) -> (N, R*H)` (R-GCN), or {"kind":
-        "gated"} with `gate_dst` / `gate_src` (Gated-GCN).  Both
+        bool} with `src_payload(x) -> (N, R*H)` and `pair_payload(x,
+        pairs) -> (P, H)`, the rows of the pairs that send (R-GCN), or
+        {"kind": "gated"} with `gate_dst` / `gate_src` (Gated-GCN).  Both
         aggregate by sum."""
         return None
 
@@ -286,7 +290,12 @@ class EnGNLayer(nn.Module):
         """Relation-typed messages (R-GCN, Eq. 3): the per-vertex payload
         is the (N, R*H) stack of every relation's projection; each typed
         carrier (tile, flat entry) takes its own relation's H-wide slice
-        and the aggregate is a plain sum.  The per-(dst, rel)
+        and the aggregate is a plain sum.  A blocked plan's flat entries
+        take the (P, H) rows of the (src, relation) pairs that send
+        instead (`typed_pairs`), which hold the same numbers: the
+        `typed.pair_rows` counter counts the rows projected that way,
+        `typed.payload_rows` those of the (N, R*H) payloads of the dense
+        blocked route.  The per-(dst, rel)
         normalisation is folded into the carrier's weights by
         `prepare_graph` (`rel_normed`), or computed here on a raw
         segment dict."""
@@ -330,10 +339,19 @@ class EnGNLayer(nn.Module):
             return self.update(x, y[:n])
         if backend != "blocked":
             raise ValueError(backend)
-        with span("engn.extract"):
-            xw = self.src_payload(x)                      # (n, r*h)
-        with span("engn.aggregate"):
-            agg = _typed_blocked_sum(graph, xw, n, r, h)
+        if "typed_pairs" in graph:
+            pairs = graph["typed_pairs"]
+            count("typed.pair_rows", pairs.num_pairs)
+            with span("engn.extract"):
+                y = self.pair_payload(x, pairs)           # (P, h)
+            with span("engn.aggregate"):
+                agg = _typed_pair_sum(graph, y, n)
+        else:
+            count("typed.payload_rows", n * r)
+            with span("engn.extract"):
+                xw = self.src_payload(x)                  # (n, r*h)
+            with span("engn.aggregate"):
+                agg = _typed_blocked_sum(graph, xw, n, r, h)
         with span("engn.update"):
             return self.update(x, agg)
 
@@ -523,16 +541,20 @@ class EnGNLayer(nn.Module):
         return _finish(y)
 
 
+def _typed_pair_sum(graph: Dict[str, Any], y: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """The typed aggregate of a blocked plan's flat entries over the
+    (P, H) pair rows: each entry gathers its pair's row, then one
+    segment sum."""
+    _, gdst, gval, _ = graph["typed_flat"]
+    ev = gval[:, None] * y.index_select(0, graph["typed_pairs"].gpair)
+    return segment_aggregate(ev, gdst, n, "sum")
+
+
 def _typed_blocked_sum(graph: Dict[str, Any], xw: torch.Tensor, n: int,
                        r: int, h: int) -> torch.Tensor:
-    """The typed aggregate of a blocked plan over the (n, R*H) payload:
-    the flat entries' gather and segment sum, or one B1 launch per
-    relation's dense tiles."""
-    if "typed_flat" in graph:
-        gsrc, gdst, gval, grel = graph["typed_flat"]
-        ev = gval[:, None] * xw.reshape(n * r, h)[gsrc.long() * r
-                                                   + grel.long()]
-        return segment_aggregate(ev, gdst, n, "sum")
+    """The typed aggregate of a dense blocked plan over the (n, R*H)
+    payload: one B1 launch per relation's dense tiles."""
     from repro_torch.kernels.rer_spmm import blocked_spmm
     pad_n = graph["blocks_meta"]["padded"]
     # one contiguous (pad_n, H) slice per relation, the rows B1 reads;
@@ -1097,7 +1119,9 @@ def _prepare_blocked_typed(g: COOGraph, cfg: EnGNConfig, d: Dict[str, Any],
     contracts its own H-wide slice of the stacked payload: the bitwise
     dense oracle, and one B1 launch per relation); "packed" / "auto"
     carry the flat merged entries with a per-entry relation column, one
-    gather and one segment sum in all."""
+    gather and one segment sum in all, and their (src, relation) pairs
+    (`typed_pairs`: the rows the layer projects, and each entry's pair),
+    built in the same `plan.groups` stage."""
     from repro_torch.graphs.partition import build_tile_store, pack_tile_store
     n, r, t = g.num_vertices, g.num_relations, cfg.tile
     order = tile_schedule_order(cfg.in_dim, h)
@@ -1123,6 +1147,7 @@ def _prepare_blocked_typed(g: COOGraph, cfg: EnGNConfig, d: Dict[str, Any],
                             "format_choice": None, "num_relations": r}
         return wrap_plan(d)
     from repro_torch.kernels.rer_gather import flat_entries
+    from repro_torch.kernels.typed_pairs import TypedPairs, pair_table
     with stage("plan.tiles"):
         store = build_tile_store(g, t)
     with stage("plan.pack"):
@@ -1133,8 +1158,12 @@ def _prepare_blocked_typed(g: COOGraph, cfg: EnGNConfig, d: Dict[str, Any],
         tile_of = np.repeat(np.arange(ps.nnzb, dtype=np.int64),
                             np.diff(ps.entry_ptr))
         grel = ps.block_rel[tile_of].astype(np.int32)
+        del tile_of
+        pairs = pair_table(gsrc, grel, n, r)
     d["typed_flat"] = tuple(_upload(a, dev)
                             for a in (gsrc, gdst, gval, grel))
+    with _upload_stage(dev):
+        d["typed_pairs"] = TypedPairs(*pairs, dev)
     d["blocks_meta"] = {"q": ps.q, "padded": ps.padded_vertices,
                         "order": order, "tile": ps.tile,
                         "tile_format": "packed", "format_choice": None,

@@ -9,9 +9,9 @@
 | GRN       | W h_u                            | sum       | GRU(h_v, agg)           |
 
 R-GCN and Gated-GCN ride the typed and gated stage contracts
-(`stage_spec()` with `src_payload` / `gate_dst` / `gate_src`) on
-"segment", "blocked", "ring" and "tiled"; "fused" serves the
-default contract only and refuses them, as the reference does.  Their
+(`stage_spec()` with `src_payload` and `pair_payload` / `gate_dst` /
+`gate_src`) on "segment", "blocked", "ring" and "tiled"; "fused" serves
+the default contract only and refuses them, as the reference does.  Their
 parameters are the reference's by name and shape (`w0`, `wr` of shape
 (R, F, H); `w_h`, `w_c`, `w`), so `interop.load_reference_params`
 carries them across unchanged.
@@ -97,6 +97,13 @@ class RGCNLayer(EnGNLayer):
         r, h = self.num_relations, self.cfg.out_dim
         return torch.einsum("nf,rfh->nrh", x, self.wr).reshape(
             x.shape[0], r * h)
+
+    def pair_payload(self, x, pairs):
+        """(P, H): the projection of each (src, relation) pair of a typed
+        plan's `typed_pairs`, x[src] @ W_rel, the rows of `src_payload`
+        that its flat entries read."""
+        from repro_torch.kernels.typed_pairs import typed_pair_project
+        return typed_pair_project(x, self.wr, pairs)
 
     def extract(self, x_src, x_dst, edge_val, rel):
         """The reference per-edge message: W_rel x_src scaled by the

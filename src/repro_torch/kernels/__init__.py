@@ -1,8 +1,9 @@
-"""The port's kernels: the aggregates, their backward kernels and the
-fused linear + activation.  Each `<name>/ops.py` holds the wrapper (the
-hand-written CUDA kernel for CUDA tensors, the plain PyTorch version for
-CPU tensors), the plain version itself, and the wrapper's launch
-counter; the CUDA sources are `csrc/<name>.cu`."""
+"""The port's kernels: the aggregates, their backward kernels, the
+fused linear + activation and R-GCN's typed pair projection.  Each
+`<name>/ops.py` holds the wrapper (the hand-written CUDA kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors), the plain version
+itself, and the wrapper's launch counter; the CUDA sources are
+`csrc/<name>.cu`."""
 from __future__ import annotations
 
 from typing import Dict
@@ -16,10 +17,11 @@ def _modules():
     from repro_torch.kernels.rer_gather_bwd import ops as gather_bwd_ops
     from repro_torch.kernels.rer_spmm import ops as spmm_ops
     from repro_torch.kernels.rer_spmm_bwd import ops as spmm_bwd_ops
+    from repro_torch.kernels.typed_pairs import ops as pairs_ops
     return {"rer_spmm": spmm_ops, "rer_gather": gather_ops,
             "fused_engn": fused_ops, "chunk_queue": queue_ops,
             "rer_spmm_bwd": spmm_bwd_ops, "rer_gather_bwd": gather_bwd_ops,
-            "feature_update": update_ops}
+            "feature_update": update_ops, "typed_pairs": pairs_ops}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -29,7 +29,8 @@ from repro_torch.tracing import count
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("rer_spmm", "rer_gather", "fused_engn", "chunk_queue",
-           "rer_spmm_bwd", "rer_gather_bwd", "feature_update")
+           "rer_spmm_bwd", "rer_gather_bwd", "feature_update",
+           "typed_pairs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

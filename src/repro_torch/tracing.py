@@ -36,6 +36,8 @@ The spans and the metrics that read them (`portbench/metrics/`):
 | `plan.format`, `plan.groups` | the tile-format choice, the bucket groups or flat entries | `plan_groups_s` |
 | `plan.upload` | a plan's arrays going to a card | `plan_upload_s` |
 | `build.compiled` (counter) | `kernels/_build.py::build_all`: libraries nvcc built | `kernels_built` |
+| `typed.pair_rows` (counter) | `EnGNLayer._staged_typed`'s blocked route over flat entries: the (src, relation) pair rows projected, per layer call | none yet |
+| `typed.payload_rows` (counter) | the same route over dense typed tiles: the N x R rows of the (N, R*H) payload, per layer call | none yet |
 """
 from __future__ import annotations
 

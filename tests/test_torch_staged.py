@@ -27,6 +27,7 @@ from repro.core import tiled as j_tiled
 from repro.graphs.format import COOGraph as JCOO
 from repro.graphs.generate import rmat_graph
 import repro_torch as rt
+from repro_torch import tracing
 from repro_torch.core import engn as t_engn
 from repro_torch.core import models as t_models
 from repro_torch.core import tiled as t_tiled
@@ -205,9 +206,9 @@ def _probe(backend, fmt, params):
 @pytest.mark.parametrize("route", ROUTES[1:], ids=ROUTE_IDS[1:])
 def test_typed_sum_probe_bitwise_equal_to_segment(route, kind):
     """sum_r A_r X W_r with integer weights, features and projections:
-    every typed carrier (B1 per relation, flat entries, the streamed
-    typed tiles) equals the port's "segment", which equals the
-    reference's."""
+    every typed carrier (B1 per relation, flat entries over their
+    (src, relation) pairs' rows, the streamed typed tiles) equals the
+    port's "segment", which equals the reference's."""
     backend, fmt = route
     g, tg, x = _typed_graph(kind)
     params = _int_typed_params()
@@ -219,8 +220,17 @@ def test_typed_sum_probe_bitwise_equal_to_segment(route, kind):
         j_engn.prepare_graph(g, jseg.cfg), jnp.asarray(x)))
     assert np.array_equal(want.numpy(), jwant)
     probe = _probe(backend, fmt, params)
-    got = _forward(probe, rt.prepare_graph(tg, probe.cfg, device="cpu"), x)
+    plan = rt.prepare_graph(tg, probe.cfg, device="cpu")
+    tracing.reset()
+    got = _forward(probe, plan, x)
     assert torch.equal(got, want), (backend, fmt, kind)
+    # the flat entries take the pair route: one projected row per
+    # (src, relation) pair that sends
+    rows = tracing.report().get("typed.pair_rows", {}).get("calls")
+    if (backend, fmt) == ("blocked", "packed"):
+        assert rows == plan.carrier["typed_pairs"].num_pairs > 0
+    else:
+        assert rows is None
 
 
 def test_typed_dense_plan_launches_b1_once_per_relation(monkeypatch):
