@@ -12,9 +12,13 @@ reference model is a file of its own that the harness finds by name:
     modes/<mode>.py            the driver of one kind of traffic
     metrics/<metric>.py        a reader of one per-layer metric
     kernels/<family>.json      name patterns of one kernel family
-    reference/<model>.py       the plain PyTorch model the check runs
+    reference/<model>.py       the plain PyTorch model the check runs,
+                               and, where it defines `model_flops` and
+                               `aggregate_bytes`, the model's least work
 
-`lib/` holds the yardstick the cells share: the R-MAT rule, the counts
-of least work, the profiler summing, the peaks, the comparisons.
+`lib/` holds the yardstick the cells share: the R-MAT rule, the DASR
+counts of least work for a model whose reference defines none (GCN's,
+R-GCN's), the profiler summing, the peaks, the comparisons.  A model's
+own count stays a least count: never above the work the model needs.
 Nothing here imports JAX, the JAX package `repro` or `benchmarks/`.
 """

@@ -117,12 +117,14 @@ def run(cell_name: str, *, seed: int, seconds: float, traced: bool,
             metrics[m["name"]] = {"value": float(window[m["name"]]),
                                   "unit": m["unit"]}
     else:
+        flops, agg_bytes = counts.least_work(mode.ref)
         ctx = Context(train=mode.train, dims=cell.config["dims"], work=work,
                       iter_s=elapsed / n, trace=summary,
                       peaks=counts.load_peaks(dev["kind"]),
                       families=spec.kernel_families(root),
                       prepare_s=prepare_s, plan_bytes=plan_bytes,
-                      build_s=clock.laps["build_s"])
+                      build_s=clock.laps["build_s"], model_flops=flops,
+                      aggregate_bytes=agg_bytes)
         for m in cell.metrics("per_layer"):
             value = spec.load_module("metrics", m["name"], root).read(ctx)
             if value is not None:

@@ -5,6 +5,14 @@ A share of a roofline or of a peak is this least work over a measured
 time, so it can never pass 100% and a later PR that replaces a kernel is
 read against the same work.
 
+Where a model's arithmetic lives: a reference module
+(`reference/<model>.py`) may define its own `model_flops` and
+`aggregate_bytes`, with the arguments of those below, and `least_work`
+hands them to the readers; a module that defines neither is counted by
+the DASR arithmetic here (GCN's and R-GCN's are).  Either way the count
+stays a least count: never above the work the model needs, or a share
+could pass 100%.
+
 DASR arithmetic (EnGN S5.2, Observation 1; a copy of
 `repro_torch/core/dasr.py`): for a sum aggregate, sigma(A X W) costs the
 extraction either way and the aggregate at width H when extraction
@@ -34,7 +42,8 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from types import ModuleType
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 ENTRY_BYTES = 12        # one merged entry: int32 src, int32 dst, f32 weight
 FLOAT_BYTES = 4
@@ -107,6 +116,18 @@ def aggregate_bytes(dims: Sequence[int], work: Dict[str, int],
         if train and (order == "fau" or i > 0):
             total += one
     return float(total)
+
+
+Count = Callable[[Sequence[int], Dict[str, int], bool], float]
+
+
+def least_work(reference: ModuleType) -> Tuple[Count, Count]:
+    """(least FLOPs, least aggregate bytes) of one forward or step, as
+    functions of (dims, work, train): the reference module's own where it
+    defines them, the DASR arithmetic of `model_flops` and
+    `aggregate_bytes` where it does not."""
+    return (getattr(reference, "model_flops", model_flops),
+            getattr(reference, "aggregate_bytes", aggregate_bytes))
 
 
 def load_peaks(kind: str, path: Optional[Path] = None) -> Optional[Dict]:

@@ -33,10 +33,13 @@ def host_graph(src: torch.Tensor, dst: torch.Tensor,
 
 def relabel_and_normalise(graph, cfg: Dict, times: Dict[str, float]
                           ) -> Tuple[object, np.ndarray]:
-    """The port's degree relabel (`graphs/degree.py`), then GCN's
-    normalisation where the model states it (R-GCN's relation norm is
-    folded by `prepare_graph`).  Returns (graph, perm), perm[new] = old;
-    the host seconds of each go into `times`."""
+    """The port's degree relabel (`graphs/degree.py`), then the
+    normalisation the configuration states: "gcn", GCN's self-loops and
+    D^-1/2 weights; "relation", none here (R-GCN's relation norm is
+    folded by `prepare_graph`); "none", the drawn graph unweighted (no
+    edge values), as a model that weights no edge takes it.  Returns
+    (graph, perm), perm[new] = old; the host seconds of each go into
+    `times`."""
     from repro_torch.graphs.degree import (apply_vertex_permutation,
                                            degree_sort_permutation)
     t = time.perf_counter()
@@ -46,7 +49,7 @@ def relabel_and_normalise(graph, cfg: Dict, times: Dict[str, float]
     t = time.perf_counter()
     if cfg["normalize"] == "gcn":
         graph = graph.gcn_normalized()
-    elif cfg["normalize"] != "relation":
+    elif cfg["normalize"] not in ("relation", "none"):
         raise ValueError(f"normalize {cfg['normalize']!r}")
     times["normalise_s"] = time.perf_counter() - t
     return graph, perm

@@ -13,15 +13,21 @@ from portbench.lib.trace import TraceSummary
 class Context:
     """One run's readings: `train` says whether an iteration is a step;
     `iter_s` is the window's seconds per iteration; `work` the least-work
-    counts of the graph; `trace` the traced stretch (None untraced)."""
+    counts of the graph, and `model_flops` / `aggregate_bytes` the
+    model's arithmetic over them (`counts.least_work`); `trace` the
+    traced stretch (None untraced)."""
 
     def __init__(self, *, train: bool, dims: List[int], work: Dict,
                  iter_s: float, trace: Optional[TraceSummary],
                  peaks: Optional[Dict], families: List[Dict],
-                 prepare_s: float, plan_bytes: int, build_s: float):
+                 prepare_s: float, plan_bytes: int, build_s: float,
+                 model_flops: counts.Count = counts.model_flops,
+                 aggregate_bytes: counts.Count = counts.aggregate_bytes):
         self.train = train
         self.dims = dims
         self.work = work
+        self.model_flops = model_flops
+        self.aggregate_bytes = aggregate_bytes
         self.iter_s = iter_s
         self.trace = trace
         self.peaks = peaks
@@ -46,7 +52,7 @@ def aggregate_roofline(ctx: Context, train: bool) -> Optional[float]:
     spent = ctx.role_seconds("aggregate")
     if spent <= 0:
         return None
-    least = (counts.aggregate_bytes(ctx.dims, ctx.work, train)
+    least = (ctx.aggregate_bytes(ctx.dims, ctx.work, train)
              / ctx.peaks["hbm_bytes_per_s"])
     return 100.0 * least * ctx.trace.iters / spent
 
@@ -56,7 +62,7 @@ def mfu(ctx: Context, train: bool) -> Optional[float]:
     iteration take over the window's time per iteration."""
     if ctx.train != train or ctx.peaks is None or ctx.iter_s <= 0:
         return None
-    flops = counts.model_flops(ctx.dims, ctx.work, train)
+    flops = ctx.model_flops(ctx.dims, ctx.work, train)
     return 100.0 * flops / (ctx.iter_s * ctx.peaks["fp32_flops_per_s"])
 
 

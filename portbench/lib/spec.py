@@ -12,7 +12,7 @@ import json
 import re
 from pathlib import Path
 from types import ModuleType
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -81,6 +81,15 @@ def kernel_families(root: Path = ROOT) -> List[Dict[str, Any]]:
         fam.setdefault("family", path.stem)
         out.append(fam)
     return out
+
+
+def cell_names(mode: Optional[str] = None, root: Path = ROOT) -> List[str]:
+    """The cells of `BENCHMARK.json` in its order; with `mode`, those whose
+    traffic mix that mode drives ("infer", "train")."""
+    bench = load_benchmark(root)
+    return [w["name"] for w in bench["workloads"]
+            if mode is None
+            or load_data("traffic", w["traffic"], root)["mode"] == mode]
 
 
 def cell_metrics(bench: Dict[str, Any], cell: str,

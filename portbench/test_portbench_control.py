@@ -7,14 +7,15 @@ TF32 is emulated by rounding the products' inputs."""
 import pytest
 import torch
 
-from portbench.lib import cellrun
+from portbench.lib import cellrun, spec
 from portbench.lib.spec import Cell
 
 CPU = torch.device("cpu")
+TRAIN = spec.cell_names("train")
+INFER = spec.cell_names("infer")
 
 
-@pytest.mark.parametrize("cell", ["gcn-reddit.infer", "rgcn-am.train",
-                                  "gcn-reddit.train"])
+@pytest.mark.parametrize("cell", spec.cell_names())
 @pytest.mark.parametrize("seed", [3, 2 ** 32 + 5, 77])
 def test_the_control_fails_a_limit(tiny_root, cell, seed):
     c = Cell(cell, tiny_root)
@@ -29,7 +30,7 @@ def test_the_control_fails_a_limit(tiny_root, cell, seed):
     assert all(same[k] <= limits[k] for k in limits), same
 
 
-@pytest.mark.parametrize("cell", ["rgcn-am.train", "gcn-reddit.train"])
+@pytest.mark.parametrize("cell", TRAIN)
 @pytest.mark.parametrize("fault", ["half_batch", "unchanged", "scaled",
                                    "transposed"])
 def test_each_planted_fault_fails_a_limit(tiny_root, cell, fault):
@@ -63,7 +64,7 @@ def test_a_step_that_returns_its_state_unchanged(tiny_root, monkeypatch):
             return params, opt, {"loss": loss}
         return step
     monkeypatch.setattr(train_lib, "make_gnn_train_step", frozen_step)
-    for cell in ("rgcn-am.train", "gcn-reddit.train"):
+    for cell in TRAIN:
         correct, got = _run(tiny_root, cell)
         assert not correct and got["change_gap"] == pytest.approx(1.0)
 
@@ -77,7 +78,7 @@ def test_half_of_the_batch_left_out(tiny_root, monkeypatch):
         return loss(self, params, {"nodes": nodes[: nodes.numel() // 2]},
                     plan)
     monkeypatch.setattr(ElasticGNNTrainer, "loss", half)
-    for cell in ("rgcn-am.train", "gcn-reddit.train"):
+    for cell in TRAIN:
         correct, got = _run(tiny_root, cell)
         assert not correct, got
 
@@ -91,8 +92,9 @@ def test_an_answer_altered_where_it_is_produced(tiny_root, monkeypatch):
         y[7, 3] += 0.5
         return y
     monkeypatch.setattr(models, "apply_stack", altered)
-    correct, got = _run(tiny_root, "gcn-reddit.infer")
-    assert not correct and got["logit_gap"] > 1e-2
+    for cell in INFER:
+        correct, got = _run(tiny_root, cell)
+        assert not correct and got["logit_gap"] > 1e-2, (cell, got)
 
 
 class _Transposed(torch.autograd.Function):

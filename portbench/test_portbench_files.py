@@ -83,7 +83,8 @@ def test_metric_entries(section):
 
 def test_kernel_families_compile():
     fams = spec.kernel_families()
-    assert {f["family"] for f in fams} >= {"rer_gather", "rer_gather_bwd"}
+    assert {f["family"] for f in fams} >= {"rer_gather", "rer_gather_bwd",
+                                           "rer_gather_max_count"}
     for fam in fams:
         assert fam["role"] and [re.compile(p) for p in fam["patterns"]]
 

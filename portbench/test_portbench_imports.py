@@ -15,8 +15,9 @@ PROBE = textwrap.dedent("""
     import json, sys, torch
     from pathlib import Path
     sys.path[:0] = [{repo!r}, {src!r}]
-    from portbench.lib import cellrun
-    for cell in ("gcn-reddit.infer", "rgcn-am.train"):
+    torch.set_num_threads(1)    # tiny cells, beside the suite's workers
+    from portbench.lib import cellrun, spec
+    for cell in spec.cell_names(root=Path({root!r})):
         cellrun.run(cell, seed=1, seconds=0.05, traced=True,
                     device=torch.device("cpu"), t0=0.0, root=Path({root!r}))
     print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
@@ -55,7 +56,7 @@ def test_the_run_refuses_without_a_card(monkeypatch, capsys):
 def test_a_small_run_on_the_card(tiny_root, cuda_device):
     """Every cell at a few hundred vertices through the card's kernels."""
     from portbench.lib import cellrun
-    for cell in ("gcn-reddit.infer", "rgcn-am.train", "gcn-reddit.train"):
+    for cell in spec.cell_names(root=tiny_root):
         line, _ = cellrun.run(cell, seed=3, seconds=0.2, traced=True,
                               device=cuda_device, t0=0.0, root=tiny_root)
         assert line["correct"] and line["device"]["platform"] == "gpu"

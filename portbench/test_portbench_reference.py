@@ -10,7 +10,23 @@ import torch
 from portbench.lib import cellrun, counts, plain, rmat, spec, trace
 from portbench.lib.spec import Cell
 
-CELLS = ["gcn-reddit.infer", "rgcn-am.train", "gcn-reddit.train"]
+CELLS = spec.cell_names()
+
+# the `work` each configuration's cells printed on the card (graph seed 0)
+# and the least FLOPs and aggregate bytes counted from it, forward and
+# step: (config, train) -> (FLOPs, bytes)
+CARD_WORK = {
+    "gcn-reddit": {"n": 232965, "entries": 79020678, "src_rows": 232965,
+                   "dst_rows": 232965, "self_term": 0},
+    "rgcn-am": {"n": 1666764, "entries": 11975532, "src_rows": 8053434,
+                "dst_rows": 8053434, "self_term": 1},
+}
+PINNED = {
+    ("gcn-reddit", False): (65056891884.0, 2211464952.0),
+    ("gcn-reddit", True): (132558984408.0, 4422929904.0),
+    ("rgcn-am", False): (54523322160.0, 554095008.0),
+    ("rgcn-am", True): (111185087880.0, 1108190016.0),
+}
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -98,6 +114,20 @@ def test_least_work_counts():
     assert counts.load_peaks("NVIDIA H100 80GB HBM3")["fp32_flops_per_s"] \
         == 67e12
     assert counts.load_peaks("cpu") is None
+
+
+@pytest.mark.parametrize("config,train", sorted(PINNED))
+def test_least_work_of_the_current_configurations_is_pinned(config, train):
+    """GCN's and R-GCN's references define no arithmetic of their own, so
+    the dispatch hands the readers the DASR counts, to the FLOP and the
+    byte."""
+    cfg = spec.load_data("configs", config)
+    flops, agg_bytes = counts.least_work(
+        spec.load_module("reference", cfg["model"]))
+    assert (flops, agg_bytes) == (counts.model_flops, counts.aggregate_bytes)
+    got = (flops(cfg["dims"], CARD_WORK[config], train),
+           agg_bytes(cfg["dims"], CARD_WORK[config], train))
+    assert got == PINNED[config, train]
 
 
 def test_trace_summing():
