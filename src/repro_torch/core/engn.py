@@ -88,7 +88,7 @@ from repro_torch.core.tiled import (DeviceBudgetExceeded, TiledExecutor,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.compression import quantize_int8_np
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
-from repro_torch.graphs.partition import tile_schedule_order
+from repro_torch.graphs.partition import distinct_edges, tile_schedule_order
 from repro_torch.tracing import count, span, stage
 
 AggregateOp = str  # "sum" | "max" | "mean"
@@ -592,17 +592,18 @@ def _pad_rows(graph: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return xf
 
 
-def _upload_stage(dev: torch.device):
+def _upload_stage(dev: DeviceLike):
     """The `plan.upload` stage where the target is a card."""
-    return stage("plan.upload") if dev.type == "cuda" else nullcontext()
+    return (stage("plan.upload") if torch.device(dev).type == "cuda"
+            else nullcontext())
 
 
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+def _upload(a: np.ndarray, dev: DeviceLike) -> torch.Tensor:
     with _upload_stage(dev):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def upload_groups(groups, dev: torch.device):
+def upload_groups(groups, dev: DeviceLike):
     """A plan's bucket groups on `dev`, with the `rer_gather` kernel's
     work table built from the host arrays beside them (`PlanGroups`)."""
     from repro_torch.kernels.rer_gather import PlanGroups
@@ -622,6 +623,23 @@ def fold_rel_norm(g: COOGraph) -> COOGraph:
     val = (g.weights() / np.maximum(cnt[key], 1)).astype(np.float32)
     return COOGraph(g.num_vertices, g.src, g.dst, val, g.rel,
                     g.num_relations)
+
+
+def max_plan_edges(g: COOGraph, cfg: EnGNConfig,
+               dev: torch.device) -> COOGraph:
+    """The edges a max layer's carriers hold: the distinct (src, dst)
+    pairs (`graphs/partition.py::distinct_edges`, sorted on the plan's
+    device; the `plan.distinct` stage, its dropped repeats counted in
+    `plan.distinct_dropped`), so that a tile entry's max is the max over
+    the neighbour set that `segment` takes.  Sum and mean plans take the
+    graph as it is: their carriers merge repeats by summing, which is
+    their result."""
+    if cfg.aggregate_op != "max":
+        return g
+    with stage("plan.distinct"):
+        g, dropped = distinct_edges(g, dev)
+    count("plan.distinct_dropped", dropped)
+    return g
 
 
 def _maybe_fold_rel_norm(g: COOGraph, cfg: EnGNConfig, rel_normed: bool):
@@ -725,7 +743,9 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
     attributes + the carrier dict of device tensors) for the configured
     backend, on `device` (`cuda` unless the caller passes "cpu"),
     spilling to the streamed "tiled" backend when the graph exceeds
-    `cfg.device_budget_bytes` (or raising, without `auto_spill`)."""
+    `cfg.device_budget_bytes` (or raising, without `auto_spill`).  A
+    max plan's carriers (blocked, fused, tiled, ring) hold the graph's
+    distinct edges (`max_plan_edges`), so it serves max layers only."""
     dev = resolve_device(device)
     backend = cfg.backend
     h = out_dim if out_dim is not None else cfg.out_dim
@@ -760,6 +780,7 @@ def prepare_graph(g: COOGraph, cfg: EnGNConfig,
         return wrap_plan(d)
     if backend not in ("blocked", "fused"):
         raise ValueError(backend)
+    g = max_plan_edges(g, cfg, dev)
     if (backend == "blocked" and cfg.stage_contract == "typed"
             and g.rel is not None and g.num_relations > 1):
         return _prepare_blocked_typed(g, cfg, d, h, dev)
@@ -828,6 +849,7 @@ def prepare_tiled(g: COOGraph, cfg: EnGNConfig,
     dev = resolve_device(device)
     h = out_dim if out_dim is not None else cfg.out_dim
     g, _ = _maybe_fold_rel_norm(g, cfg, rel_normed)
+    g = max_plan_edges(g, cfg, dev)
     # the typed contract streams the (N, R*H) stacked payload, the gated
     # one a 2F-wide (pc || x) stream
     dim_hint = max(cfg.in_dim, h) * (2 if cfg.training else 1)
@@ -883,7 +905,10 @@ def prepare_ring(g: COOGraph, cfg: EnGNConfig,
     `cfg.tile_format` picks the stripe carrier: dense T x T tiles,
     packed (row, col, val) entries at pow2 nnz buckets, or "auto",
     whichever stages fewer bytes (priced by `ring_stripe_bytes` before
-    any build).  A prebuilt `plan` (either class) pins the format.
+    any build).  A prebuilt `plan` (either class) pins the format and
+    is taken as built: a max plan's caller builds it from
+    `max_plan_edges`'s graph, as this function and serving's ring gate
+    do.
 
     `device_budget_bytes` is per shard and is checked against the plan as
     built: over it the plan spills to the streamed tiled executor
@@ -901,6 +926,7 @@ def prepare_ring(g: COOGraph, cfg: EnGNConfig,
         mesh = ring_mesh(cfg.ring_shards, cfg.ring_axis, device=device)
     dev, p = mesh.device, mesh.num_shards
     if plan is None:
+        g = max_plan_edges(g, cfg, dev)
         fmt = cfg.tile_format
         if fmt == "auto":
             dense_b = df.ring_stripe_bytes(g, p, tile=cfg.tile,

@@ -35,12 +35,16 @@
 //   * rer_gather_bwd_scatter_launch (op flag): each lane loads, with the
 //     x row of each of its kU entries, the entry's g[d] (max: also y[d]
 //     and cnt[d]), all in flight together, and adds v * g[d] (max:
-//     v * (g[d] / cnt[d]) for the winners) into dX[s] (zero-filled here)
-//     with fire-and-forget atomics: the source rows belong to other
-//     intervals, so no warp owns them, and the order of the adds varies
-//     from run to run.  Loading g, y and cnt per entry, rather than once
-//     per running row in a branch whose loads the next entry waited on,
-//     measured 3x faster for max at F = 64 and 1.2x for sum.
+//     v * (g[d] / cnt[d]) for the winners whose g[d] is not 0) into
+//     dX[s] (zero-filled here) with fire-and-forget atomics: the
+//     source rows belong to other intervals, so no warp owns them, and
+//     the order of the adds varies from run to run.  A max skips the
+//     adds of 0, which change nothing in dX: where a row's values tie
+//     (a ReLU'd message is 0 at every in-neighbour) every entry is a
+//     winner, and a row outside a loss's labelled set has g = 0.
+//     Loading g, y and cnt per entry, rather than once per running row
+//     in a branch whose loads the next entry waited on, measured 3x
+//     faster for max at F = 64 and 1.2x for sum.
 // No per-group partial and no pad slot: entries with v == 0 are skipped.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -185,7 +189,7 @@ scatter_kernel(const long long* __restrict__ gtab,
           if (fi >= f) continue;
           if (!kMax)
             atomicAdd(drow + fi, vv[u] * gv[u][n]);
-          else if (__fmul_rn(vv[u], xv[u][n]) == yv[u][n])
+          else if (gv[u][n] != 0.f && __fmul_rn(vv[u], xv[u][n]) == yv[u][n])
             atomicAdd(drow + fi, vv[u] * (gv[u][n] / (float)cv[u][n]));
         }
       }

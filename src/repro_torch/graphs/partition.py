@@ -11,7 +11,9 @@ buckets the packed groups pad to, and `chunk_tile_row`, the S-shape
 chunking of one interval's tiles.  Field for field the same arrays as
 the reference.  `transpose_blocks` has no
 counterpart there: it lays out the dense blocked carrier of A^T as
-`prepare_blocks` lays out A's.
+`prepare_blocks` lays out A's, nor has `distinct_edges`: the edges a
+max aggregate runs over, which the port's max plans carry (the
+reference's merge duplicates by summing before a max sees them).
 """
 from __future__ import annotations
 
@@ -306,6 +308,64 @@ def merge_by_key(key: np.ndarray, w: np.ndarray
     val = np.zeros(int(seg[-1]) + 1 if ks.size else 0, np.float64)
     np.add.at(val, seg, w[order].astype(np.float64))
     return ks[first], val.astype(np.float32)
+
+
+def distinct_edges(g: COOGraph, device=None) -> Tuple[COOGraph, int]:
+    """The graph a max aggregate runs over: one edge per (src, dst) pair
+    (per (src, dst, relation) on a typed graph), in key order (by
+    destination, then source, then relation), and the number of edges
+    dropped; a graph without repeats comes back as it is.
+
+    The carriers merge repeated edges into one entry by summing their
+    weights (`merge_by_key`, `coo_to_blocked`), which a sum needs and a
+    max must not see: two edges of weight v from one source carry v * m
+    each, and their max is v * m, not 2v * m.  Repeats of one weight
+    collapse exactly, since max(v * m, v * m) = v * m and the max
+    backward's even split over the tied pair sends both halves to the
+    same source row.  Repeats of different weights cannot be held by
+    one entry: they raise `ValueError`, never merge.
+
+    The keys are sorted on `device` (a torch device, the CPU by
+    default): a plan bound for a card sorts there, keys only, whose
+    scratch is a few bytes an edge."""
+    import torch
+    dev = torch.device("cpu" if device is None else device)
+    n = np.int64(g.num_vertices)
+    r = np.int64(g.num_relations if g.rel is not None else 1)
+    key = g.dst.astype(np.int64) * n + g.src.astype(np.int64)
+    if r > 1:
+        key = key * r + g.rel.astype(np.int64)
+    key = torch.from_numpy(key).to(dev)
+    if g.val is None:
+        uniq = torch.unique(key)
+        del key
+        val = None
+    else:
+        # one row per distinct (key, weight): more rows than keys means
+        # some pair repeats with another weight
+        w = torch.from_numpy(g.val.view(np.int32)).to(dev)
+        rows = torch.unique(torch.stack([key, w.long()], 1), dim=0)
+        del key, w
+        uniq = rows[:, 0]
+        extra = int((uniq[1:] == uniq[:-1]).sum())
+        if extra:
+            raise ValueError(
+                f"{extra} repeated (src, dst) edges carry another weight "
+                f"than a copy of their pair: a max over such a neighbour "
+                f"set has no single entry per pair; give each pair one "
+                f"weight")
+        val = rows[:, 1].int().cpu().numpy().view(np.float32)
+    dropped = g.num_edges - int(uniq.numel())
+    if not dropped:
+        return g, 0
+    rel = None
+    if r > 1:
+        rel = (uniq % int(r)).int().cpu().numpy()
+        uniq = uniq // int(r)
+    src = (uniq % int(n)).int().cpu().numpy()
+    dst = (uniq // int(n)).int().cpu().numpy()
+    return COOGraph(g.num_vertices, src, dst, val, rel,
+                    g.num_relations), dropped
 
 
 def pack_tile_store(store: EdgeTileStore) -> PackedTileStore:

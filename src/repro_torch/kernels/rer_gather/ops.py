@@ -52,6 +52,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._common import (check_range, check_status,
                                          check_tensor, refuse_grad,
                                          stream_handle)
+from repro_torch.tracing import span
 
 # kernel launches by op and call form, counted where the kernel is
 # launched: "sum"/"max" for bucket groups (one per aggregate), "sum_t"
@@ -445,12 +446,14 @@ class _PackedGroups(torch.autograd.Function):
                                                         packed_max_count,
                                                         packed_max_scatter)
         g = g.contiguous()
-        if ctx.op == "sum":
-            return packed_groups_t(ctx.groups, g, q=ctx.q), None, None, None
-        x, y = ctx.saved_tensors
-        cnt = packed_max_count(ctx.groups, x, y, q=ctx.q)
-        return (packed_max_scatter(ctx.groups, x, y, g, cnt, q=ctx.q), None,
-                None, None)
+        with span("engn.aggregate_bwd"):
+            if ctx.op == "sum":
+                dx = packed_groups_t(ctx.groups, g, q=ctx.q)
+            else:
+                x, y = ctx.saved_tensors
+                cnt = packed_max_count(ctx.groups, x, y, q=ctx.q)
+                dx = packed_max_scatter(ctx.groups, x, y, g, cnt, q=ctx.q)
+        return dx, None, None, None
 
 
 def packed_groups_spmm(groups: Sequence[Dict[str, torch.Tensor]],

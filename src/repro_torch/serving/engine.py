@@ -55,7 +55,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.engn import EnGNConfig, fold_rel_norm
+from repro_torch.core.engn import EnGNConfig, fold_rel_norm, max_plan_edges
 from repro_torch.core.models import apply_stack
 from repro_torch.core.tiled import TiledExecutor, dense_footprint_bytes
 from repro_torch.graphs.format import COOGraph
@@ -500,6 +500,15 @@ class GNNServingEngine:
         from repro_torch.core.engn import prepare_ring
         from repro_torch.distributed.sharding import ring_mesh
         mesh = ring_mesh(p, device=self.device)
+        cfg = EnGNConfig(in_dim=self.layers[0].cfg.in_dim,
+                         out_dim=self.layers[-1].cfg.out_dim,
+                         aggregate_op=ops.pop(), backend="ring",
+                         tile=self.config.ring_tile, ring_shards=p,
+                         stage_contract=contract,
+                         num_relations=max(ly.cfg.num_relations
+                                           for ly in self.layers),
+                         rel_normalize=any(ly.cfg.rel_normalize
+                                           for ly in self.layers))
         # typed contract: fold the per-(dst, rel) normalisation into the
         # edge weights before the plan build (prepare_ring is told not
         # to fold again)
@@ -508,6 +517,8 @@ class GNNServingEngine:
                 and any(ly.cfg.rel_normalize for ly in self.layers)):
             g = fold_rel_norm(g)
             rel_normed = True
+        # a max plan is priced and built over the distinct edges
+        g = max_plan_edges(g, cfg, mesh.device)
         # price both stripe carriers before building: an over-budget
         # batch pays nothing, and the cheaper format is built once
         dims = ([self._staged_feat_dim(self.layers[0])]
@@ -524,15 +535,6 @@ class GNNServingEngine:
             plan = build_packed_ring_shards(g, p)
         else:
             plan = build_ring_tile_shards(g, p, tile=self.config.ring_tile)
-        cfg = EnGNConfig(in_dim=self.layers[0].cfg.in_dim,
-                         out_dim=self.layers[-1].cfg.out_dim,
-                         aggregate_op=ops.pop(), backend="ring",
-                         tile=self.config.ring_tile, ring_shards=p,
-                         stage_contract=contract,
-                         num_relations=max(ly.cfg.num_relations
-                                           for ly in self.layers),
-                         rel_normalize=any(ly.cfg.rel_normalize
-                                           for ly in self.layers))
         return prepare_ring(g, cfg, plan=plan, mesh=mesh,
                             rel_normed=rel_normed)
 
@@ -556,6 +558,10 @@ class GNNServingEngine:
             # typed sums stream as plain sums: the per-(dst, rel) mean
             # is folded into the tile weights before the store build
             g = fold_rel_norm(g)
+        if all(ly.cfg.aggregate_op == "max" for ly in self.layers):
+            # the executor's tiles merge repeats by summing: a max stack
+            # streams the distinct edges, as its resident plans hold them
+            g = max_plan_edges(g, self.layers[0].cfg, self.device)
         dims = ([self._staged_feat_dim(layer) for layer in self.layers]
                 + [layer.cfg.out_dim for layer in self.layers])
         ex = TiledExecutor(g, tile=self.config.tiled_tile,

@@ -30,8 +30,11 @@ The spans and the metrics that read them (`portbench/metrics/`):
 | name | where | metric |
 |---|---|---|
 | `engn.extract`, `engn.aggregate`, `engn.update` | `EnGNLayer.forward`'s blocked / segment route, `_staged_typed`'s blocked route | `extract_ms.infer`, `aggregate_ms.infer`, `update_ms.infer` |
+| `engn.aggregate_bwd` | `kernels/rer_gather/ops.py::_PackedGroups.backward`: the packed aggregate's backward over a plan's bucket groups (the sum's B2 transposed; the max's count and scatter), inside `step.backward` | `agg_bwd_ms.train` |
 | `step.forward`, `step.backward`, `step.optimizer` | `training/train_lib.py` | `fwd_ms.train`, `bwd_ms.train`, `opt_ms.train` |
 | `graph.relabel`, `graph.normalise`, `plan.fold` | `graphs/degree.py`, `COOGraph.gcn_normalized`, R-GCN's relation norm in `prepare_graph` | `plan_graph_s` |
+| `plan.distinct` | a max plan's distinct edges (`core/engn.py::max_plan_edges`) in `prepare_graph`, `prepare_tiled`, `prepare_ring` | none (inside `prepare_s`) |
+| `plan.distinct_dropped` (counter) | the repeated edges that stage dropped | none yet |
 | `plan.tiles`, `plan.pack` | the tile store and its packing in `prepare_graph` | `plan_tiles_s` |
 | `plan.format`, `plan.groups` | the tile-format choice, the bucket groups or flat entries | `plan_groups_s` |
 | `plan.upload` | a plan's arrays going to a card | `plan_upload_s` |

@@ -590,6 +590,36 @@ def test_ring_gate_skips_a_mixed_stack_as_the_reference_does():
     assert out[0].shape == (6, 4) and eng.stats["tiled_batches"] == 1
 
 
+@pytest.mark.parametrize("spill", ["tiled", "ring"])
+def test_a_spilled_max_batch_equals_the_resident_one_on_a_multigraph(spill):
+    """GS-Pool on a graph with repeated edges: a batch over the budget,
+    streamed or on the ring, aggregates over the distinct edges as the
+    resident plans do, so its maxima equal the unbudgeted engine's
+    (summed repeats would double some)."""
+    g = _port(_graph())
+    key = g.dst.astype(np.int64) * g.num_vertices + g.src
+    assert np.unique(key).size < g.num_edges
+    x = j_generate.random_features(300, 8, seed=1)
+
+    def engine(**engn_kw):
+        layers = rt.make_gnn_stack("gs_pool", [8, 16, 4], device="cpu",
+                                   seed=0)
+        return GNNServingEngine(g, x, layers, None, ServingConfig(
+            batch_size=16, tiled_tile=32, engn=(t_engn.EnGNConfig(
+                in_dim=0, out_dim=0, **engn_kw) if engn_kw else None)))
+    if spill == "ring":
+        spilled = engine(device_budget_bytes=100_000, ring_shards=2)
+        reqs = [(0, np.arange(25, dtype=np.int32))]
+    else:
+        spilled = engine(device_budget_bytes=60_000)
+        reqs = _requests(n=3, hi=20)
+    got, want = _serve(spilled, reqs), _serve(engine(), reqs)
+    other = "tiled" if spill == "ring" else "ring"
+    assert spilled.stats[f"{spill}_batches"] > 0
+    assert spilled.stats[f"{other}_batches"] == 0
+    _assert_close(got, want)
+
+
 # -- on the card ------------------------------------------------------------
 
 def _card():

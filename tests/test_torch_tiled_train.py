@@ -265,6 +265,17 @@ def test_streamed_vjp_respects_budget():
 
 # -- whole layers: parameters and input -------------------------------------------
 
+def _distinct(g):
+    """`g` with each (src, dst) pair once, in key order, at its first
+    copy's weight: the neighbour sets a max plan of the port holds,
+    drawn here with numpy (the reference's carriers merge repeats by
+    summing)."""
+    key = g.dst.astype(np.int64) * g.num_vertices + g.src
+    _, first = np.unique(key, return_index=True)
+    return type(g)(g.num_vertices, g.src[first], g.dst[first],
+                   None if g.val is None else g.val[first])
+
+
 def _layer_pair(model, f, h, g, mode="auto", fmt="auto", budget=None,
                 seed=0):
     jl = j_models.make_gnn(model, f, h, backend="tiled", tile=32,
@@ -278,7 +289,9 @@ def _layer_pair(model, f, h, g, mode="auto", fmt="auto", budget=None,
     params = jl.init(jax.random.key(seed))
     load_reference_params([tl], [{k: np.asarray(v)
                                   for k, v in params.items()}])
-    return (jl, params, j_engn.prepare_graph(g, jl.cfg), tl,
+    # a max plan streams the distinct edges: the reference is handed them
+    jg = _distinct(g) if tl.cfg.aggregate_op == "max" else g
+    return (jl, params, j_engn.prepare_graph(jg, jl.cfg), tl,
             rt.prepare_graph(g, tl.cfg, device="cpu"))
 
 
