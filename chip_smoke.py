@@ -52,9 +52,16 @@ prints no result.  Phases, each of which fails the run if it fails:
    fused backward, `rer_spmm_sum_t` plus two matrix products, is checked
    and timed on a line of its own, outside the kernels' record) and
    both max backwards (`rer_spmm_bwd_max` over the tiles, and the packed
-   count and scatter `rer_gather_bwd_count` / `_max`, one launch each
-   over the work table), each against its plain version (integer counts
-   `torch.equal`, sums within 1e-5 of the output's largest magnitude);
+   one, `packed_max_backward`, on three plans of the training graph's
+   edges: its GCN-normalised weights, every weight 1 at widths 256 and
+   41 as GS-Pool's benchmark plan has, and the normalised weights
+   halved so that none is 1; a quarter of each cotangent's rows 0):
+   its winner words (`rer_gather_bwd_count`, `_count_unit`), its
+   resolve pass on the unit plan (`rer_gather_bwd_resolve`) and the
+   whole backward (`rer_gather_bwd_max`, `_max_unit`, and the halved
+   plan's two passes on a line of their own), each against its plain
+   version (integer words `torch.equal`, sums within 1e-5 of the
+   output's largest magnitude);
    B4 (`fused_linear_act`) through its entry point at the three stages
    whose function it computes on uncut pubmed (GS-Pool extraction 500 x
    64, GS-Pool update 564 x 64, GCN afu 500 x 64), against the layers'
@@ -1023,44 +1030,99 @@ def main() -> int:
             nbytes=sum(12 * nnz_p + nb(g, g) for g in gs),
             ops=sum(2 * nnz_p * g.shape[1] for g in gs),
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
-        xs_max = [rows_n(torch.relu(feats(npad, w))) for w in widths_tr]
-        ys_max = [gather_ops.packed_groups_spmm(groups, x, q=q, op="max")
-                  for x in xs_max]
+        # the max backward on three plans of the training graph's edges:
+        # "norm", its GCN-normalised weights at the training widths (a
+        # share of them 1, so three passes); "unit", every weight 1 as
+        # GS-Pool's benchmark plan has, at that plan's widths 256 and 41
+        # (lone winners of weight 1, ties at the ReLU's 0); "half", the
+        # normalised weights halved, none 1 (the two passes count and
+        # scatter); a quarter of the rows of each g are 0
+        def max_plan(w):
+            pl = rt.prepare_graph(COOGraph(n_tr, g_tr.src, g_tr.dst, w),
+                                  dataclasses.replace(cfg_tr,
+                                                      tile_format="packed"))
+            if pl.carrier["blocks_meta"]["q"] != q:
+                raise AssertionError("a max plan of the training graph has "
+                                     "another interval count")
+            return pl.carrier["packed_groups"]
+
+        def g_rows0(g):
+            g[::4] = 0
+            return g
+        w_tr = g_tr.weights()
+        mplans = {"norm": (groups, widths_tr),
+                  "unit": (max_plan(np.ones_like(w_tr)), [256, 41]),
+                  "half": (max_plan(w_tr * 0.5), widths_tr)}
+        if not (mplans["norm"][0].unit and mplans["unit"][0].unit
+                and not mplans["half"][0].unit):
+            raise AssertionError("the max plans' weights of 1 are not as "
+                                 "their names say")
+        mx = {}
+        for key, (grs, ws) in mplans.items():
+            xs = [rows_n(torch.relu(feats(npad, w))) for w in ws]
+            ys = [gather_ops.packed_groups_spmm(grs, x, q=q, op="max")
+                  for x in xs]
+            gz = [g_rows0(rows_n(feats(npad, w))) for w in ws]
+            words = [gather_bwd_ops.packed_max_words_plain(grs, x, y, q=q)
+                     for x, y in zip(xs, ys)]
+            mx[key] = (grs, real_entries(grs), list(zip(xs, ys, gz, words)))
+        lone = sum(int((w < 0).sum()) for *_, w in mx["unit"][2])
+        won = sum(int((w != 0).sum()) for *_, w in mx["unit"][2])
+        print(f"max backward plans: real entries "
+              f"{ {k: v[1] for k, v in mx.items()} }; unit plan: "
+              f"{lone / max(won, 1):.4f} of the (row, feature) pairs with a "
+              f"winner have one of weight 1")
+        for key, counter in (("norm", None), ("unit", "rer_gather_bwd_count")):
+            grs, nnz, ins = mx[key]
+            kernel_case(
+                "rer_gather_bwd_count" + ("" if counter is None
+                                          else "_" + key),
+                "src/repro_torch/csrc/rer_gather_bwd.cu",
+                "src/repro/kernels/rer_gather/rer_gather.py:103",
+                [(lambda x=x, y=y, grs=grs: gather_bwd_ops.packed_max_words(
+                      grs, x, y, q=q),
+                  lambda x=x, y=y, grs=grs:
+                  gather_bwd_ops.packed_max_words_plain(grs, x, y, q=q))
+                 for x, y, _, _ in ins],
+                exact=True, counter=counter,
+                nbytes=sum(12 * nnz + nb(x, y, w) for x, y, _, w in ins),
+                ops=sum(2 * nnz * x.shape[1] for x, *_ in ins))
+
+        def resolved(fn, w, g):
+            dx, flag = fn(w, g)
+            return torch.cat([dx.reshape(-1), flag.float()])
+        grs, nnz, ins = mx["unit"]
         kernel_case(
-            "rer_gather_bwd_count", "src/repro_torch/csrc/rer_gather_bwd.cu",
+            "rer_gather_bwd_resolve", "src/repro_torch/csrc/rer_gather_bwd.cu",
             "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda x=x, y=y: gather_bwd_ops.packed_max_count(
-                  groups, x, y, q=q),
-              lambda x=x, y=y: gather_bwd_ops.packed_max_count_plain(
-                  groups, x, y, q=q))
-             for x, y in zip(xs_max, ys_max)],
-            exact=True,
-            nbytes=sum(12 * nnz_p + nb(x, y, x)
-                       for x, y in zip(xs_max, ys_max)),
-            old_bytes=("7d3f40b's count (padded groups)",
-                       sum(group_bytes + nb(x, y, x)
-                                      for x, y in zip(xs_max, ys_max))),
-            ops=sum(2 * nnz_p * x.shape[1] for x in xs_max))
-        cnts = [gather_bwd_ops.packed_max_count_plain(groups, x, y, q=q)
-                for x, y in zip(xs_max, ys_max)]
-        kernel_case(
-            "rer_gather_bwd_max", "src/repro_torch/csrc/rer_gather_bwd.cu",
-            "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda x=x, y=y, g=g, c=c: gather_bwd_ops.packed_max_scatter(
-                  groups, x, y, g, c, q=q),
-              lambda x=x, y=y, g=g, c=c:
-              gather_bwd_ops.packed_max_scatter_plain(groups, x, y, g, c,
-                                                      q=q))
-             for x, y, g, c in zip(xs_max, ys_max, gs, cnts)],
+            [(lambda w=w, g=g: resolved(gather_bwd_ops.packed_max_resolve,
+                                        w, g),
+              lambda w=w, g=g: resolved(
+                  gather_bwd_ops.packed_max_resolve_plain, w, g))
+             for _, _, g, w in ins],
             exact=False, rel=NEW_RTOL,
-            nbytes=sum(12 * nnz_p + nb(x, y, g, c, x) for x, y, g, c in
-                       zip(xs_max, ys_max, gs, cnts)),
-            old_bytes=("7d3f40b's count (padded groups)",
-                       sum(group_bytes + nb(x, y, g, c, x)
-                                      for x, y, g, c in
-                                      zip(xs_max, ys_max, gs, cnts))),
-            ops=sum(4 * nnz_p * x.shape[1] for x in xs_max))
-        del plan_p, cp, groups, xs_max, ys_max, cnts, gs
+            nbytes=sum(nb(w, g, g) + 4 * g.shape[0] for _, _, g, w in ins),
+            ops=sum(g.numel() for _, _, g, _ in ins))
+        for key, counter in (("norm", None), ("unit", "rer_gather_bwd_max"),
+                             ("half", "rer_gather_bwd_max")):
+            grs, nnz, ins = mx[key]
+            kernel_case(
+                "rer_gather_bwd_max" + ("" if counter is None
+                                        else "_" + key),
+                "src/repro_torch/csrc/rer_gather_bwd.cu",
+                "src/repro/kernels/rer_gather/rer_gather.py:103",
+                [(lambda x=x, y=y, g=g, grs=grs:
+                  gather_bwd_ops.packed_max_backward(grs, x, y, g, q=q),
+                  lambda x=x, y=y, g=g, grs=grs:
+                  gather_bwd_ops.packed_max_backward_plain(grs, x, y, g,
+                                                           q=q)[0])
+                 for x, y, g, _ in ins],
+                exact=False, rel=NEW_RTOL, counter=counter,
+                record=key != "half",
+                nbytes=sum(24 * nnz + nb(x, y, g, w, w, x)
+                           for x, y, g, w in ins),
+                ops=sum(4 * nnz * x.shape[1] for x, *_ in ins))
+        del plan_p, cp, groups, mplans, mx, gs
 
     # B4 through its entry point, at the stages whose function it computes
     # on uncut pubmed: the layers' own weights, the layers' own stage
@@ -1156,7 +1218,8 @@ def main() -> int:
                                      "padded": meta["padded"]}})
 
     bwd_keys = ("rer_spmm_sum_t", "rer_gather_sum_t", "rer_spmm_bwd_max",
-                "rer_gather_bwd_count", "rer_gather_bwd_max")
+                "rer_gather_bwd_count", "rer_gather_bwd_resolve",
+                "rer_gather_bwd_max")
     train_runs = [
         ("pubmed gcn segment", "gcn", "segment", "auto", None),
         ("pubmed gcn blocked dense", "gcn", "blocked", "dense",
@@ -1169,7 +1232,8 @@ def main() -> int:
         ("pubmed gs_pool blocked dense", "gs_pool", "blocked", "dense",
          ("rer_spmm_max", "rer_spmm_bwd_max")),
         ("pubmed gs_pool blocked packed", "gs_pool", "blocked", "packed",
-         ("rer_gather_max", "rer_gather_bwd_count", "rer_gather_bwd_max")),
+         ("rer_gather_max", "rer_gather_bwd_count", "rer_gather_bwd_resolve",
+          "rer_gather_bwd_max")),
     ]
     seg_losses, train_table = {}, []
     K.reset_launch_counts()
@@ -1224,8 +1288,11 @@ def main() -> int:
         per_step = {k: v / TRAIN_STEPS for k, v in grew.items()}
         if fmt == "packed":
             # one launch per layer forward, and per layer backward pass:
-            # the sum's A^T G, or the max's count and scatter
+            # the sum's A^T G, or the max's count, resolve and tie walk
+            # (no resolve pass where no weight of the graph is 1)
             once = ({"rer_gather_max": 2, "rer_gather_bwd_count": 2,
+                     "rer_gather_bwd_resolve":
+                     2 if (tr.graph.weights() == 1.0).any() else None,
                      "rer_gather_bwd_max": 2} if model == "gs_pool"
                     else {"rer_gather_sum": 2, "rer_gather_sum_t": 2})
             for k, v in once.items():

@@ -12,10 +12,12 @@ form `packed_spmm`), walked through a work table (`work_table`) that
 cuts the real entries into segments of about `SEG_ENTRIES` entries in
 destination order and never names a pad slot.  The backward walks the
 same groups through the same table, one launch per pass, in
-`csrc/rer_gather_bwd.cu`: the sum's dX = A^T G and the max's count
-and scatter (`rer_gather_bwd`); no carrier of A^T is built.  A plan's groups (`PlanGroups`, built where the plan uploads
-them) carry their table, made from the host arrays; any other list of
-groups builds one at each call from the per-tile real counts read back.
+`csrc/rer_gather_bwd.cu`: the sum's dX = A^T G and the max's winner
+words, their resolve pass and the walk of the tied rows
+(`rer_gather_bwd`); no carrier of A^T is built.  A plan's groups
+(`PlanGroups`, built where the plan uploads them) carry their table,
+made from the host arrays; any other list of groups builds one at each
+call from the per-tile real counts read back.
 CPU tensors take the plain versions: `packed_spmm_plain` per group
 (gather the referenced rows, scale, segment-reduce), merged by + /
 maximum.  The max backward splits the cotangent evenly over all tied
@@ -276,12 +278,14 @@ class PlanGroups(list):
     reads, and in `work` the kernel's work table, built from the host
     arrays as they are uploaded, so that no launch reads back or checks
     them again.  The groups are constants of the plan: a launch takes
-    the table as built."""
+    the table as built.  `unit` says whether an entry has weight 1,
+    which the max backward asks (`rer_gather_bwd.unit_weights`)."""
 
     def __init__(self, groups: Sequence[PackedGroup], dev: torch.device):
         super().__init__(
             {k: torch.from_numpy(np.ascontiguousarray(getattr(gr, k))).to(dev)
              for k in _FIELDS} for gr in groups)
+        self.unit = any(bool((gr.vals == 1.0).any()) for gr in groups)
         self.work = None
         if groups:
             self.work = _build_work(
@@ -443,16 +447,14 @@ class _PackedGroups(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         from repro_torch.kernels.rer_gather_bwd import (packed_groups_t,
-                                                        packed_max_count,
-                                                        packed_max_scatter)
+                                                        packed_max_backward)
         g = g.contiguous()
         with span("engn.aggregate_bwd"):
             if ctx.op == "sum":
                 dx = packed_groups_t(ctx.groups, g, q=ctx.q)
             else:
                 x, y = ctx.saved_tensors
-                cnt = packed_max_count(ctx.groups, x, y, q=ctx.q)
-                dx = packed_max_scatter(ctx.groups, x, y, g, cnt, q=ctx.q)
+                dx = packed_max_backward(ctx.groups, x, y, g, q=ctx.q)
         return dx, None, None, None
 
 
@@ -464,7 +466,8 @@ def packed_groups_spmm(groups: Sequence[Dict[str, torch.Tensor]],
     every group on CUDA (the plain per-group partials merged by + /
     maximum on the CPU), -inf finished once.  Under autograd the
     backward walks the same groups: `rer_gather_bwd.packed_groups_t`
-    for the sum, its count and scatter for the max."""
+    for the sum, `packed_max_backward` (winner words, resolve, tie walk)
+    for the max."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     if any(gr["vals"].requires_grad for gr in groups):

@@ -21,6 +21,12 @@ events on the current stream go into an in-memory table that
   per-iteration path.  It always adds its host seconds to the table and
   is also a span when a profiler records.
 - `count(name, n)`: adds `n` to the calls of `name`.
+- `device_counter(name, device)`: one int64 on the device that a kernel
+  adds `name`'s counts into, made (zero-filled) at the first call and
+  kept, so that later calls cost no device operation; what it gained
+  since the last `report()` joins the calls of `name` there.
+- `recording()`: whether a profiler records, for a count that is taken
+  only then.
 
 No span synchronises or reads back, on or off; `report()` synchronises
 once to resolve the events recorded since the last report.
@@ -30,7 +36,7 @@ The spans and the metrics that read them (`portbench/metrics/`):
 | name | where | metric |
 |---|---|---|
 | `engn.extract`, `engn.aggregate`, `engn.update` | `EnGNLayer.forward`'s blocked / segment route, `_staged_typed`'s blocked route | `extract_ms.infer`, `aggregate_ms.infer`, `update_ms.infer` |
-| `engn.aggregate_bwd` | `kernels/rer_gather/ops.py::_PackedGroups.backward`: the packed aggregate's backward over a plan's bucket groups (the sum's B2 transposed; the max's count and scatter), inside `step.backward` | `agg_bwd_ms.train` |
+| `engn.aggregate_bwd` | `kernels/rer_gather/ops.py::_PackedGroups.backward`: the packed aggregate's backward over a plan's bucket groups (the sum's B2 transposed; the max's winner words, resolve pass and tie walk), inside `step.backward` | `agg_bwd_ms.train` |
 | `step.forward`, `step.backward`, `step.optimizer` | `training/train_lib.py` | `fwd_ms.train`, `bwd_ms.train`, `opt_ms.train` |
 | `graph.relabel`, `graph.normalise`, `plan.fold` | `graphs/degree.py`, `COOGraph.gcn_normalized`, R-GCN's relation norm in `prepare_graph` | `plan_graph_s` |
 | `plan.distinct` | a max plan's distinct edges (`core/engn.py::max_plan_edges`) in `prepare_graph`, `prepare_tiled`, `prepare_ring` | none (inside `prepare_s`) |
@@ -41,6 +47,8 @@ The spans and the metrics that read them (`portbench/metrics/`):
 | `build.compiled` (counter) | `kernels/_build.py::build_all`: libraries nvcc built | `kernels_built` |
 | `typed.pair_rows` (counter) | `EnGNLayer._staged_typed`'s blocked route over flat entries: the (src, relation) pair rows projected, per layer call | none yet |
 | `typed.payload_rows` (counter) | the same route over dense typed tiles: the N x R rows of the (N, R*H) payload, per layer call | none yet |
+| `max_bwd.rows` (counter, only while a profiler records) | `kernels/rer_gather_bwd/ops.py::packed_max_backward`: the destination rows (q*T) a packed max backward covers, per call | `max_walk_share.train` |
+| `max_bwd.walk_rows` (counter, only while a profiler records; on the card a `device_counter` that the resolve pass adds into, read at `report()`) | the same call: the rows the walk visits, those its resolve pass flagged (every row where no entry has weight 1 and there is no resolve pass) | `max_walk_share.train` |
 """
 from __future__ import annotations
 
@@ -69,6 +77,9 @@ class _Entry:
 
 
 _TABLE: Dict[str, _Entry] = {}
+# device counters: (name, device) -> [the counter, its value at the last
+# report]
+_COUNTERS: Dict[Tuple[str, torch.device], List] = {}
 
 
 def _entry(name: str) -> _Entry:
@@ -130,10 +141,27 @@ def stage(name: str) -> _Span:
     return _Span(name, _recording())
 
 
+def recording() -> bool:
+    """Whether a profiler is recording."""
+    return _recording()
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the calls of `name` (a call with 0 records the name)."""
     with _LOCK:
         _entry(name).calls += int(n)
+
+
+def device_counter(name: str, device: torch.device) -> torch.Tensor:
+    """The int64 counter of `name` on `device`, for a kernel to add into;
+    zero-filled when first asked for, then kept."""
+    key = (name, torch.device(device))
+    with _LOCK:
+        c = _COUNTERS.get(key)
+        if c is None:
+            c = _COUNTERS[key] = [torch.zeros(1, dtype=torch.int64,
+                                              device=device), 0]
+        return c[0]
 
 
 def report() -> Dict[str, Dict]:
@@ -147,6 +175,11 @@ def report() -> Dict[str, Dict]:
                     e.device_s = (e.device_s or 0.0) + 1e-3 * sum(
                         a.elapsed_time(b) for a, b in e.pending)
                     e.pending = []
+        for (name, _), c in _COUNTERS.items():
+            v = int(c[0].item())
+            if v != c[1]:
+                _entry(name).calls += v - c[1]
+                c[1] = v
         return {k: {"calls": e.calls, "host_s": e.host_s,
                     "device_s": e.device_s} for k, e in _TABLE.items()}
 
@@ -154,6 +187,8 @@ def report() -> Dict[str, Dict]:
 def reset() -> None:
     with _LOCK:
         _TABLE.clear()
+        _COUNTERS.clear()
 
 
-__all__ = ["span", "stage", "count", "report", "reset"]
+__all__ = ["span", "stage", "count", "device_counter", "recording",
+           "report", "reset"]

@@ -22,7 +22,8 @@ from repro_torch.graphs.format import COOGraph
 from repro_torch.graphs.generate import make_dataset, rmat_graph
 from repro_torch.graphs.partition import (build_tile_store, distinct_edges,
                                           pack_tile_store)
-from repro_torch.kernels import rer_gather
+from repro_torch.kernels import rer_gather, rer_gather_bwd
+from repro_torch.kernels.rer_gather_bwd import ops as bwd_ops
 
 # (model, backend, tile format): every route that builds tile carriers
 ROUTES = [("gs_pool", "blocked", "dense"), ("gs_pool", "blocked", "packed"),
@@ -191,3 +192,243 @@ def test_the_packed_backward_runs_in_its_span(op):
     assert rep["engn.aggregate_bwd"]["calls"] == 1
     assert rep["engn.aggregate_bwd"]["device_s"] is None
     assert x.grad is not None and x.grad.abs().sum() > 0
+
+
+# -- the max backward's three passes: winner words, resolve, tie walk ------
+
+HUB = 70_000            # the hub row's in-edges, above 2^16
+
+
+def _three_pass_store(seed=0, tile=256, scale=1):
+    """The packed tile store of `_three_pass_case`'s graph."""
+    rng = np.random.default_rng(seed)
+    n = HUB + 16
+    bg = rmat_graph(600, 1500, seed=seed)
+    src = np.concatenate([bg.src, np.arange(1, HUB + 1)]).astype(np.int32)
+    dst = np.concatenate([bg.dst, np.zeros(HUB, np.int32)]).astype(np.int32)
+    key = dst.astype(np.int64) * n + src
+    _, first = np.unique(key, return_index=True)
+    src, dst = src[first], dst[first]
+    val = np.where(dst == 0, 1, rng.integers(1, 3, src.size)) * scale
+    g = COOGraph(n, src, dst, val.astype(np.float32))
+    return pack_tile_store(build_tile_store(g, tile))
+
+
+def _three_pass_case(f, seed=0, tile=256, scale=1):
+    """A max plan with every case the three passes meet: background
+    R-MAT edges of weight 1 or 2 among the first 600 vertices (lone
+    winners of weight 2), a hub row 0 fed by every vertex 1..HUB, split
+    across bucket groups (its first tiles also hold background edges)
+    and segments; x ReLU'd from one-decimal normals, and its feature 0
+    all 0 (a dead unit: every entry of a row ties there).  Every weight
+    times `scale`.  Returns (groups, q, the flat (src, dst, val)
+    entries, x, y)."""
+    ps = _three_pass_store(seed, tile, scale)
+    groups = t_engn.upload_groups(rer_gather.prepare_packed_groups(ps),
+                                  "cpu")
+    x = torch.relu(_feat(ps.padded_vertices, f, seed + 1))
+    x[:, 0] = 0.0
+    y = rer_gather.packed_groups_plain(groups, x, q=ps.q, op="max")
+    flat = [torch.from_numpy(a) for a in rer_gather.flat_entries(ps)]
+    return groups, ps.q, flat, x, y
+
+
+def _words_by_entry(flat, x, y):
+    """The words from the flat entries, one (row, feature) at a time."""
+    gsrc, gdst, gval = (a.numpy() for a in flat)
+    xs, ys = x.numpy(), y.numpy()
+    win = (gval != 0)[:, None] & (gval[:, None] * xs[gsrc] == ys[gdst])
+    words = np.zeros(xs.shape, np.int64)
+    np.add.at(words, gdst, win)
+    e, f = np.nonzero(win)
+    unit = (words[gdst[e], f] == 1) & (gval[e] == 1)
+    words[gdst[e[unit]], f[unit]] = -(gsrc[e[unit]].astype(np.int64) + 1)
+    return words
+
+
+def _dyadic_g(cnt, seed):
+    """A cotangent whose every share g / count is a multiple of 1/16, so
+    dX sums exactly in any order; a quarter of the rows are 0, the hub
+    row's is not."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-4, 5, cnt.shape)
+    k[rng.random(cnt.shape[0]) < 0.25] = 0
+    k[0] = 1
+    g = np.maximum(cnt.numpy(), 1) * k / 16.0
+    return torch.from_numpy(g.astype(np.float32))
+
+
+@pytest.mark.parametrize("f", [3, 41])
+def test_max_words_name_the_lone_winners_and_count_the_rest(f):
+    """The plain words hold, per (row, feature), -(s+1) for one winner
+    of weight 1, else the count, which decodes to the plain count: ties
+    at 0, lone winners of weight 2 (word 1) and the hub's count above
+    2^16 among them."""
+    groups, q, flat, x, y = _three_pass_case(f)
+    words = rer_gather_bwd.packed_max_words_plain(groups, x, y, q=q)
+    cnt = rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q)
+    np.testing.assert_array_equal(words.numpy(), _words_by_entry(flat, x, y))
+    assert torch.equal(torch.where(words < 0, 1, words), cnt)
+    gsrc, gdst, gval = flat
+    hub = int((gdst == 0).sum())
+    assert hub >= HUB > 2 ** 16
+    assert int(words[0, 0]) == hub                   # the dead unit's ties
+    assert int((words < 0).sum()) > 0 and int((words > 1).sum()) > 0
+    heavy = torch.unique(gdst[gval == 2.0]).long()
+    assert bool((words[heavy] == 1).any())           # lone, weight 2
+    in_groups = sum(bool(((gr["block_row"] == 0)[:, None]
+                          & (gr["rows"] == 0) & (gr["vals"] != 0)).any())
+                    for gr in groups)
+    assert in_groups > 1                             # the hub row, split
+
+
+@pytest.mark.parametrize("f", [3, 41])
+def test_three_pass_backward_equals_the_two_pass_bit_for_bit(f):
+    """The plain words, resolve pass and tie walk give the two-pass
+    plain dX (count, then scatter over every entry) bit for bit; only
+    rows with a tie or a lone winner of weight 2 under a nonzero g are
+    flagged, so rows whose g is 0 are not."""
+    groups, q, flat, x, y = _three_pass_case(f, seed=f)
+    words = rer_gather_bwd.packed_max_words_plain(groups, x, y, q=q)
+    cnt = torch.where(words < 0, 1, words)
+    g = _dyadic_g(cnt, seed=f + 1)
+    want = rer_gather_bwd.packed_max_scatter_plain(groups, x, y, g, cnt,
+                                                   q=q)
+    dx, flag = bwd_ops.packed_max_resolve_plain(words, g)
+    assert torch.equal(flag.bool(), ((words > 0) & (g != 0)).any(dim=1))
+    assert bool(flag[0])                             # the hub's ties
+    assert not bool(flag[(g == 0).all(dim=1)].any())
+    assert 0 < int(flag.sum()) < int((cnt > 0).any(dim=1).sum())
+    got = bwd_ops.packed_max_walk_plain(groups, x, y, g, words, flag, dx,
+                                        q=q)
+    assert torch.equal(got, want)
+
+
+def test_the_max_backward_counts_its_rows_while_traced():
+    """`max_bwd.rows` and `max_bwd.walk_rows` are counted only while a
+    profiler records: the rows of the call and the rows it flagged."""
+    groups, q, _, x, y = _three_pass_case(3, seed=4)
+    g = _dyadic_g(rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q),
+                  seed=5)
+    _, flag = rer_gather_bwd.packed_max_backward_plain(groups, x, y, g, q=q)
+    tracing.reset()
+    rer_gather_bwd.packed_max_backward(groups, x, y, g, q=q)
+    assert "max_bwd.rows" not in tracing.report()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        rer_gather_bwd.packed_max_backward(groups, x, y, g, q=q)
+        rer_gather_bwd.packed_max_backward(groups, x, y, g, q=q)
+    rep = tracing.report()
+    assert rep["max_bwd.rows"]["calls"] == 2 * x.shape[0]
+    assert rep["max_bwd.walk_rows"]["calls"] == 2 * int(flag.sum())
+
+
+def test_a_plan_with_no_weight_of_one_takes_the_two_passes():
+    """Where no entry has weight 1 no word can name a winner: the plan
+    says so (`PlanGroups.unit`, and a plain list from its weights), its
+    words are its counts, and the backward is the count and the scatter
+    over every row, with no flags; a traced call counts every row as
+    walked.  A plan with weight 1 keeps the three passes."""
+    groups, q, _, x, y = _three_pass_case(3, seed=6, scale=3)
+    assert isinstance(groups, rer_gather.PlanGroups) and not groups.unit
+    assert not bwd_ops.unit_weights(list(groups))
+    unit_groups = _three_pass_case(3, seed=6)[0]
+    assert unit_groups.unit and bwd_ops.unit_weights(list(unit_groups))
+    cnt = rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q)
+    assert torch.equal(rer_gather_bwd.packed_max_words_plain(groups, x, y,
+                                                             q=q), cnt)
+    g = _dyadic_g(cnt, seed=7)
+    dx, flag = rer_gather_bwd.packed_max_backward_plain(groups, x, y, g,
+                                                        q=q)
+    assert flag is None
+    assert torch.equal(dx, rer_gather_bwd.packed_max_scatter_plain(
+        groups, x, y, g, cnt, q=q))
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        rer_gather_bwd.packed_max_backward(groups, x, y, g, q=q)
+    rep = tracing.report()
+    assert rep["max_bwd.rows"]["calls"] == x.shape[0]
+    assert rep["max_bwd.walk_rows"]["calls"] == x.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [3, 41, 300])
+def test_three_pass_max_backward_on_card(f):
+    """The card's words equal the plain ones, exactly, the hub's 70,000
+    ties merged across ~1,100 segments and two bucket groups among them;
+    its dX equals the plain dX bit for bit (every share a multiple of
+    1/16, so the atomics' order does not show); one launch each of the
+    count, the resolve pass and the walk; a traced call counts its rows
+    and flagged rows.  The two-pass entry points still agree with their
+    plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    groups, q, _, x, y = _three_pass_case(f, seed=f)
+    cnt = rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q)
+    g = _dyadic_g(cnt, seed=f + 1)
+    want, flag = rer_gather_bwd.packed_max_backward_plain(groups, x, y, g,
+                                                          q=q)
+    words = rer_gather_bwd.packed_max_words_plain(groups, x, y, q=q)
+    dg = [{k: v.to(dev) for k, v in gr.items()} for gr in groups]
+    xd, yd, gd = x.to(dev), y.to(dev), g.to(dev)
+    before = dict(bwd_ops.LAUNCHES)
+    got_words = rer_gather_bwd.packed_max_words(dg, xd, yd, q=q)
+    got = rer_gather_bwd.packed_max_backward(dg, xd, yd, gd, q=q)
+    torch.cuda.synchronize()
+    assert bwd_ops.LAUNCHES == {
+        "count": before["count"] + 2, "resolve": before["resolve"] + 1,
+        "max": before["max"] + 1}
+    assert torch.equal(got_words.cpu(), words)
+    assert torch.equal(got.cpu(), want)
+    tracing.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        rer_gather_bwd.packed_max_backward(dg, xd, yd, gd, q=q)
+    rep = tracing.report()
+    assert rep["max_bwd.rows"]["calls"] == x.shape[0]
+    assert rep["max_bwd.walk_rows"]["calls"] == int(flag.sum())
+    got_cnt = rer_gather_bwd.packed_max_count(dg, xd, yd, q=q)
+    assert torch.equal(got_cnt.cpu(), cnt)
+    two_pass = rer_gather_bwd.packed_max_scatter(dg, xd, yd, gd, got_cnt,
+                                                 q=q)
+    assert torch.equal(two_pass.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [3, 300])
+def test_two_pass_max_backward_on_card_where_no_weight_is_one(f):
+    """With no weight 1 in a plan's groups the card runs the count alone
+    (one launch, no sources kept) and the scatter over every row, no
+    resolve pass; its dX equals the plain dX bit for bit and its words
+    the plain counts; a traced call counts every row as walked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    groups, q, _, x, y = _three_pass_case(f, seed=f, scale=3)
+    cnt = rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q)
+    g = _dyadic_g(cnt, seed=f + 2)
+    want, _ = rer_gather_bwd.packed_max_backward_plain(groups, x, y, g, q=q)
+    dg = t_engn.upload_groups(rer_gather.prepare_packed_groups(
+        _three_pass_store(seed=f, scale=3)), dev)
+    assert not dg.unit
+    xd, yd, gd = x.to(dev), y.to(dev), g.to(dev)
+    before = dict(bwd_ops.LAUNCHES)
+    got_words = rer_gather_bwd.packed_max_words(dg, xd, yd, q=q)
+    got = rer_gather_bwd.packed_max_backward(dg, xd, yd, gd, q=q)
+    torch.cuda.synchronize()
+    assert bwd_ops.LAUNCHES == {
+        "count": before["count"] + 2, "resolve": before["resolve"],
+        "max": before["max"] + 1}
+    assert torch.equal(got_words.cpu(), cnt)
+    assert torch.equal(got.cpu(), want)
+    tracing.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        rer_gather_bwd.packed_max_backward(dg, xd, yd, gd, q=q)
+    rep = tracing.report()
+    assert rep["max_bwd.rows"]["calls"] == x.shape[0]
+    assert rep["max_bwd.walk_rows"]["calls"] == x.shape[0]

@@ -164,3 +164,24 @@ def test_device_seconds_on_a_card():
                 a = a @ a / 2048
     rep = tracing.report()
     assert rep["mm"]["calls"] == 1 and rep["mm"]["device_s"] > 0
+
+
+def test_a_device_counter_joins_its_name_at_report():
+    """A device counter is made once per (name, device) and kept; what
+    it gained since the last report joins its name's calls there, once;
+    `reset` forgets it."""
+    tracing.reset()
+    c = tracing.device_counter("kernel.rows", "cpu")
+    assert tracing.device_counter("kernel.rows", torch.device("cpu")) is c
+    assert int(c) == 0 and c.dtype == torch.int64
+    assert "kernel.rows" not in tracing.report()
+    c += 5
+    tracing.count("kernel.rows", 1)
+    assert tracing.report()["kernel.rows"]["calls"] == 6
+    assert tracing.report()["kernel.rows"]["calls"] == 6
+    c += 2
+    assert tracing.report()["kernel.rows"]["calls"] == 8
+    tracing.reset()
+    assert tracing.report() == {}
+    assert int(tracing.device_counter("kernel.rows", "cpu")) == 0
+    tracing.reset()
