@@ -12,22 +12,20 @@ steps, then takes the arguments of one step's two max backwards (layer
 1 at width 256, layer 2 at 41) from the call the step makes and times,
 with CUDA events (min over `--reps` runs of 3 calls each):
 
-  * `count_ms`: the count pass alone (`packed_max_words`, or
-    `packed_max_count` where the port has no words);
+  * `count_ms`: the count pass alone (`packed_max_words`);
   * `backward_ms`: the whole max backward as the step runs it
-    (`packed_max_backward`, or `packed_max_count` + `packed_max_scatter`);
-  * with the three-pass port, the resolve pass and the tie walk alone,
-    the rows the resolve pass flagged and the share of the entries that
-    lie in them, and a check of its dX against the two-pass entry
-    points' (within 1e-5 of the largest magnitude);
-  * `weighted_count_ms`, `weighted_backward_ms`: the same two on the
-    same groups with every weight halved (no weight 1, as a
-    GCN-normalised max plan has), y the forward max over them.
+    (`packed_max_backward`);
+  * the resolve pass and the tie walk alone, the rows the resolve pass
+    flagged and the share of the entries that lie in them;
+  * `weighted_count_ms`, `weighted_backward_ms`, `weighted_walk_rows`:
+    the same on the same groups with every weight halved (no weight 1,
+    as a GCN-normalised max plan has), y the forward max over them.
 
-The same script times any port that has `packed_max_count` and
-`packed_max_scatter` (a parent commit: put its `src` first on
-PYTHONPATH).  Prints one JSON line with the times, the card's name and
-its power limit.  Needs a CUDA card.
+The same script times a port that still chose a two-pass backward for
+plans with no weight 1 (`PlanGroups.unit`; put its `src` first on
+PYTHONPATH): the halved groups then take that route.  Prints one JSON
+line with the times, the card's name and its power limit.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -61,7 +59,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     program.build_kernels(dev)
-    three = hasattr(bwd, "packed_max_backward")
 
     cell = spec.Cell(CELL)
     mode = cell.mode().Mode(cell, dev)
@@ -74,24 +71,14 @@ def main() -> int:
 
     # the arguments of one step's max backwards, in the order it calls them
     calls = []
-    name = "packed_max_backward" if three else "packed_max_count"
-    real = getattr(bwd, name)
+    real = bwd.packed_max_backward
 
-    def spy(groups, x, y, *rest, q):
-        calls.append((groups, x, y, rest[0] if rest else None, q))
-        return real(groups, x, y, *rest, q=q)
-    setattr(bwd, name, spy)
-    if not three:
-        real_scatter = bwd.packed_max_scatter
-
-        def spy_scatter(groups, x, y, g, cnt, *, q):
-            calls[-1] = calls[-1][:3] + (g, q)
-            return real_scatter(groups, x, y, g, cnt, q=q)
-        bwd.packed_max_scatter = spy_scatter
+    def spy(groups, x, y, g, *, q):
+        calls.append((groups, x, y, g, q))
+        return real(groups, x, y, g, q=q)
+    bwd.packed_max_backward = spy
     mode.iterate()
-    setattr(bwd, name, real)
-    if not three:
-        bwd.packed_max_scatter = real_scatter
+    bwd.packed_max_backward = real
     torch.cuda.synchronize()
 
     def timed(fn, n=3) -> float:
@@ -113,61 +100,47 @@ def main() -> int:
     for groups, x, y, g, q in calls:
         f = x.shape[1]
         row = {"rows": x.shape[0]}
-        if three:
-            row["count_ms"] = timed(
-                lambda: ops.packed_max_words(groups, x, y, q=q))
-            row["backward_ms"] = timed(
-                lambda: ops.packed_max_backward(groups, x, y, g, q=q))
-            words = ops.packed_max_words(groups, x, y, q=q)
-            dx = torch.empty_like(g)
-            _, flag = ops.packed_max_resolve(words, g, dx=dx)
-            row["resolve_ms"] = timed(
-                lambda: ops.packed_max_resolve(words, g, dx=dx))
-            row["walk_ms"] = timed(lambda: ops.scatter_launch(
-                groups, g, q, x, y, words, flag, dx))
-            entries = torch.zeros(g.shape[0], dtype=torch.int64, device=dev)
-            t = x.shape[0] // q
-            for gr in groups:
-                dst, _, v = ops.group_entries(gr, t)
-                entries.index_add_(0, dst, (v != 0).long())
-            row["walk_rows"] = int(flag.sum())
-            row["walk_row_share"] = row["walk_rows"] / g.shape[0]
-            row["walk_entry_share"] = (int(entries[flag != 0].sum())
-                                       / int(entries.sum()))
-            row["lone_share"] = float((words < 0).sum()) / float(
-                (words != 0).sum())
-            got = ops.packed_max_backward(groups, x, y, g, q=q)
-            cnt = ops.packed_max_count(groups, x, y, q=q)
-            want = ops.packed_max_scatter(groups, x, y, g, cnt, q=q)
-            scale = max(1e-30, float(want.abs().max()))
-            err = float((got - want).abs().max())
-            row["dx_err_vs_two_pass"] = err / scale
-            if err > 1e-5 * scale:
-                raise SystemExit(f"width {f}: the three passes' dX differs "
-                                 f"from the two-pass one by {err}")
-        else:
-            row["count_ms"] = timed(
-                lambda: ops.packed_max_count(groups, x, y, q=q))
-            row["backward_ms"] = timed(lambda: ops.packed_max_scatter(
-                groups, x, y, g, ops.packed_max_count(groups, x, y, q=q),
-                q=q))
-        # the same groups with every weight halved: no weight 1
+        row["count_ms"] = timed(
+            lambda: ops.packed_max_words(groups, x, y, q=q))
+        row["backward_ms"] = timed(
+            lambda: ops.packed_max_backward(groups, x, y, g, q=q))
+        words = ops.packed_max_words(groups, x, y, q=q)
+        dx = torch.empty_like(g)
+        _, flag = ops.packed_max_resolve(words, g, dx=dx)
+        row["resolve_ms"] = timed(
+            lambda: ops.packed_max_resolve(words, g, dx=dx))
+        row["walk_ms"] = timed(lambda: ops.scatter_launch(
+            groups, g, q, x, y, words, flag, dx))
+        entries = torch.zeros(g.shape[0], dtype=torch.int64, device=dev)
+        t = x.shape[0] // q
+        for gr in groups:
+            dst, _, v = ops.group_entries(gr, t)
+            entries.index_add_(0, dst, (v != 0).long())
+        row["walk_rows"] = int(flag.sum())
+        row["walk_row_share"] = row["walk_rows"] / g.shape[0]
+        row["walk_entry_share"] = (int(entries[flag != 0].sum())
+                                   / int(entries.sum()))
+        row["lone_share"] = float((words < 0).sum()) / float(
+            (words != 0).sum())
+        # the same groups with every weight halved: no weight 1; the
+        # kernels read the weights through the work table's pointers, so
+        # the halved groups get a table of their own
         half = copy.copy(groups)
         for i, gr in enumerate(groups):
             half[i] = dict(gr, vals=gr["vals"] * 0.5)
-        half.unit = False
+        half.work = gather_ops.groups_work(list(half), q, x.shape[0] // q,
+                                           x.device)
+        if hasattr(half, "unit"):
+            half.unit = False
         with torch.no_grad():
             y_half = gather_ops.packed_groups_spmm(half, x, q=q, op="max")
         row["weighted_count_ms"] = timed(
-            lambda: ops.packed_max_count(half, x, y_half, q=q))
-        if three:
-            row["weighted_backward_ms"] = timed(
-                lambda: ops.packed_max_backward(half, x, y_half, g, q=q))
-        else:
-            row["weighted_backward_ms"] = timed(
-                lambda: ops.packed_max_scatter(
-                    half, x, y_half, g,
-                    ops.packed_max_count(half, x, y_half, q=q), q=q))
+            lambda: ops.packed_max_words(half, x, y_half, q=q))
+        row["weighted_backward_ms"] = timed(
+            lambda: ops.packed_max_backward(half, x, y_half, g, q=q))
+        words = ops.packed_max_words(half, x, y_half, q=q)
+        row["weighted_walk_rows"] = int(((words > 0) & (g != 0))
+                                        .any(dim=1).sum())
         layers[str(f)] = row
         print(f"{args.label} width {f}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
@@ -176,7 +149,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"label": args.label, "card": smi, "seed": args.seed,
-                      "three_pass": three, "layers": layers}))
+                      "layers": layers}))
     return 0
 
 

@@ -18,8 +18,10 @@ both widths together and each alone):
 - `rer_gather_sum_t`: the sum backward of the training plan's bucket
   groups, widths 64 and 3;
 - `rer_gather_bwd_count`, `rer_gather_bwd_max`: the packed max
-  backward's winner count and gradient at the training plan's groups,
-  widths 64 and 3 (relu features, so maxima tie);
+  backward's winner words (`packed_max_words`) and whole backward
+  (`packed_max_backward`, against the plain count and scatter) at the
+  training plan's groups, widths 64 and 3 (relu features, so maxima
+  tie);
 - `rer_gather_tile_part_sum`: the tile-part form on the first 32
   column chunks (C=8, F=50) and 64 row tiles (C=1, F=16) of synthD at
   65,536 vertices;
@@ -34,8 +36,10 @@ Each row is checked against its plain version first.  Prints one JSON
 line with the times, the card's name and its power limit.  Put two
 source trees on the path in turns (old, new, new, old) within one call
 to compare kernel versions: each builds its kernels into its own
-`build/`.  Trees back to 7d3f40b run every row; the four backward rows
-redesigned after it take that commit's call forms too (the sums over
+`build/`.  Trees back to 7d3f40b run every row, except that the two
+packed max rows need `packed_max_words` after that commit (`--only`
+leaves them out); the four backward rows redesigned after it take that
+commit's call forms too (the sums over
 the carriers of A^T the plan built, `transposed=` on every
 differentiable call, the packed max backward one launch per group, its
 gradient over the transposed groups): what an old tree builds for A^T
@@ -209,12 +213,17 @@ def main() -> int:
 
             def sum_t_plain(g):
                 return gbwd.packed_groups_t_plain(groups, g, q=q)
-            fns = [(lambda x, y: gbwd.packed_max_count(groups, x, y, q=q)),
-                   (lambda x, y: gbwd.packed_max_count_plain(groups, x, y,
+
+            def max_plain(x, y, g, _):
+                cnt = gbwd.packed_max_count_plain(groups, x, y, q=q)
+                return gbwd.packed_max_scatter_plain(groups, x, y, g, cnt,
+                                                     q=q)
+            fns = [(lambda x, y: gbwd.packed_max_words(groups, x, y, q=q)),
+                   (lambda x, y: gbwd.packed_max_words_plain(groups, x, y,
                                                              q=q)),
-                   (lambda *a: gbwd.packed_max_scatter(groups, *a, q=q)),
-                   (lambda *a: gbwd.packed_max_scatter_plain(groups, *a,
-                                                             q=q))]
+                   (lambda x, y, g, _: gbwd.packed_max_backward(
+                       groups, x, y, g, q=q)),
+                   max_plain]
         rows["rer_gather_sum_t"] = checked(
             "rer_gather_sum_t", [lambda g=g: sum_t(g) for g in gs],
             [lambda g=g: sum_t_plain(g) for g in gs], False, WIDTHS)

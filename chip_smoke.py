@@ -14,15 +14,10 @@ prints no result.  Phases, each of which fails the run if it fails:
    on the calls one forward of its main-path run makes (max variants
    `torch.equal`, sum variants `allclose(rtol=1e-4, atol=1e-5)`, since
    their reduction order differs), then timed with CUDA events beside
-   its bound, a `torch.sparse.mm` yardstick and, for the rows
-   redesigned since commit 7d0e51a (the three `feature_update_relu_*`
-   stages, `chunk_queue_sum`, `chunk_queue_sum_relu`) or 0c298c8
-   (`chunk_queue_sum_t`), that commit's time on the same card type
-   (printed, not recorded).  A `rer_gather` row times
-   the whole aggregate of a plan's bucket groups per width (one launch),
-   the function `torch.sparse.mm` computes; its bound counts 12 B per
-   real entry and X and Y once (an older count, every group array with
-   its pads once per width, is printed beside it).  The streamed
+   its bound and a `torch.sparse.mm` yardstick.  A `rer_gather` row
+   times the whole aggregate of a plan's bucket groups per width (one
+   launch), the function `torch.sparse.mm` computes; its bound counts
+   12 B per real entry and X and Y once.  The streamed
    executor's kernels: `chunk_queue` on the synthD stand-in at 262,144
    vertices and layer-1 width (F=50), with and without its relu
    epilogue (both recorded; relu is a launch argument of the same
@@ -59,7 +54,7 @@ prints no result.  Phases, each of which fails the run if it fails:
    its winner words (`rer_gather_bwd_count`, `_count_unit`), its
    resolve pass on the unit plan (`rer_gather_bwd_resolve`) and the
    whole backward (`rer_gather_bwd_max`, `_max_unit`, and the halved
-   plan's two passes on a line of their own), each against its plain
+   plan's on a line of its own), each against its plain
    version (integer words `torch.equal`, sums within 1e-5 of the
    output's largest magnitude);
    B4 (`fused_linear_act`) through its entry point at the three stages
@@ -276,17 +271,6 @@ INT8_MEAN_REL, INT8_MAX_REL = 0.015, 0.15
 INT8_LOSS_RTOL, INT8_LOSS_ATOL = 0.015, 1e-3
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, published
 FP32_OPS_PER_S = 67e12            # H100 SXM, CUDA cores, published
-# times of the rows redesigned since a commit: this script at that
-# commit on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
-# beside this run's times and kept out of the kernels' record
-BEFORE = {"7d0e51a": {"feature_update_relu_gs_pool_extract": 0.0824,
-                      "feature_update_relu_gs_pool_update": 0.0923,
-                      "feature_update_relu_gcn_afu": 0.0820,
-                      "chunk_queue_sum": 0.5449,
-                      "chunk_queue_sum_relu": 0.5842},
-          "0c298c8": {"chunk_queue_sum_t": 0.0975}}
-BEFORE_MS = {name: (commit, ms) for commit, rows in BEFORE.items()
-             for name, ms in rows.items()}
 
 
 def _smi() -> str:
@@ -406,17 +390,16 @@ def main() -> int:
     counted_by = {}     # record -> (launch counter, phase labels or None)
 
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
-                    library=None, record=True, rel=None,
-                    old_bytes=None, counter=None, phases=None):
+                    library=None, record=True, rel=None, counter=None,
+                    phases=None):
         """calls: (kernel thunk, plain thunk) for one forward's calls;
         `record=False` checks and times a variant no path launches,
         printed on its own line and kept out of the record (as is a call
         form whose launches another record counts).  `rel` holds
         a sum to within rel x the plain output's largest magnitude (and
-        rtol rel) instead of RTOL/ATOL.  `old_bytes`: (label, bytes),
-        an older byte count of a recounted bound, printed beside it.
-        `counter`, `phases`: the launch counter a record reads (default
-        its name) and the path phases counted (default all)."""
+        rtol rel) instead of RTOL/ATOL.  `counter`, `phases`: the launch
+        counter a record reads (default its name) and the path phases
+        counted (default all)."""
         counted_by[name] = (counter or name, phases)
         err = 0.0
         for kern, plain in calls:
@@ -449,20 +432,11 @@ def main() -> int:
                "bytes": int(nbytes), "ops": int(ops)}
         if record:
             records.append(rec)
-        # an earlier commit's time and an older bound count: on this line
-        # only, not in the record, which holds what this run measured
-        was = (f", {BEFORE_MS[name][0]} {BEFORE_MS[name][1]:.4f} ms"
-               if name in BEFORE_MS and record else "")
-        old = ""
-        if old_bytes is not None:
-            old = (f"; {old_bytes[0]} "
-                   f"{max(old_bytes[1] / HBM_BYTES_PER_S * 1e3, t_ops):.4f}"
-                   f" ms")
         print(f"kernel {name}: {len(calls)} calls/forward, max_abs_err "
               f"{err:.3g} ({'equal' if exact else 'allclose'}), "
-              f"{ms:.4f} ms{was} vs plain {plain_ms:.4f} ms, library "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}{old})")
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -528,9 +502,6 @@ def main() -> int:
                 "src/repro/kernels/rer_gather/rer_gather.py:103", calls,
                 exact=op == "max",
                 nbytes=sum(12 * nnz_entries + nb(x, x) for x in xs),
-                old_bytes=("54d7577's count",
-                           sum(nb(*gr.values()) for gr in groups) * len(xs)
-                           + sum(nb(x, x) for x in xs)),
                 ops=sum(2 * nnz_entries * x.shape[1] for x in xs),
                 library=(None if op == "max" else
                          lambda: [torch.sparse.mm(a_pub, x[:g_pub.num_vertices])
@@ -723,9 +694,6 @@ def main() -> int:
                 exact=op == "max",
                 nbytes=sum(12 * real + nb(x) + 256 * x.shape[2] * 4
                            for (*_, real), x in zip(staged, xs)),
-                old_bytes=("54d7577's count",
-                           sum(nb(r, c, v, x) + 256 * x.shape[2] * 4
-                               for (r, c, v, _, _), x in zip(staged, xs))),
                 ops=sum(2 * real * x.shape[2]
                         for (*_, real), x in zip(staged, xs)),
                 library=lib)
@@ -1032,11 +1000,12 @@ def main() -> int:
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
         # the max backward on three plans of the training graph's edges:
         # "norm", its GCN-normalised weights at the training widths (a
-        # share of them 1, so three passes); "unit", every weight 1 as
-        # GS-Pool's benchmark plan has, at that plan's widths 256 and 41
-        # (lone winners of weight 1, ties at the ReLU's 0); "half", the
-        # normalised weights halved, none 1 (the two passes count and
-        # scatter); a quarter of the rows of each g are 0
+        # share of them 1); "unit", every weight 1 as GS-Pool's benchmark
+        # plan has, at that plan's widths 256 and 41 (lone winners of
+        # weight 1, ties at the ReLU's 0); "half", the
+        # normalised weights halved, none 1 (every word a count, every
+        # row with a winner and a nonzero g walked); a quarter of the
+        # rows of each g are 0
         def max_plan(w):
             pl = rt.prepare_graph(COOGraph(n_tr, g_tr.src, g_tr.dst, w),
                                   dataclasses.replace(cfg_tr,
@@ -1053,10 +1022,6 @@ def main() -> int:
         mplans = {"norm": (groups, widths_tr),
                   "unit": (max_plan(np.ones_like(w_tr)), [256, 41]),
                   "half": (max_plan(w_tr * 0.5), widths_tr)}
-        if not (mplans["norm"][0].unit and mplans["unit"][0].unit
-                and not mplans["half"][0].unit):
-            raise AssertionError("the max plans' weights of 1 are not as "
-                                 "their names say")
         mx = {}
         for key, (grs, ws) in mplans.items():
             xs = [rows_n(torch.relu(feats(npad, w))) for w in ws]
@@ -1289,10 +1254,8 @@ def main() -> int:
         if fmt == "packed":
             # one launch per layer forward, and per layer backward pass:
             # the sum's A^T G, or the max's count, resolve and tie walk
-            # (no resolve pass where no weight of the graph is 1)
             once = ({"rer_gather_max": 2, "rer_gather_bwd_count": 2,
-                     "rer_gather_bwd_resolve":
-                     2 if (tr.graph.weights() == 1.0).any() else None,
+                     "rer_gather_bwd_resolve": 2,
                      "rer_gather_bwd_max": 2} if model == "gs_pool"
                     else {"rer_gather_sum": 2, "rer_gather_sum_t": 2})
             for k, v in once.items():

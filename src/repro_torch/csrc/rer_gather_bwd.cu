@@ -27,16 +27,14 @@
 //   0       no winner;
 //   -(s+1)  exactly one winner, of weight 1, from source row s;
 //   c >= 1  c winners (tied), or one winner of another weight.
-// Where no entry of the plan has weight 1, no word can be -(s+1): the
-// words are the counts, and the backward is the two passes count and
-// scatter (every row walked).  Otherwise it is three passes:
-//   1. count (rer_gather_max_count_launch with a scratch buffer): the
-//      walk below adds each lane's winners of a row into the word with
-//      an integer atomicAdd (exact in any order, for any count below
-//      2^31), and where a lane found one winner it stores its source (-1
-//      for a weight other than 1) in the scratch buffer, the dX not yet
-//      zero-filled; a word that ends at 1 had exactly that one store, so
-//      a dense second launch turns it into -(s+1);
+// The backward is three passes, on any weights:
+//   1. count (rer_gather_max_count_launch): the walk below adds each
+//      lane's winners of a row into the word with an integer atomicAdd
+//      (exact in any order, for any count below 2^31), and where a lane
+//      found one winner it stores its source (-1 for a weight other
+//      than 1) in the scratch buffer, the dX not yet zero-filled; a word
+//      that ends at 1 had exactly that one store, so a dense second
+//      launch turns it into -(s+1);
 //   2. resolve (rer_gather_max_resolve_launch): dense over the words,
 //      no walk: where a word names its one winner s and g[d, f] != 0,
 //      dX[s, f] += g[d, f], bitwise the walk's 1 * (g / 1); and a flag
@@ -46,6 +44,9 @@
 //      flag, and in a flagged row only the features whose word is a
 //      count add v * (g / word).  The walk still reads every entry of
 //      the table, flagged or not.
+// Where no entry has weight 1 no word names a winner: every word is a
+// count, the resolve pass flags every row with a count and a nonzero g,
+// and the walk splits those rows exactly as a scatter over every row.
 // Why: a destination row's run inside a segment is about one entry on a
 // large sparse graph (about 95 entries a 256 x 256 tile on Reddit), so
 // the scatter loads per entry the x, g, y and cnt rows (4 KB at width
@@ -96,19 +97,19 @@ using rer_gather_walk::lanes_for;
 using rer_gather_walk::Segment;
 
 // The count's first pass, the walk: per running row and lane feature,
-// the winners c in registers; at the row change c goes into the word
-// with a fire-and-forget atomicAdd, exact in any order.  With kSrc, the
-// source of the last winner too (-1 where its weight is not 1), which
-// goes into src with a plain store where c is 1: a word that ends at 1
-// had exactly one such store, its lone winner's; where it ends higher,
-// src is not read.  Lane = (group g, feature fl); features fb + fl +
-// fp * n, n < kNR.  With kSrc at most 64 registers, so 4 blocks an SM
-// (kNR = 4 spills 8 bytes): the pass waits on its x loads, and a
+// the winners c and the source of the last one (-1 where its weight is
+// not 1) in registers; at the row change c goes into the word with a
+// fire-and-forget atomicAdd, exact in any order, and the source into
+// src with a plain store where c is 1: a word that ends at 1 had
+// exactly one such store, its lone winner's; where it ends higher, src
+// is not read.  Lane = (group g, feature fl); features fb + fl +
+// fp * n, n < kNR.  At most 64 registers, so 4 blocks an SM (kNR = 4
+// spills 8 bytes): the pass waits on its x loads, and a
 // compare-and-swap form of it measured 12% faster on an H100 at
 // Reddit's width 256 under this cap than at 72 registers and 3 blocks
-// an SM.  Without kSrc it is the plain count.
-template <int kNR, bool kSrc>
-__global__ void __launch_bounds__(kThreads, kSrc ? 4 : 1)
+// an SM.
+template <int kNR>
+__global__ void __launch_bounds__(kThreads, 4)
 max_count_kernel(const long long* __restrict__ gtab,
                  const int* __restrict__ pieces,
                  const int* __restrict__ poff,
@@ -140,9 +141,7 @@ max_count_kernel(const long long* __restrict__ gtab,
       if (fi < f && c[n]) {
         const size_t at = (size_t)cur * f + fi;
         atomicAdd(word + at, c[n]);
-        if constexpr (kSrc) {
-          if (c[n] == 1) src[at] = sr[n];
-        }
+        if (c[n] == 1) src[at] = sr[n];
       }
     }
   };
@@ -172,9 +171,7 @@ max_count_kernel(const long long* __restrict__ gtab,
       for (int u = 0; u < kU; ++u) {
         // the entry's source again, by a shuffle of the whole warp,
         // rather than a register held over the loads
-        int cs = 0;
-        if constexpr (kSrc)
-          cs = __shfl_sync(0xffffffffu, sc, g * per + i0 + u);
+        const int cs = __shfl_sync(0xffffffffu, sc, g * per + i0 + u);
         if (vv[u] == 0.f) continue;
         if (rr[u] != cur) {
           flush();
@@ -193,9 +190,7 @@ max_count_kernel(const long long* __restrict__ gtab,
         for (int n = 0; n < kNR; ++n) {
           const bool win = __fmul_rn(vv[u], xv[u][n]) == yv[n];
           c[n] += win;
-          if constexpr (kSrc) {
-            if (win) sr[n] = ws;
-          }
+          if (win) sr[n] = ws;
         }
       }
     }
@@ -267,12 +262,11 @@ scatter_kernel(const int* __restrict__ word, const float* __restrict__ gy,
   }
 }
 
-// dX of the sum (kMax false: x, y, cnt and flag unused) or of the max:
-// cnt holds the counts, or with kFlag the words and `flag` the resolve
-// pass's row flags (entries of an unflagged row are skipped, and so are
-// the features whose word is not a count: their winner is resolved).
-// Without kFlag, `flag` is not read: the code of the two-pass walk.
-template <bool kMax, int kNR, bool kFlag>
+// dX of the sum (kMax false: x, y, cnt and flag unused) or the max's
+// tie walk: cnt holds the words and `flag` the resolve pass's row flags
+// (entries of an unflagged row are skipped, and so are the features
+// whose word is not a count: their winner is resolved).
+template <bool kMax, int kNR>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const long long* __restrict__ gtab,
                const int* __restrict__ pieces, const int* __restrict__ poff,
@@ -292,7 +286,7 @@ scatter_kernel(const long long* __restrict__ gtab,
     float v = 0.f;
     int r = 0, sc = 0;
     if (e0 + lane < sg.n_entries) sg.load(e0 + lane, &v, &r, &sc);
-    if (kFlag && v != 0.f && flag[r] == 0) v = 0.f;
+    if (kMax && v != 0.f && flag[r] == 0) v = 0.f;
     if (__ballot_sync(0xffffffffu, v != 0.f) == 0u) continue;
     for (int i0 = 0; i0 < per; i0 += kU) {
       float vv[kU], xv[kU][kNR], yv[kU][kNR], gv[kU][kNR];
@@ -324,7 +318,7 @@ scatter_kernel(const long long* __restrict__ gtab,
           if (fi >= f) continue;
           if (!kMax)
             atomicAdd(drow + fi, vv[u] * gv[u][n]);
-          else if (gv[u][n] != 0.f && (!kFlag || cv[u][n] > 0) &&
+          else if (gv[u][n] != 0.f && cv[u][n] > 0 &&
                    __fmul_rn(vv[u], xv[u][n]) == yv[u][n])
             atomicAdd(drow + fi, vv[u] * (gv[u][n] / (float)cv[u][n]));
         }
@@ -339,12 +333,8 @@ void launch_count(const long long* gtab, const int* pieces, const int* poff,
                   const float* y, int* word, int* src, int t, int f, int fp,
                   cudaStream_t st) {
   const dim3 grid = rer_gather_walk::grid_for_table(n_seg, f, fp, kNR);
-  if (src != nullptr)
-    max_count_kernel<kNR, true><<<grid, kThreads, 0, st>>>(
-        gtab, pieces, poff, seg_ptr, n_seg, x, y, word, src, t, f, fp);
-  else
-    max_count_kernel<kNR, false><<<grid, kThreads, 0, st>>>(
-        gtab, pieces, poff, seg_ptr, n_seg, x, y, word, src, t, f, fp);
+  max_count_kernel<kNR><<<grid, kThreads, 0, st>>>(
+      gtab, pieces, poff, seg_ptr, n_seg, x, y, word, src, t, f, fp);
 }
 
 template <bool kMax, int kNR>
@@ -354,14 +344,8 @@ void launch_scatter(const long long* gtab, const int* pieces,
                     const int* cnt, float* dx, int t, int f, int fp,
                     const int* flag, cudaStream_t st) {
   const dim3 grid = rer_gather_walk::grid_for_table(n_seg, f, fp, kNR);
-  if (kMax && flag != nullptr)
-    scatter_kernel<true, kNR, true><<<grid, kThreads, 0, st>>>(
-        gtab, pieces, poff, seg_ptr, n_seg, x, y, gy, cnt, dx, t, f, fp,
-        flag);
-  else
-    scatter_kernel<kMax, kNR, false><<<grid, kThreads, 0, st>>>(
-        gtab, pieces, poff, seg_ptr, n_seg, x, y, gy, cnt, dx, t, f, fp,
-        flag);
+  scatter_kernel<kMax, kNR><<<grid, kThreads, 0, st>>>(
+      gtab, pieces, poff, seg_ptr, n_seg, x, y, gy, cnt, dx, t, f, fp, flag);
 }
 
 template <bool kMax>
@@ -390,9 +374,7 @@ void dispatch_scatter(const long long* gtab, const int* pieces,
 // weight 1, from source s; c >= 1: c winners, or one of another weight),
 // zero-filled here.  scratch, 4 bytes of the same shape (the backward's
 // dX before the resolve pass zero-fills it), takes the sources between
-// the walk and the dense second launch; with no scratch there is no
-// second launch and the words are the counts of the winners, which they
-// equal wherever no winner has weight 1.  x is the forward's input, y
+// the walk and the dense second launch.  x is the forward's input, y
 // its finished output.
 extern "C" int rer_gather_max_count_launch(const void* gtab,
                                            const void* pieces,
@@ -401,6 +383,7 @@ extern "C" int rer_gather_max_count_launch(const void* gtab,
                                            const void* x, const void* y,
                                            void* word, void* scratch, int q,
                                            int t, int f, void* stream) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (q == 0 || t == 0 || f == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n = (long long)q * t * f;
@@ -422,10 +405,8 @@ extern "C" int rer_gather_max_count_launch(const void* gtab,
       launch_count<2>(gt, pc, po, sp, n_seg, xx, yy, ww, sc, t, f, fp, st);
     else
       launch_count<4>(gt, pc, po, sp, n_seg, xx, yy, ww, sc, t, f, fp, st);
-    if (sc != nullptr)
-      max_count_kernel<4><<<(unsigned)((n + kThreads * 4 - 1) /
-                                       (kThreads * 4)),
-                            kThreads, 0, st>>>(ww, sc, n);
+    max_count_kernel<4><<<(unsigned)((n + kThreads * 4 - 1) / (kThreads * 4)),
+                          kThreads, 0, st>>>(ww, sc, n);
   }
   return (int)cudaGetLastError();
 }
@@ -458,22 +439,20 @@ extern "C" int rer_gather_max_resolve_launch(const void* word,
 }
 
 // dX (q*T, F) for the cotangent g over the whole work table: sum
-// (op_max 0: x, y, cnt and flag are not read and may be null) or max.
-// A max with no flag takes the counts of its winners in cnt and walks
-// every row; one with the resolve pass's flag takes the words in cnt,
-// walks the flagged rows and adds only where a word is a count.  dX is
-// zero-filled here, except after the resolve pass (flag given), whose
-// adds it holds.
+// (op_max 0: x, y, cnt and flag are not read and may be null; dX is
+// zero-filled here) or the max's tie walk, which takes the words in
+// cnt and the resolve pass's flag, walks the flagged rows, adds only
+// where a word is a count, and adds into the dX of the resolve pass.
 extern "C" int rer_gather_bwd_scatter_launch(
     const void* gtab, const void* pieces, const void* poff,
     const void* seg_ptr, int n_seg, const void* x, const void* y,
     const void* g, const void* cnt, const void* flag, void* dx, int q,
     int t, int f, int op_max, void* stream) {
+  if (op_max && flag == nullptr) return (int)cudaErrorInvalidValue;
   if (q == 0 || t == 0 || f == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* fg = static_cast<const int*>(flag);
-  if (!(op_max && fg != nullptr))
-    cudaMemsetAsync(dx, 0, (size_t)q * t * f * sizeof(float), st);
+  if (!op_max) cudaMemsetAsync(dx, 0, (size_t)q * t * f * sizeof(float), st);
   if (n_seg > 0) {
     const long long* gt = static_cast<const long long*>(gtab);
     const int* pc = static_cast<const int*>(pieces);

@@ -278,14 +278,12 @@ class PlanGroups(list):
     reads, and in `work` the kernel's work table, built from the host
     arrays as they are uploaded, so that no launch reads back or checks
     them again.  The groups are constants of the plan: a launch takes
-    the table as built.  `unit` says whether an entry has weight 1,
-    which the max backward asks (`rer_gather_bwd.unit_weights`)."""
+    the table as built."""
 
     def __init__(self, groups: Sequence[PackedGroup], dev: torch.device):
         super().__init__(
             {k: torch.from_numpy(np.ascontiguousarray(getattr(gr, k))).to(dev)
              for k in _FIELDS} for gr in groups)
-        self.unit = any(bool((gr.vals == 1.0).any()) for gr in groups)
         self.work = None
         if groups:
             self.work = _build_work(

@@ -6,8 +6,7 @@ in `csrc/rer_gather_bwd.cu`, over the forward groups' own work table
 plain versions for CPU tensors:
 
   * `packed_max_backward`: dX of a max aggregate, the path its autograd
-    takes.  Where an entry of the groups has weight 1 (`unit_weights`),
-    three passes:
+    takes, in three passes:
       1. `packed_max_words`: a walk of every entry that keeps, per
          destination row and feature, one int32 winner word: 0 no
          winner, -(s+1) exactly one winner, of weight 1, from source s,
@@ -17,33 +16,31 @@ plain versions for CPU tensors:
       2. `packed_max_resolve`, dense over the words with no walk: g[d]
          goes straight to dX[s] where the word names one winner s, and
          each row is flagged where a feature with g != 0 has a count;
-      3. the tie walk: the scatter below over the flagged rows only, and
-         in them only the features whose word is a count.
-    Where none has weight 1 no word can name a winner, so the resolve
-    pass would only flag rows: the backward is then the two passes
-    `packed_max_count` and `packed_max_scatter`;
-  * `packed_max_count`: per destination row and feature, the number of
-    entries of every group that tie for the max, as int32 (the count's
-    walk alone, with no sources kept);
-  * `packed_max_scatter`: dX, v * g / count for every winning entry of
-    every row (a walk of every entry);
-  * `packed_groups_t`: the sum's dX = A^T G, the same scatter with no
-    counts (counted as rer_gather's "sum_t").
+      3. the tie walk: a scatter over the flagged rows only, and in them
+         only the features whose word is a count, v * g / count for
+         each winning entry;
+  * `packed_groups_t`: the sum's dX = A^T G, the same scatter over every
+    entry with no counts (counted as rer_gather's "sum_t").
 
-Together the max passes give the gradient of the reference's flat
+The three passes hold on any weights.  Where no entry has weight 1 no
+word names a winner: every word is a count, the resolve pass flags every
+row with a count and a nonzero g, and the walk splits those rows exactly
+as a scatter over every row would (`packed_max_count_plain` and
+`packed_max_scatter_plain`, the tests' oracle of the even split).
+Together the passes give the gradient of the reference's flat
 `segment_max` (`packed_flat_xla`): the cotangent of a row splits evenly
 over all its tied entries, whichever bucket group holds them.  No
 carrier of A^T is built and no per-group partial is allocated.
 
 Why three passes: on a large sparse graph a destination row's run
-inside a walk segment is about one entry, so the two-pass scatter loads
-per entry the x, g, y and count rows only to find each (row, feature)'s
-winner, almost always a lone one, which the count had already compared.
-The words keep that winner, so the resolve pass reads each word and g
-once, and only rows with ties or weights other than 1 are walked again;
-the walk still reads every entry of the table (12 B, and the 4-byte
-flag of its row).  The words take the count's buffer; the flags add one
-int32 a row.
+inside a walk segment is about one entry, so a scatter over every entry
+loads per entry the x, g, y and count rows only to find each (row,
+feature)'s winner, almost always a lone one, which the count had
+already compared.  The words keep that winner, so the resolve pass
+reads each word and g once, and only rows with ties or weights other
+than 1 are walked again; the walk still reads every entry of the table
+(12 B, and the 4-byte flag of its row).  The words take the count's
+buffer; the flags add one int32 a row.
 
 Source note.  The backward of `repro/kernels/rer_gather/rer_gather.py::
 rer_gather` (`_gather_kernel_sum`, `_gather_kernel_max`), which the
@@ -72,12 +69,11 @@ from repro_torch.kernels._common import (check_status, check_tensor,
                                          stream_handle)
 from repro_torch.kernels.rer_gather import ops as gather_ops
 
-# kernel launches, counted where launched: "count" (the count's walk,
-# and with the words its dense second launch), "resolve" and "max" (the
-# scatter's walk), one each per max aggregate's backward
-# (`packed_max_backward`; with no weight 1 in its groups, "count" and
-# "max"); the sum's scatter is counted in rer_gather.LAUNCHES["sum_t"],
-# beside the forward it differentiates
+# kernel launches, counted where launched: "count" (the count's walk and
+# its dense second launch), "resolve" and "max" (the tie walk), one each
+# per max aggregate's backward (`packed_max_backward`); the sum's scatter
+# is counted in rer_gather.LAUNCHES["sum_t"], beside the forward it
+# differentiates
 LAUNCHES = {"count": 0, "resolve": 0, "max": 0}
 
 Groups = Sequence[Dict[str, torch.Tensor]]
@@ -112,7 +108,8 @@ def packed_max_count_plain(groups: Groups, x: torch.Tensor,
                            y: torch.Tensor, *, q: int) -> torch.Tensor:
     """cnt (int32, the shape of x): per destination row d and feature f,
     the entries (d, s, v) of every group with v != 0 and
-    v * x[s, f] == y[d, f]."""
+    v * x[s, f] == y[d, f].  With `packed_max_scatter_plain`, the tests'
+    oracle of the max backward's even split of a row's cotangent."""
     t = x.shape[0] // q
     cnt = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     for gr in groups:
@@ -125,7 +122,8 @@ def packed_max_scatter_plain(groups: Groups, x: torch.Tensor,
                              y: torch.Tensor, g: torch.Tensor,
                              cnt: torch.Tensor, *, q: int) -> torch.Tensor:
     """dX: dx[s] += v * (g[d] / cnt[d]) over the winning entries of
-    every group."""
+    every group, every row walked: the tests' oracle of the max
+    backward, with the counts of `packed_max_count_plain`."""
     t = x.shape[0] // q
     dx = torch.zeros_like(x)
     for gr in groups:
@@ -186,25 +184,11 @@ def packed_max_walk_plain(groups: Groups, x: torch.Tensor,
     return dx
 
 
-def unit_weights(groups: Groups) -> bool:
-    """Whether an entry of the groups has weight 1, so that a word can
-    name its lone winner: a plan's groups (`rer_gather.PlanGroups`)
-    know it from their host arrays; any other list reads its weights."""
-    unit = getattr(groups, "unit", None)
-    if unit is None:
-        unit = any(bool((gr["vals"] == 1.0).any()) for gr in groups)
-    return unit
-
-
 def packed_max_backward_plain(groups: Groups, x: torch.Tensor,
                               y: torch.Tensor, g: torch.Tensor, *,
                               q: int):
     """The max backward's passes in plain PyTorch, as the card takes
-    them: (dX, the row flags), or (dX, None) where no entry has weight 1
-    and the two passes count and scatter walk every row."""
-    if not unit_weights(groups):
-        cnt = packed_max_count_plain(groups, x, y, q=q)
-        return packed_max_scatter_plain(groups, x, y, g, cnt, q=q), None
+    them: (dX, the row flags)."""
     words = packed_max_words_plain(groups, x, y, q=q)
     dx, flag = packed_max_resolve_plain(words, g)
     return packed_max_walk_plain(groups, x, y, g, words, flag, dx,
@@ -250,33 +234,31 @@ def _table(groups: Groups, ref: torch.Tensor, q: int, tensors):
 def scatter_launch(groups: Groups, g: torch.Tensor, q: int,
                    x: Optional[torch.Tensor] = None,
                    y: Optional[torch.Tensor] = None,
-                   cnt: Optional[torch.Tensor] = None,
+                   words: Optional[torch.Tensor] = None,
                    flag: Optional[torch.Tensor] = None,
                    dx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the scatter kernel once over the groups' work table
-    (counted by the caller): dX of the sum when `cnt` is None, of the
-    max (the winners of x and y, counted in `cnt`) otherwise; with the
-    resolve pass's row `flag`, `cnt` holds the words and the walk adds
-    its ties into that pass's `dx`."""
-    op_max = cnt is not None
+    (counted by the caller): dX of the sum when `words` is None, else
+    the max's tie walk over the winners of x and y in the rows of the
+    resolve pass's `flag`, adding where `words` holds a count into that
+    pass's `dx`."""
+    op_max = words is not None
     dense = [("g", g, torch.float32)]
     if op_max:
         dense += [("x", x, torch.float32), ("y", y, torch.float32),
-                  ("cnt", cnt, torch.int32)]
-    if flag is not None:
-        dense.append(("dx", dx, torch.float32))
+                  ("words", words, torch.int32), ("dx", dx, torch.float32)]
         check_tensor(flag, "flag", torch.int32, g.device, 1)
         if flag.shape[0] != g.shape[0]:
             raise ValueError(f"{flag.shape[0]} flags for {g.shape[0]} rows")
     w = _table(groups, g, q, dense)
-    if flag is None:
+    if not op_max:
         dx = torch.empty_like(g)
     status = _lib().rer_gather_bwd_scatter_launch(
         w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
         w.seg_ptr.data_ptr(), w.n_seg,
         x.data_ptr() if op_max else None, y.data_ptr() if op_max else None,
-        g.data_ptr(), cnt.data_ptr() if op_max else None,
-        None if flag is None else flag.data_ptr(), dx.data_ptr(), q,
+        g.data_ptr(), words.data_ptr() if op_max else None,
+        flag.data_ptr() if op_max else None, dx.data_ptr(), q,
         g.shape[0] // q, g.shape[1], int(op_max), stream_handle(g.device))
     check_status(status, "rer_gather_bwd scatter")
     return dx
@@ -298,18 +280,17 @@ def packed_groups_t(groups: Groups, g: torch.Tensor, *,
 
 
 def _count_launch(groups: Groups, x: torch.Tensor, y: torch.Tensor,
-                  q: int, scratch: Optional[torch.Tensor]) -> torch.Tensor:
-    """The count over the groups' work table on the card: the words
-    where `scratch`, a 4-byte tensor of x's shape (the backward's dX
-    before it is zeroed), takes the lone winners' sources; the counts
-    with no scratch."""
+                  q: int, scratch: torch.Tensor) -> torch.Tensor:
+    """The words over the groups' work table on the card; `scratch`, a
+    4-byte tensor of x's shape (the backward's dX before it is zeroed),
+    takes the lone winners' sources."""
     w = _table(groups, x, q, [("x", x, torch.float32),
                               ("y", y, torch.float32)])
     words = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     status = _lib().rer_gather_max_count_launch(
         w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
         w.seg_ptr.data_ptr(), w.n_seg, x.data_ptr(), y.data_ptr(),
-        words.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        words.data_ptr(), scratch.data_ptr(),
         q, x.shape[0] // q, x.shape[1], stream_handle(x.device))
     check_status(status, "rer_gather_bwd count")
     LAUNCHES["count"] += 1
@@ -328,25 +309,11 @@ def packed_max_words(groups: Groups, x: torch.Tensor, y: torch.Tensor,
     """The winner words (int32, the shape of x) of a max aggregate over
     a plan's groups: x is the forward's input and y its finished output,
     (q*T, F).  CPU tensors take the plain version; CUDA tensors the
-    count's walk and, where an entry has weight 1, its dense second
-    launch (elsewhere the words are the counts)."""
+    count's walk and its dense second launch."""
     if not _on(x):
         return packed_max_words_plain(groups, x, y, q=q)
-    scratch = None
-    if unit_weights(groups):
-        scratch = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     return _count_launch(groups, x, y, q, scratch)
-
-
-def packed_max_count(groups: Groups, x: torch.Tensor, y: torch.Tensor, *,
-                     q: int) -> torch.Tensor:
-    """The tied winners (int32, the shape of x) of a max aggregate over
-    a plan's groups: x is the forward's input and y its finished output,
-    (q*T, F).  CPU tensors take the plain version; CUDA tensors one
-    kernel launch."""
-    if not _on(x):
-        return packed_max_count_plain(groups, x, y, q=q)
-    return _count_launch(groups, x, y, q, None)
 
 
 def packed_max_resolve(words: torch.Tensor, g: torch.Tensor, *,
@@ -383,51 +350,31 @@ def packed_max_resolve(words: torch.Tensor, g: torch.Tensor, *,
 def packed_max_backward(groups: Groups, x: torch.Tensor, y: torch.Tensor,
                         g: torch.Tensor, *, q: int) -> torch.Tensor:
     """dX (q*T, F) of a max aggregate over a plan's groups for the
-    cotangent g: where an entry has weight 1, the words, the resolve
-    pass and the tie walk over the flagged rows; elsewhere the count and
-    the scatter over every row.  CPU tensors take the plain version;
-    CUDA tensors one kernel launch a pass.  While a profiler records,
-    `max_bwd.rows` counts the rows and `max_bwd.walk_rows` the rows the
-    walk visits (on the card, added by the resolve pass into a device
-    counter that is read when the table is reported)."""
+    cotangent g: the words, the resolve pass and the tie walk over the
+    flagged rows.  CPU tensors take the plain version; CUDA tensors one
+    kernel launch a pass.  While a profiler records, `max_bwd.rows`
+    counts the rows and `max_bwd.walk_rows` the rows the walk visits
+    (on the card, added by the resolve pass into a device counter that
+    is read when the table is reported)."""
     rec = tracing.recording()
-    walk_rows = x.shape[0]
     if not _on(x):
         dx, flag = packed_max_backward_plain(groups, x, y, g, q=q)
-        if flag is not None:
-            walk_rows = int(flag.sum())
+        walk_rows = int(flag.sum())
     else:
         check_tensor(g, "g", torch.float32, x.device, 2)
         if g.shape != x.shape:
             raise ValueError(f"g {tuple(g.shape)} must match "
                              f"{tuple(x.shape)}")
-        if unit_weights(groups):
-            dx = torch.empty_like(g)
-            words = _count_launch(groups, x, y, q, dx)
-            # made at the first call, so that a traced one adds no fill
-            counter = tracing.device_counter("max_bwd.walk_rows", g.device)
-            _, flag = packed_max_resolve(words, g, dx=dx,
-                                         walked=counter if rec else None)
-            walk_rows = 0           # counted on the card
-        else:
-            words = _count_launch(groups, x, y, q, None)
-            flag = dx = None
+        dx = torch.empty_like(g)
+        words = _count_launch(groups, x, y, q, dx)
+        # made at the first call, so that a traced one adds no fill
+        counter = tracing.device_counter("max_bwd.walk_rows", g.device)
+        _, flag = packed_max_resolve(words, g, dx=dx,
+                                     walked=counter if rec else None)
+        walk_rows = 0               # counted on the card
         dx = scatter_launch(groups, g, q, x, y, words, flag, dx)
         LAUNCHES["max"] += 1
     if rec:
         tracing.count("max_bwd.rows", g.shape[0])
         tracing.count("max_bwd.walk_rows", walk_rows)
-    return dx
-
-
-def packed_max_scatter(groups: Groups, x: torch.Tensor, y: torch.Tensor,
-                       g: torch.Tensor, cnt: torch.Tensor, *,
-                       q: int) -> torch.Tensor:
-    """dX (q*T, F) of a max aggregate over a plan's groups for the
-    cotangent g, with the winners counted in `cnt`.  CPU tensors take
-    the plain version; CUDA tensors one kernel launch."""
-    if not _on(x):
-        return packed_max_scatter_plain(groups, x, y, g, cnt, q=q)
-    dx = scatter_launch(groups, g, q, x, y, cnt)
-    LAUNCHES["max"] += 1
     return dx

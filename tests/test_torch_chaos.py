@@ -6,6 +6,7 @@ stragglers, the three torn checkpoint styles against the port's
 event for event, and `tests/test_elastic_ring.py::
 test_chaos_schedule_against_8_shard_ring` on the port's one-controller
 ring (8 shards co-located on the CPU)."""
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 import json
 import tempfile

@@ -23,6 +23,7 @@ load_reference_decode_state`) against the reference.
   (2, 4) mesh through the all-to-all dispatch; one step on the card
   against the CPU (`cuda` marker).
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax

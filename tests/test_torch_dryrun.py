@@ -21,6 +21,7 @@ against the reference (`launch/analysis.py`, `launch/jaxpr_cost.py`,
   single mesh, as `shape_applicable` decides, with the reference's
   record fields.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 import json
 

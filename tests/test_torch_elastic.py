@@ -7,6 +7,7 @@ the `spec_to_pspec` / `batch_pspec` / `make_rules` / `param_pspecs` /
 every spec tree, mesh shape and microbatch split exactly the
 reference's.  A port mesh co-locates its shards on one device (here the
 CPU), so placement moves a tensor whole there."""
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import jax
 import numpy as np
 import pytest

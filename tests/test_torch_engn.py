@@ -8,6 +8,7 @@ to rtol=1e-4, atol=1e-5 (the frameworks reduce in different orders).
 Plans and carriers are exactly equal.
 """
 
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ so the comparison sees the kernel's indexing and not its summation
 order (at K = 1,433 two orders of random fp32 inputs differ by up to
 5e-6, over the 1e-6 this file holds an activation in (-1, 1) to).
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

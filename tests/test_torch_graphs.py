@@ -2,6 +2,7 @@
 the same seed builds the same graph, permutation, normalisation, tiles,
 tile stores, packed groups, flat entries, format choice and budget
 prices."""
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax  # noqa: F401  (both packages in one process; JAX stays on CPU)

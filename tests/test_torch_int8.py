@@ -17,6 +17,7 @@ relative error < 0.015, max < 0.15) is the reference's
 (`tests/test_compression.py`).  The `cuda`-marked tests run on a card
 only and skip here.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax

@@ -2,7 +2,9 @@
 port's timing scripts (`benchmarks/torch/`) import neither JAX nor the
 reference package, importing the port loads neither, no kernel is built
 at import time, and the CUDA sources use a plain C interface (no PyTorch
-headers)."""
+headers).  The port's tests run torch at their worker's share of the
+host's cores (`tests/_torch_cpu.py`)."""
+import _torch_cpu
 import ast
 import os
 import subprocess
@@ -111,3 +113,21 @@ def test_every_cuda_source_is_built_and_counted():
                 "rer_spmm_sum_t", "rer_gather_sum_t", "rer_spmm_bwd_max", "rer_gather_bwd_count",
                 "rer_gather_bwd_max", "feature_update_relu"):
         assert key in counts, key
+
+
+def test_every_port_test_runs_at_its_share_of_the_cores():
+    """Each `tests/test_torch_*.py` imports `_torch_cpu` before anything
+    else, so that a worker's torch threads are its share of the cores
+    whichever file it collects first; this process runs at that
+    count."""
+    for path in sorted((ROOT / "tests").glob("test_torch_*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        first = next(node for node in tree.body
+                     if isinstance(node, (ast.Import, ast.ImportFrom))
+                     and getattr(node, "module", None) != "__future__")
+        names = [alias.name for alias in getattr(first, "names", [])]
+        assert isinstance(first, ast.Import) and names == ["_torch_cpu"], \
+            path.name
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert _torch_cpu.THREADS == max(1, os.cpu_count() // workers)
+    assert torch.get_num_threads() == _torch_cpu.THREADS

@@ -8,6 +8,7 @@ empty rows.  Max is exactly equal; sums agree to rtol=1e-4, atol=1e-5
 (the two frameworks reduce in different orders).  The kernels
 themselves run only on a card: the `cuda`-marked tests skip without one.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -636,9 +637,10 @@ def test_rer_gather_one_launch_per_aggregate_on_card(op, f, transposed):
 def test_rer_gather_bwd_one_launch_per_aggregate_on_card(op, f):
     """The packed backward over the forward groups' work table, on the
     hub graph, whose hub rows are split across segments and bucket
-    groups: the sum's A^T G in one launch; the max's count (equal to
-    the plain one) and scatter in one launch each, with integer-valued
-    x and weights, so maxima tie across segments and groups."""
+    groups: the sum's A^T G in one launch; the max's words (equal to
+    the plain ones) and each pass of its backward in one launch, with
+    integer-valued x and weights, so maxima tie across segments and
+    groups."""
     dev = _card()
     store, groups, flat = _hub_groups(dev, integer=op == "max")
     assert len(groups) > 1
@@ -654,20 +656,21 @@ def test_rer_gather_bwd_one_launch_per_aggregate_on_card(op, f):
         assert t_gather.LAUNCHES["sum_t"] == before["rer_gather_sum_t"] + 1
     else:
         y = t_gather.packed_flat_plain(*flat, x, n=n, op="max")
-        cnt = t_gather_bwd.packed_max_count(groups, x, y, q=store.q)
-        assert torch.equal(cnt, t_gather_bwd.packed_max_count_plain(
+        words = t_gather_bwd.packed_max_words(groups, x, y, q=store.q)
+        assert torch.equal(words, t_gather_bwd.packed_max_words_plain(
             groups, x, y, q=store.q))
+        cnt = t_gather_bwd.packed_max_count_plain(groups, x, y, q=store.q)
         assert int(cnt.max()) > 1                       # ties
-        got = t_gather_bwd.packed_max_scatter(groups, x, y, g, cnt,
-                                              q=store.q)
+        got = t_gather_bwd.packed_max_backward(groups, x, y, g, q=store.q)
         want = t_gather_bwd.packed_max_scatter_plain(groups, x, y, g, cnt,
                                                      q=store.q)
         torch.cuda.synchronize()
-        assert t_gather_bwd.LAUNCHES["count"] == before["bwd_count"] + 1
+        assert t_gather_bwd.LAUNCHES["count"] == before["bwd_count"] + 2
+        assert t_gather_bwd.LAUNCHES["resolve"] == before["bwd_resolve"] + 1
         assert t_gather_bwd.LAUNCHES["max"] == before["bwd_max"] + 1
     after = sum(t_gather.LAUNCHES.values()) + sum(
         t_gather_bwd.LAUNCHES.values())
-    assert after == sum(before.values()) + (1 if op == "sum" else 2)
+    assert after == sum(before.values()) + (1 if op == "sum" else 4)
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * scale)

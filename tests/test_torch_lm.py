@@ -23,6 +23,7 @@
   launcher end to end on the CPU; one SMOKE step on the card against the
   CPU (`cuda` marker).
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax

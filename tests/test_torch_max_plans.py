@@ -9,6 +9,7 @@ graph's distinct edges (`graphs/partition.py::distinct_edges`, the
 upload helpers take a device named by a string (ROADMAP C5), and the
 packed aggregate's backward runs in the `engn.aggregate_bwd` span.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import numpy as np
 import pytest
 import torch
@@ -324,23 +325,21 @@ def test_the_max_backward_counts_its_rows_while_traced():
 
 
 def test_a_plan_with_no_weight_of_one_takes_the_two_passes():
-    """Where no entry has weight 1 no word can name a winner: the plan
-    says so (`PlanGroups.unit`, and a plain list from its weights), its
-    words are its counts, and the backward is the count and the scatter
-    over every row, with no flags; a traced call counts every row as
-    walked.  A plan with weight 1 keeps the three passes."""
+    """Where no entry has weight 1 no word can name a winner: the words
+    are the counts, the resolve pass flags every row with a count and a
+    nonzero g, and the three passes give the two-pass oracle's dX (count,
+    then scatter over every row) bit for bit; a traced call counts the
+    flagged rows as walked."""
     groups, q, _, x, y = _three_pass_case(3, seed=6, scale=3)
-    assert isinstance(groups, rer_gather.PlanGroups) and not groups.unit
-    assert not bwd_ops.unit_weights(list(groups))
-    unit_groups = _three_pass_case(3, seed=6)[0]
-    assert unit_groups.unit and bwd_ops.unit_weights(list(unit_groups))
+    assert not any(bool((gr["vals"] == 1.0).any()) for gr in groups)
     cnt = rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q)
     assert torch.equal(rer_gather_bwd.packed_max_words_plain(groups, x, y,
                                                              q=q), cnt)
     g = _dyadic_g(cnt, seed=7)
     dx, flag = rer_gather_bwd.packed_max_backward_plain(groups, x, y, g,
                                                         q=q)
-    assert flag is None
+    assert torch.equal(flag.bool(), ((cnt > 0) & (g != 0)).any(dim=1))
+    assert 0 < int(flag.sum()) < x.shape[0]
     assert torch.equal(dx, rer_gather_bwd.packed_max_scatter_plain(
         groups, x, y, g, cnt, q=q))
     tracing.reset()
@@ -349,7 +348,7 @@ def test_a_plan_with_no_weight_of_one_takes_the_two_passes():
         rer_gather_bwd.packed_max_backward(groups, x, y, g, q=q)
     rep = tracing.report()
     assert rep["max_bwd.rows"]["calls"] == x.shape[0]
-    assert rep["max_bwd.walk_rows"]["calls"] == x.shape[0]
+    assert rep["max_bwd.walk_rows"]["calls"] == int(flag.sum())
 
 
 @pytest.mark.cuda
@@ -360,8 +359,7 @@ def test_three_pass_max_backward_on_card(f):
     its dX equals the plain dX bit for bit (every share a multiple of
     1/16, so the atomics' order does not show); one launch each of the
     count, the resolve pass and the walk; a traced call counts its rows
-    and flagged rows.  The two-pass entry points still agree with their
-    plain versions."""
+    and flagged rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -390,39 +388,39 @@ def test_three_pass_max_backward_on_card(f):
     rep = tracing.report()
     assert rep["max_bwd.rows"]["calls"] == x.shape[0]
     assert rep["max_bwd.walk_rows"]["calls"] == int(flag.sum())
-    got_cnt = rer_gather_bwd.packed_max_count(dg, xd, yd, q=q)
-    assert torch.equal(got_cnt.cpu(), cnt)
-    two_pass = rer_gather_bwd.packed_max_scatter(dg, xd, yd, gd, got_cnt,
-                                                 q=q)
-    assert torch.equal(two_pass.cpu(), want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [3, 300])
 def test_two_pass_max_backward_on_card_where_no_weight_is_one(f):
-    """With no weight 1 in a plan's groups the card runs the count alone
-    (one launch, no sources kept) and the scatter over every row, no
-    resolve pass; its dX equals the plain dX bit for bit and its words
-    the plain counts; a traced call counts every row as walked."""
+    """With no weight 1 in a plan's groups the card runs the same three
+    passes: its words equal the plain counts, its flags the rows with a
+    count and a nonzero g, and its dX the two-pass oracle's (count, then
+    scatter over every row) bit for bit; one launch each of the count
+    (with the words' call, two), the resolve pass and the walk; a traced
+    call counts the flagged rows as walked."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     groups, q, _, x, y = _three_pass_case(f, seed=f, scale=3)
     cnt = rer_gather_bwd.packed_max_count_plain(groups, x, y, q=q)
     g = _dyadic_g(cnt, seed=f + 2)
-    want, _ = rer_gather_bwd.packed_max_backward_plain(groups, x, y, g, q=q)
+    want = rer_gather_bwd.packed_max_scatter_plain(groups, x, y, g, cnt,
+                                                   q=q)
     dg = t_engn.upload_groups(rer_gather.prepare_packed_groups(
         _three_pass_store(seed=f, scale=3)), dev)
-    assert not dg.unit
+    assert not any(bool((gr["vals"] == 1.0).any()) for gr in dg)
     xd, yd, gd = x.to(dev), y.to(dev), g.to(dev)
     before = dict(bwd_ops.LAUNCHES)
     got_words = rer_gather_bwd.packed_max_words(dg, xd, yd, q=q)
     got = rer_gather_bwd.packed_max_backward(dg, xd, yd, gd, q=q)
     torch.cuda.synchronize()
     assert bwd_ops.LAUNCHES == {
-        "count": before["count"] + 2, "resolve": before["resolve"],
+        "count": before["count"] + 2, "resolve": before["resolve"] + 1,
         "max": before["max"] + 1}
+    _, flag = rer_gather_bwd.packed_max_resolve(got_words, gd)
     assert torch.equal(got_words.cpu(), cnt)
+    assert torch.equal(flag.cpu().bool(), ((cnt > 0) & (g != 0)).any(dim=1))
     assert torch.equal(got.cpu(), want)
     tracing.reset()
     with torch.profiler.profile(activities=[
@@ -431,4 +429,4 @@ def test_two_pass_max_backward_on_card_where_no_weight_is_one(f):
         rer_gather_bwd.packed_max_backward(dg, xd, yd, gd, q=q)
     rep = tracing.report()
     assert rep["max_bwd.rows"]["calls"] == x.shape[0]
-    assert rep["max_bwd.walk_rows"]["calls"] == x.shape[0]
+    assert rep["max_bwd.walk_rows"]["calls"] == int(flag.sum())

@@ -17,6 +17,7 @@ arrays on a co-located (2, 4) CPU mesh.
 - the dispatcher takes the a2a path on a model axis above 1 and the
   dense one on a 1-wide model axis.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import os
 import subprocess
 import sys

@@ -21,6 +21,7 @@ uneven 93-vertex graph at tile 4 (`tests/test_ring_dataflow.py`'s
   the reference's engine.
 The `cuda`-marked twins run on a card only and skip here.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax

@@ -17,6 +17,7 @@
   reference trainer's; the launcher's `--gnn-backend ring --gnn-shards`.
 The `cuda`-marked twins run on a card only and skip here.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import argparse
 
 import jax

@@ -10,6 +10,7 @@ the reference's within rtol=1e-4, atol=1e-5 (the reduction order
 differs); maxima exactly up to that.  The `cuda`-marked tests run on a
 card only and skip here.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import numpy as np
 import pytest
 import torch

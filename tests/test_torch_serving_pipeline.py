@@ -9,6 +9,7 @@ failures, replica eviction and requeue): the three chaos tests of
 `tests/test_serving_fault.py` fail a stage through the port's
 `ChaosInjector.wrap_callable`, the others through a plain wrapper that
 raises on the chosen calls."""
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import time
 
 import numpy as np

@@ -13,6 +13,7 @@ with numpy; weights cross with `load_reference_params`.  The card's
 twins (B1 once per relation, a gated dense plan, the gated dense size
 check) carry the `cuda` marker.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax

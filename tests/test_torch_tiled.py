@@ -10,6 +10,7 @@ sums agree to rtol=1e-4, atol=1e-5 (the frameworks reduce in different
 orders) and maxima exactly.  The CUDA kernels run only on a card: the
 `cuda`-marked tests skip without one.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import jax

@@ -14,6 +14,7 @@ equal, the backward's `bwd_*` counters included.  The queue kernel's
 backward (B5^T) runs through its plain version here and against it on
 the card (`cuda`-marked tests, which skip without one).
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import argparse
 import dataclasses
 

@@ -2,6 +2,7 @@
 the profiler's trace nested as they ran, set-up stages fill the table,
 and `report()` has its shape.  Torch and numpy only (no JAX), so the
 `cuda` case runs on the card as it is."""
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import json
 
 import numpy as np

@@ -10,6 +10,7 @@ reference launcher test's own tolerance); checkpoints written by either
 package and restored by the other; the launcher.  The kernels' own
 backward runs on the card in the `cuda`-marked tests at the end.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import argparse
 
 import jax

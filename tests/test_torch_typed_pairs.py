@@ -6,6 +6,7 @@ hold the kernels (forward, dW, dX) to the plain versions on the card:
 small-integer inputs, whose fp32 sums are exact in any order, compared
 with `torch.equal`, and real-valued inputs within fp32 rounding.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ the reference's, and `TiledStats` equal the reference's field for field;
 responses of the serving engine agree within rtol=1e-4, atol=1e-5.  The
 `cuda`-marked tests run on a card only and skip here.
 """
+import _torch_cpu  # noqa: F401  (this worker's share of the cores)
 import dataclasses
 
 import numpy as np
