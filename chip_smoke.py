@@ -43,7 +43,7 @@ prints no result.  Phases, each of which fails the run if it fails:
    beside `torch.sparse.mm(A, X @ W)`), and every backward, each over
    the FORWARD carrier (no carrier of A^T is built): the sums' A^T G
    (`rer_spmm_sum_t` over the dense tiles, `rer_gather_sum_t` over the
-   bucket groups' work table, beside `torch.sparse.mm(A^T, G)`; the
+   bucket groups' source table, beside `torch.sparse.mm(A^T, G)`; the
    fused backward, `rer_spmm_sum_t` plus two matrix products, is checked
    and timed on a line of its own, outside the kernels' record) and
    both max backwards (`rer_spmm_bwd_max` over the tiles, and the packed
@@ -985,19 +985,28 @@ def main() -> int:
         group_bytes = sum(nb(*gr.values()) for gr in groups)
         print(f"training packed carrier: {len(groups)} groups, "
               f"{plan_p.footprint_bytes / 1e6:.3f} MB, {nnz_p} real entries, "
-              f"{groups.work.n_seg} segments (every backward walks it; no "
-              f"A^T)")
+              f"{groups.work.n_seg} segments (every max backward walks "
+              f"them; no A^T)")
+        # the sum's backward over a sum plan's groups, which carry its
+        # source table (a max plan's hold none)
+        sums = rt.prepare_graph(g_tr, dataclasses.replace(
+            cfg_tr, tile_format="packed", aggregate_op="sum")).carrier[
+                "packed_groups"]
+        nnz_s = real_entries(sums)
+        print(f"training packed sum plan: {sums.source.pieces.shape[0]} "
+              f"source pieces of at most {sums.source.piece} entries")
         kernel_case(
             "rer_gather_sum_t", "src/repro_torch/csrc/rer_gather_bwd.cu",
             "src/repro/kernels/rer_gather/rer_gather.py:103",
-            [(lambda g=g: gather_bwd_ops.packed_groups_t(groups, g, q=q),
-              lambda g=g: gather_bwd_ops.packed_groups_t_plain(groups, g,
+            [(lambda g=g: gather_bwd_ops.packed_groups_t(sums, g, q=q),
+              lambda g=g: gather_bwd_ops.packed_groups_t_plain(sums, g,
                                                                q=q))
              for g in gs],
             exact=False, rel=NEW_RTOL,
-            nbytes=sum(12 * nnz_p + nb(g, g) for g in gs),
-            ops=sum(2 * nnz_p * g.shape[1] for g in gs),
+            nbytes=sum(12 * nnz_s + nb(g, g) for g in gs),
+            ops=sum(2 * nnz_s * g.shape[1] for g in gs),
             library=lambda: [torch.sparse.mm(a_tr_t, g[:n_tr]) for g in gs])
+        del sums
         # the max backward on three plans of the training graph's edges:
         # "norm", its GCN-normalised weights at the training widths (a
         # share of them 1); "unit", every weight 1 as GS-Pool's benchmark

@@ -603,12 +603,13 @@ def _upload(a: np.ndarray, dev: DeviceLike) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def upload_groups(groups, dev: DeviceLike):
+def upload_groups(groups, dev: DeviceLike, source: bool = False):
     """A plan's bucket groups on `dev`, with the `rer_gather` kernel's
-    work table built from the host arrays beside them (`PlanGroups`)."""
+    work table built from the host arrays beside them (`PlanGroups`),
+    and with `source` the sum backward's source-order table."""
     from repro_torch.kernels.rer_gather import PlanGroups
     with _upload_stage(dev):
-        return PlanGroups(groups, dev)
+        return PlanGroups(groups, dev, source=source)
 
 
 def fold_rel_norm(g: COOGraph) -> COOGraph:
@@ -1117,7 +1118,12 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
         with stage("plan.groups"):
             groups = rer_gather.prepare_packed_groups(
                 packed, cfg.packed_bucket_floor)
-        d["packed_groups"] = upload_groups(groups, dev)
+        # a sum plan on a card holds B2^T's table too, built once with
+        # the plan (its backward's; a max plan's backward walks the work
+        # table)
+        d["packed_groups"] = upload_groups(
+            groups, dev,
+            source=dev.type == "cuda" and cfg.aggregate_op != "max")
         tile_bytes = sum(gr.nbytes() for gr in groups)
     # re-check the plan as built (the closed-form gate prices nnz bounds)
     act = 2 if cfg.training else 1

@@ -106,19 +106,24 @@
 //   * shared memory holds the run partials, T + 1 counts and 28 B per
 //     entry of the longest piece, not a T x F block, so a tall tile takes
 //     no narrower pass.
+// The sort, the walk of the runs and the sums of the cut columns are
+// source_walk.cuh's, shared with B2^T (rer_gather_bwd.cu).
 
 #include "rer_gather_walk.cuh"
+#include "source_walk.cuh"
 
 namespace {
 
 using rer_gather_walk::kThreads;
 using rer_gather_walk::kWarps;
-using rer_gather_walk::lanes_for;
 using rer_gather_walk::walk;
-
-// dynamic shared memory a CTA may take (227 KB, less a margin for the
-// static arrival flag)
-constexpr int kSmemMax = 232448 - 128;
+using source_walk::align4;
+using source_walk::kLB;
+using source_walk::kSmemMax;
+using source_walk::last_le;
+using source_walk::merge;
+using source_walk::queue_lanes;
+using source_walk::store;
 
 // pieces: (P, 5) int32 rows (dst interval, first entry, end entry, split
 // slot or -1, pieces of the interval) over wrows, wsrc, wvals: the
@@ -199,18 +204,6 @@ chunk_queue_kernel(const int* __restrict__ pieces,
   }
 }
 
-// Lanes per entry and features per lane: `lanes_for`'s, but 32 < F <= 64
-// takes 16 lanes x 4 features, two entries per warp instruction, which
-// halves the shuffles and row tests per entry (measured 6% faster at
-// F = 50 and 10% at F = 64 than 32 x 2, NVIDIA H100 80GB HBM3 at 700 W).
-int queue_lanes(int f, int* nr) {
-  if (f > 32 && f <= 64) {
-    *nr = 4;
-    return 16;
-  }
-  return lanes_for(f, nr);
-}
-
 template <int kNR, bool kFew = false>
 void launch(const int* pieces, int n_pieces, const int* wrows,
             const int* wsrc, const float* wvals, const float* x, float* y,
@@ -233,91 +226,6 @@ void launch(const int* pieces, int n_pieces, const int* wrows,
 
 // B5^T: see the head of this file.
 constexpr int kUT = 8;       // entries whose G rows a lane has in flight
-constexpr int kLB = 4;       // entries a thread loads at once
-
-// the last j in [lo, hi] with ptr[j] <= v, given ptr[lo] <= v
-__device__ __forceinline__ int last_le(const int* ptr, int lo, int hi,
-                                       int v) {
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (ptr[mid] <= v) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-// *p += v with no value returned (PTX `red`): the issuing warp does not
-// wait for it, where `atomicAdd`'s compiles to an ATOMG here
-__device__ __forceinline__ void red_add(float* p, float v) {
-  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
-}
-
-// y[0, kV) += x[0, kV) in device memory where any of x is nonzero: one
-// vector `red` (sm_90), which returns nothing (CUDA's vector atomicAdd
-// returns the old values, and its warp waits for them)
-template <int kV>
-__device__ __forceinline__ void merge(float* y, const float* x) {
-  bool any = false;
-#pragma unroll
-  for (int v = 0; v < kV; ++v) any |= x[v] != 0.f;
-  if (!any) return;
-  if constexpr (kV == 4)
-    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(y),
-                 "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]) : "memory");
-  else if constexpr (kV == 2)
-    asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(y),
-                 "f"(x[0]), "f"(x[1]) : "memory");
-  else
-    red_add(y, x[0]);
-}
-
-// y[0, kV) = x[0, kV), a streaming store
-template <int kV>
-__device__ __forceinline__ void store(float* y, const float* x) {
-  if constexpr (kV == 4)
-    __stcs(reinterpret_cast<float4*>(y), make_float4(x[0], x[1], x[2], x[3]));
-  else if constexpr (kV == 2)
-    __stcs(reinterpret_cast<float2*>(y), make_float2(x[0], x[1]));
-  else
-    __stcs(y, x[0]);
-}
-
-// c[0, m) in shared memory becomes its exclusive prefix sum, c[m] the
-// total; the whole CTA calls it
-__device__ void cta_exclusive_scan(int* c, int m, int* warp_sums) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (m + kThreads - 1) / kThreads;
-  const int a = min(m, tid * per), b = min(m, a + per);
-  int s = 0;
-  for (int i = a; i < b; ++i) s += c[i];
-  int x = s;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  int run = x - s + (warp ? warp_sums[warp - 1] : 0);
-  for (int i = a; i < b; ++i) {
-    const int v = c[i];
-    c[i] = run;
-    run += v;
-  }
-  if (tid == kThreads - 1) c[m] = run;
-  __syncthreads();
-}
-
-__host__ __device__ constexpr int align4(int x) { return (x + 3) & ~3; }
 
 // B5^T's dynamic shared memory (4-byte words, the kernel's layout) at
 // tile t, pieces of at most `piece` entries, wf features a pass and fp
@@ -425,12 +333,7 @@ chunk_queue_t_kernel(const int* __restrict__ tpieces,
   __syncthreads();
 
   // 3. sort by column in shared memory: counts -> first positions
-  cta_exclusive_scan(base, t, warp_sums);
-  for (int i = tid; i < ne; i += kThreads) {
-    const int key = e_key[i];
-    order[base[key >> 16] + (key & 0xffff)] = i;
-  }
-  __syncthreads();
+  source_walk::sort_by_column(e_key, base, order, ne, t, warp_sums);
 
   // 4. the sorted entries cut evenly into nk runs, one per lane group (fp
   //    lanes, kNR neighbouring features each): a group sums each column
@@ -438,105 +341,30 @@ chunk_queue_t_kernel(const int* __restrict__ tpieces,
   //    (a store into dX or, for a split interval, a `red` into its
   //    scratch), the part of a column that a cut falls inside into the
   //    run's partial for it
-  auto cut = [&](int kk) { return (int)((long long)ne * kk / nk); };
-  auto cut_col = [&](int kk) {  // the column cut kk falls inside, or -1
-    const int at = cut(kk);
-    if (kk <= 0 || kk >= nk || at >= ne) return -1;
-    const int c = e_key[order[at]] >> 16;
-    return base[c] < at ? c : -1;
-  };
-  // lane fl's feature q is f0 + q * fs
-  const int gi = lane / fp, fl = lane % fp;
-  const int f0 = kV > 1 ? fl * kNR : fl, fs = kV > 1 ? 1 : fp;
-  const int k = warp * (32 / fp) + gi;
-  const int rb = cut(k), re = cut(k + 1);
-  const int cf = cut_col(k), cl = cut_col(k + 1);
+  const source_walk::Cuts cuts{e_key, order, base, ne, nk};
   const int row0 = src * t;
   const int nrows = min(t, n - row0);
   float* blk = part + (size_t)max(slot, 0) * t * f + fb;
-  int cur = -1;
-  float acc[kNR];
-#pragma unroll
-  for (int q = 0; q < kNR; ++q) acc[q] = 0.f;
-  auto flush = [&]() {
-    if (cur >= 0) {
-#pragma unroll
-      for (int q = 0; q < kNR; q += kV) {
-        const int fi = f0 + q * fs;
-        if (fi >= wf) continue;
-        if (cur == cf || cur == cl) {
-          float* y = (cur == cf ? part_first : part_last) + k * wf + fi;
-#pragma unroll
-          for (int v = 0; v < kV; ++v) y[v] = acc[q + v];
-        } else if (slot < 0) {
-          store<kV>(dx + (size_t)(row0 + cur) * f + fb + fi, acc + q);
-        } else {
-          merge<kV>(blk + (size_t)cur * f + fi, acc + q);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kNR; ++q) acc[q] = 0.f;
-  };
-  for (int p = rb; p < re; p += kUT) {
-    float vv[kUT], gv[kUT][kNR];
-    int cc[kUT];
-#pragma unroll
-    for (int u = 0; u < kUT; ++u) {
-      vv[u] = 0.f;
-      cc[u] = -1;
-#pragma unroll
-      for (int q = 0; q < kNR; ++q) gv[u][q] = 0.f;
-      if (p + u < re) {
-        const int i = order[p + u];
-        vv[u] = e_val[i];
-        cc[u] = e_key[i] >> 16;
-        const float* grow = g + (size_t)e_row[i] * f + fb + f0;
-#pragma unroll
-        for (int q = 0; q < kNR; q += kV) {
-          if (f0 + q * fs >= wf) continue;
-          if constexpr (kV == 4) {
-            const float4 x = __ldg(reinterpret_cast<const float4*>(grow + q));
-            gv[u][q] = x.x, gv[u][q + 1] = x.y, gv[u][q + 2] = x.z,
-            gv[u][q + 3] = x.w;
-          } else if constexpr (kV == 2) {
-            const float2 x = __ldg(reinterpret_cast<const float2*>(grow + q));
-            gv[u][q] = x.x, gv[u][q + 1] = x.y;
-          } else {
-            gv[u][q] = __ldg(grow + q * fs);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUT; ++u) {
-      if (p + u >= re) break;
-      if (cc[u] != cur) {
-        flush();
-        cur = cc[u];
-      }
-#pragma unroll
-      for (int q = 0; q < kNR; ++q) acc[q] = fmaf(vv[u], gv[u][q], acc[q]);
-    }
-  }
-  flush();
+  source_walk::walk_runs<kNR, kV, kUT>(
+      cuts, e_row, e_val, g, f, fb, wf, fp, part_first, part_last,
+      [&](int c, int fi, const float* v) {
+        if (slot < 0)
+          store<kV>(dx + (size_t)(row0 + c) * f + fb + fi, v);
+        else
+          merge<kV>(blk + (size_t)c * f + fi, v);
+      });
   __syncthreads();
 
-  // 5. each column a cut falls inside, from the first such cut: the
-  //    partial of the run before it and of every run it starts; an
-  //    unsplit interval's rows without an entry are zero; a split
-  //    interval's last piece to arrive stores the merged block
-  for (int i = tid; i < nk * wf; i += kThreads) {
-    const int kk = i / wf, c = cut_col(kk), fi = i - kk * wf;
-    if (c < 0 || cut_col(kk - 1) == c) continue;
-    float v = part_last[(kk - 1) * wf + fi];
-    for (int jj = kk; jj < nk && cut_col(jj) == c; ++jj)
-      v += part_first[jj * wf + fi];
-    if (slot < 0)
-      __stcs(dx + (size_t)(row0 + c) * f + fb + fi, v);
-    else
-      merge<1>(blk + (size_t)c * f + fi, &v);
-  }
+  // 5. each column a cut falls inside, from its partials; an unsplit
+  //    interval's rows without an entry are zero; a split interval's
+  //    last piece to arrive stores the merged block
+  source_walk::sum_cuts(cuts, wf, part_first, part_last,
+                        [&](int c, int fi, float v) {
+                          if (slot < 0)
+                            __stcs(dx + (size_t)(row0 + c) * f + fb + fi, v);
+                          else
+                            merge<1>(blk + (size_t)c * f + fi, &v);
+                        });
   if (slot < 0) {
     for (int rl = warp; rl < nrows; rl += kWarps)
       if (base[rl + 1] == base[rl])

@@ -10,14 +10,15 @@ Device side: one launch of the hand-written CUDA kernel
 bucket group of a plan (`packed_groups_spmm`, and the single-group raw
 form `packed_spmm`), walked through a work table (`work_table`) that
 cuts the real entries into segments of about `SEG_ENTRIES` entries in
-destination order and never names a pad slot.  The backward walks the
-same groups through the same table, one launch per pass, in
-`csrc/rer_gather_bwd.cu`: the sum's dX = A^T G and the max's winner
-words, their resolve pass and the walk of the tied rows
-(`rer_gather_bwd`); no carrier of A^T is built.  A plan's groups
-(`PlanGroups`, built where the plan uploads them) carry their table,
-made from the host arrays; any other list of groups builds one at each
-call from the per-tile real counts read back.
+destination order and never names a pad slot.  The backward reads the
+same groups, one launch per pass, in `csrc/rer_gather_bwd.cu`
+(`rer_gather_bwd`): the max's winner words, their resolve pass and the
+walk of the tied rows through the same table, and the sum's dX = A^T G
+through a source-order table of the same tiles (`source_table`); no
+carrier of A^T is built.  A plan's groups (`PlanGroups`, built where
+the plan uploads them) carry their tables, made from the host arrays
+(the source table on a sum plan on the card); any other list of groups
+builds them at each call from the per-tile real counts read back.
 CPU tensors take the plain versions: `packed_spmm_plain` per group
 (gather the referenced rows, scale, segment-reduce), merged by + /
 maximum.  The max backward splits the cotangent evenly over all tied
@@ -43,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,8 +59,8 @@ from repro_torch.tracing import span
 
 # kernel launches by op and call form, counted where the kernel is
 # launched: "sum"/"max" for bucket groups (one per aggregate), "sum_t"
-# for the sum backward over the same groups (`rer_gather_bwd.cu`'s
-# scatter, one per aggregate, launched and counted by
+# for the sum backward over the same groups (`rer_gather_bwd.cu`'s B2^T,
+# one per aggregate, launched and counted by
 # `rer_gather_bwd.packed_groups_t`), "tile_part_*" for the streamed
 # executor's chunks
 LAUNCHES = {"sum": 0, "max": 0, "sum_t": 0, "tile_part_sum": 0,
@@ -243,6 +244,57 @@ def work_table(counts: Sequence[np.ndarray], block_row: Sequence[np.ndarray],
             poff.astype(np.int32))
 
 
+def source_table(counts: Sequence[np.ndarray],
+                 block_row: Sequence[np.ndarray],
+                 block_col: Sequence[np.ndarray], q: int, piece: int):
+    """B2^T's table over bucket groups (the sum backward,
+    `csrc/rer_gather_bwd.cu`), from the host arrays the work table is
+    built from; it copies no entry.  The tiles with entries sorted by
+    (source interval, destination interval): `tiles` (K', 3) int32 rows
+    (group, tile, destination interval), and their entry offsets in that
+    order, `ptr` (K'+1) int32: offset v of tile j is its slot
+    v - ptr[j].  Each source interval's span of that order is cut into
+    pieces of at most `piece` entries (`chunk_queue.queue_segments`: an
+    interval with no entry keeps one empty piece, so its dX rows are
+    still stored); `pieces` (P, 6) int32 rows (source interval, first,
+    end, split: 1 where the interval has other pieces, first tile, end
+    tile), longest first (stable: the last, short pieces of the split
+    intervals fill the last wave; ordering them by the destination of
+    their first tile, so that the CTAs running together gather G rows of
+    one band, measured no faster at Reddit's shapes).  `zero` (lo, hi):
+    the source intervals from the first split one to the last, whose dX
+    rows the launch zero-fills ((0, 0) where none is split).  Returns
+    (pieces, ptr, tiles, zero)."""
+    from repro_torch.kernels.chunk_queue.ops import queue_segments
+    grp = np.concatenate([np.full(len(c), g, np.int64)
+                          for g, c in enumerate(counts)])
+    tile = np.concatenate([np.arange(len(c), dtype=np.int64)
+                           for c in counts])
+    cnt = np.concatenate([np.asarray(c, np.int64) for c in counts])
+    dst = np.concatenate([np.asarray(b, np.int64) for b in block_row])
+    src = np.concatenate([np.asarray(b, np.int64) for b in block_col])
+    live = np.flatnonzero(cnt > 0)
+    live = live[np.lexsort((dst[live], src[live]))]
+    ptr = np.zeros(live.size + 1, np.int64)
+    np.cumsum(cnt[live], out=ptr[1:])
+    if ptr[-1] >= 2 ** 31:
+        raise ValueError(f"{ptr[-1]} entries exceed the kernel's int32 "
+                         f"offsets")
+    seg = queue_segments(np.searchsorted(src[live], np.arange(q + 1)), ptr,
+                         piece)
+    first = np.searchsorted(ptr, seg[:, 1], side="right") - 1
+    end = np.searchsorted(ptr, seg[:, 2], side="left")
+    first = np.where(seg[:, 2] > seg[:, 1], first, end)
+    pieces = np.stack([seg[:, 0], seg[:, 1], seg[:, 2], seg[:, 4] > 1,
+                       first, end], axis=1)
+    split = np.unique(pieces[pieces[:, 3] == 1, 0])
+    zero = (int(split[0]), int(split[-1]) + 1) if split.size else (0, 0)
+    tiles = np.stack([grp[live], tile[live], dst[live]], axis=1)
+    return (np.ascontiguousarray(pieces.astype(np.int32)),
+            ptr.astype(np.int32), np.ascontiguousarray(tiles.astype(np.int32)),
+            zero)
+
+
 _FIELDS = ("rows", "cols", "vals", "block_row", "block_col")
 
 
@@ -255,6 +307,18 @@ class _Work(NamedTuple):
     q: int                   # the entries name intervals < q ...
     t: int                   # ... and rows and columns < t
     keep: tuple              # the group tensors whose pointers gtab holds
+
+
+class _Source(NamedTuple):
+    """B2^T's table (`source_table`) on the groups' device."""
+    pieces: torch.Tensor     # (P, 6) int32
+    ptr: torch.Tensor        # (K'+1,) int32
+    tiles: torch.Tensor      # (K', 3) int32
+    entries: int             # real entries
+    piece: int               # most entries of a piece
+    tiles_max: int           # most tiles of a piece
+    zero: tuple              # source intervals [lo, hi) zero-filled first
+    q: int                   # the entries name source intervals < q
 
 
 def _build_work(groups: Sequence[Dict[str, torch.Tensor]], counts, brow,
@@ -272,30 +336,54 @@ def _build_work(groups: Sequence[Dict[str, torch.Tensor]], counts, brow,
                  tuple(gr[k] for gr in groups for k in _FIELDS))
 
 
+def _build_source(counts, brow, bcol, q: int, dev: torch.device,
+                  piece: Optional[int] = None) -> _Source:
+    """B2^T's table on `dev`, from host arrays of the groups' real counts
+    and tile intervals; pieces of `piece` entries, or of B5^T's size for
+    the card's SM count (`chunk_queue.source_piece`)."""
+    from repro_torch.kernels.chunk_queue.ops import sm_count, source_piece
+    entries = int(sum(int(np.asarray(c, np.int64).sum()) for c in counts))
+    if piece is None:
+        piece = source_piece(entries, sm_count(dev))
+    pieces, ptr, tiles, zero = source_table(counts, brow, bcol, q, piece)
+    size = pieces[:, 2] - pieces[:, 1]
+    return _Source(*(torch.from_numpy(a).to(dev)
+                     for a in (pieces, ptr, tiles)), entries,
+                   int(size.max(initial=0)),
+                   int((pieces[:, 5] - pieces[:, 4]).max(initial=0)), zero,
+                   q)
+
+
 class PlanGroups(list):
     """A plan's bucket groups on their device: the list of group dicts
     (`rows`, `cols`, `vals`, `block_row`, `block_col`) every consumer
     reads, and in `work` the kernel's work table, built from the host
     arrays as they are uploaded, so that no launch reads back or checks
-    them again.  The groups are constants of the plan: a launch takes
-    the table as built."""
+    them again; with `source`, B2^T's source-order table too (a sum
+    plan's: the sum backward's, `source_table`), else `source` is None.
+    The groups are constants of the plan: a launch takes the tables as
+    built."""
 
-    def __init__(self, groups: Sequence[PackedGroup], dev: torch.device):
+    def __init__(self, groups: Sequence[PackedGroup], dev: torch.device,
+                 source: bool = False):
         super().__init__(
             {k: torch.from_numpy(np.ascontiguousarray(getattr(gr, k))).to(dev)
              for k in _FIELDS} for gr in groups)
-        self.work = None
+        self.work = self.source = None
         if groups:
+            counts = [real_counts(*(torch.from_numpy(getattr(gr, k))
+                                    for k in _FIELDS[:3])).numpy()
+                      for gr in groups]
+            brow = [gr.block_row for gr in groups]
+            bcol = [gr.block_col for gr in groups]
+            q = 1 + max(int(a.max(initial=0)) for a in brow + bcol)
             self.work = _build_work(
-                self, [real_counts(*(torch.from_numpy(getattr(gr, k))
-                                     for k in _FIELDS[:3])).numpy()
-                       for gr in groups],
-                [gr.block_row for gr in groups],
-                [gr.block_col for gr in groups],
-                q=1 + max(int(a.max(initial=0)) for gr in groups
-                          for a in (gr.block_row, gr.block_col)),
+                self, counts, brow, bcol, q=q,
                 t=1 + max(int(a.max(initial=0)) for gr in groups
                           for a in (gr.rows, gr.cols)))
+            if source:
+                self.source = _build_source(counts, brow, bcol, q,
+                                            torch.device(dev))
 
 
 def _check_groups(groups, dev: torch.device, q: int, t: int) -> None:
@@ -338,6 +426,30 @@ def groups_work(groups: Sequence[Dict[str, torch.Tensor]], q: int, t: int,
         raise ValueError(f"the groups name {w.q} intervals of {w.t} rows; "
                          f"x holds {q} of {t}")
     return w
+
+
+def groups_source(groups: Sequence[Dict[str, torch.Tensor]], q: int,
+                  dev: torch.device) -> _Source:
+    """B2^T's table of a plan's groups; for a plan without one (a max
+    plan's) or any other list of groups (checked by `groups_work`
+    first), a table built now from the real counts and tile intervals
+    read back to the host (not kept: a backward adds nothing to a
+    plan)."""
+    src = getattr(groups, "source", None)
+    if src is None:
+        src = _build_source(
+            [real_counts(gr["rows"], gr["cols"], gr["vals"]).cpu().numpy()
+             for gr in groups],
+            [gr["block_row"].cpu().numpy() for gr in groups],
+            [gr["block_col"].cpu().numpy() for gr in groups],
+            1 + max(int(gr[k].max()) if gr[k].numel() else 0
+                    for gr in groups for k in ("block_row", "block_col")),
+            dev)
+    if src.pieces.device != dev:
+        raise ValueError(f"the groups lie on {src.pieces.device}, g on {dev}")
+    if src.q > q:
+        raise ValueError(f"the groups name {src.q} intervals; g holds {q}")
+    return src
 
 
 _LIB = None

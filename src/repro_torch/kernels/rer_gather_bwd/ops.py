@@ -1,9 +1,8 @@
 """The backward of RER-Gather over a plan's packed bucket groups.
 
 Each pass is ONE launch per aggregate of the hand-written CUDA kernels
-in `csrc/rer_gather_bwd.cu`, over the forward groups' own work table
-(`rer_gather.PlanGroups.work`, the forward kernel's), for CUDA tensors;
-plain versions for CPU tensors:
+in `csrc/rer_gather_bwd.cu` over the forward groups' own entries, for
+CUDA tensors; plain versions for CPU tensors:
 
   * `packed_max_backward`: dX of a max aggregate, the path its autograd
     takes, in three passes:
@@ -19,8 +18,13 @@ plain versions for CPU tensors:
       3. the tie walk: a scatter over the flagged rows only, and in them
          only the features whose word is a count, v * g / count for
          each winning entry;
-  * `packed_groups_t`: the sum's dX = A^T G, the same scatter over every
-    entry with no counts (counted as rer_gather's "sum_t").
+    all three over the forward's work table (`PlanGroups.work`);
+  * `packed_groups_t`: the sum's dX = A^T G (B2^T, counted as
+    rer_gather's "sum_t"), source-stationary over a source-order table
+    of the same groups' tiles (`PlanGroups.source`, built with a sum
+    plan on the card; `rer_gather.source_table`): one CTA per piece of
+    a source interval sorts its entries by source column on chip, sums
+    each column in registers and writes each dX row once.
 
 The three passes hold on any weights.  Where no entry has weight 1 no
 word names a winner: every word is a count, the resolve pass flags every
@@ -46,21 +50,30 @@ Source note.  The backward of `repro/kernels/rer_gather/rer_gather.py::
 rer_gather` (`_gather_kernel_sum`, `_gather_kernel_max`), which the
 reference differentiates only through XLA.  On the H100 it is bound by
 bytes: 12 B per real entry plus the referenced rows of x, y, g and the
-words.  The kernels walk the forward's segments (one warp per <= 64
-real entries, in destination order, no pad slot read); the count keeps
-the running destination row's y, its winners and the last winner's
-source in registers and adds the winners into the word with integer
-atomics (exact in any order, for any count), the scatter loads each
-entry's g (and y and word) with its x row and adds into dX with
-fire-and-forget float atomics (the order varies from run to run, so dX
-agrees with the plain version to fp32 rounding, and bit for bit where
-the sums are exact).
+words.  The max's kernels walk the forward's segments (one warp per <=
+64 real entries, in destination order, no pad slot read); the count
+keeps the running destination row's y, its winners and the last
+winner's source in registers and adds the winners into the word with
+integer atomics (exact in any order, for any count), the tie walk loads
+each entry's g, y and word with its x row and adds into dX with
+fire-and-forget float atomics.  The sum, B2^T, needs 12 B per entry, g
+read and dX written once (0.35 ms at Reddit's 79.0 M entries and width
+128); what sets its time is one gather of a g row per entry, as the
+forward's of x rows.  A scatter over the forward's segments adds into
+dX with one global float atomic per entry and feature, because no warp
+owns a source row (twice the forward's time at width 128); B2^T's CTA
+owns a piece of one source interval instead, so a dX row takes one
+store, or one vector `red` per piece of a split interval (`sum_t.
+merged_rows` counts those).  Sums agree with the plain version to fp32
+rounding (the order of the adds varies from run to run), and bit for
+bit where they are exact.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import tracing
@@ -71,8 +84,8 @@ from repro_torch.kernels.rer_gather import ops as gather_ops
 
 # kernel launches, counted where launched: "count" (the count's walk and
 # its dense second launch), "resolve" and "max" (the tie walk), one each
-# per max aggregate's backward (`packed_max_backward`); the sum's scatter
-# is counted in rer_gather.LAUNCHES["sum_t"], beside the forward it
+# per max aggregate's backward (`packed_max_backward`); the sum's B2^T is
+# counted in rer_gather.LAUNCHES["sum_t"], beside the forward it
 # differentiates
 LAUNCHES = {"count": 0, "resolve": 0, "max": 0}
 
@@ -209,8 +222,11 @@ def _lib():
         lib.rer_gather_max_resolve_launch.argtypes = [p] * 5 + [i] * 2 + [p]
         lib.rer_gather_max_resolve_launch.restype = i
         lib.rer_gather_bwd_scatter_launch.argtypes = (
-            [p] * 4 + [i] + [p] * 6 + [i] * 4 + [p])
+            [p] * 4 + [i] + [p] * 6 + [i] * 3 + [p])
         lib.rer_gather_bwd_scatter_launch.restype = i
+        lib.rer_gather_bwd_sum_launch.argtypes = (
+            [p, p, i, p, p] + [i] * 4 + [p, p] + [i] * 3 + [p, p])
+        lib.rer_gather_bwd_sum_launch.restype = i
         _LIB = lib
     return _LIB
 
@@ -232,50 +248,91 @@ def _table(groups: Groups, ref: torch.Tensor, q: int, tensors):
 
 
 def scatter_launch(groups: Groups, g: torch.Tensor, q: int,
-                   x: Optional[torch.Tensor] = None,
-                   y: Optional[torch.Tensor] = None,
-                   words: Optional[torch.Tensor] = None,
-                   flag: Optional[torch.Tensor] = None,
-                   dx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the scatter kernel once over the groups' work table
-    (counted by the caller): dX of the sum when `words` is None, else
-    the max's tie walk over the winners of x and y in the rows of the
-    resolve pass's `flag`, adding where `words` holds a count into that
+                   x: torch.Tensor, y: torch.Tensor, words: torch.Tensor,
+                   flag: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """Launch the max's tie walk once over the groups' work table
+    (counted by the caller): over the winners of x and y in the rows of
+    the resolve pass's `flag`, add where `words` holds a count into that
     pass's `dx`."""
-    op_max = words is not None
-    dense = [("g", g, torch.float32)]
-    if op_max:
-        dense += [("x", x, torch.float32), ("y", y, torch.float32),
-                  ("words", words, torch.int32), ("dx", dx, torch.float32)]
-        check_tensor(flag, "flag", torch.int32, g.device, 1)
-        if flag.shape[0] != g.shape[0]:
-            raise ValueError(f"{flag.shape[0]} flags for {g.shape[0]} rows")
-    w = _table(groups, g, q, dense)
-    if not op_max:
-        dx = torch.empty_like(g)
+    check_tensor(flag, "flag", torch.int32, g.device, 1)
+    if flag.shape[0] != g.shape[0]:
+        raise ValueError(f"{flag.shape[0]} flags for {g.shape[0]} rows")
+    w = _table(groups, g, q, [
+        ("g", g, torch.float32), ("x", x, torch.float32),
+        ("y", y, torch.float32), ("words", words, torch.int32),
+        ("dx", dx, torch.float32)])
     status = _lib().rer_gather_bwd_scatter_launch(
         w.gtab.data_ptr(), w.pieces.data_ptr(), w.poff.data_ptr(),
-        w.seg_ptr.data_ptr(), w.n_seg,
-        x.data_ptr() if op_max else None, y.data_ptr() if op_max else None,
-        g.data_ptr(), words.data_ptr() if op_max else None,
-        flag.data_ptr() if op_max else None, dx.data_ptr(), q,
-        g.shape[0] // q, g.shape[1], int(op_max), stream_handle(g.device))
+        w.seg_ptr.data_ptr(), w.n_seg, x.data_ptr(), y.data_ptr(),
+        g.data_ptr(), words.data_ptr(), flag.data_ptr(), dx.data_ptr(), q,
+        g.shape[0] // q, g.shape[1], stream_handle(g.device))
     check_status(status, "rer_gather_bwd scatter")
     return dx
+
+
+def source_merged_rows(src, groups: Groups, t: int) -> int:
+    """The dX rows B2^T adds rather than stores over the source table
+    `src` (`rer_gather.groups_source`): per piece of a split source
+    interval, its columns with an entry, what the kernel adds into the
+    `sum_t.merged_rows` counter on the card.  Read back to the host."""
+    tiles = src.tiles.cpu().numpy().astype(np.int64)
+    ptr = src.ptr.cpu().numpy().astype(np.int64)
+    pieces = src.pieces.cpu().numpy().astype(np.int64)
+    n = int(ptr[-1])
+    j = np.repeat(np.arange(tiles.shape[0]), np.diff(ptr))
+    off = np.arange(n) - ptr[j]
+    col = np.zeros(n, np.int64)
+    for gi, gr in enumerate(groups):
+        m = tiles[j, 0] == gi
+        col[m] = gr["cols"].cpu().numpy()[tiles[j[m], 1], off[m]]
+    # each entry's piece: the last one starting at or before it (a
+    # non-empty piece sorts after an empty one with the same start)
+    by = np.lexsort((pieces[:, 2], pieces[:, 1]))
+    pid = by[np.searchsorted(pieces[by, 1], np.arange(n), side="right") - 1]
+    keep = pieces[pid, 3] == 1
+    return int(np.unique(pid[keep] * t + col[keep]).size)
 
 
 def packed_groups_t(groups: Groups, g: torch.Tensor, *,
                     q: int) -> torch.Tensor:
     """dX (q*T, F) = A^T G over a plan's forward groups: the sum
     backward of `rer_gather.packed_groups_spmm`.  CPU tensors take the
-    plain version; CUDA tensors one launch of the scatter over the
-    groups' work table (no carrier of A^T)."""
+    plain version; CUDA tensors one launch of B2^T over the groups'
+    source table (no carrier of A^T).  While a profiler records,
+    `sum_t.entries` counts the real entries walked and
+    `sum_t.merged_rows` the dX rows added by a split interval's merge
+    rather than stored (on the card, added by the kernel into a device
+    counter that is read when the table is reported; on the CPU, from
+    the table, `source_merged_rows`)."""
+    rec = tracing.recording()
     if g.device.type == "cpu":
-        return packed_groups_t_plain(groups, g, q=q)
+        dx = packed_groups_t_plain(groups, g, q=q)
+        if rec:
+            src = gather_ops.groups_source(groups, q, g.device)
+            tracing.count("sum_t.entries", src.entries)
+            tracing.count("sum_t.merged_rows", source_merged_rows(
+                src, groups, g.shape[0] // q))
+        return dx
     if g.device.type != "cuda":
         raise ValueError(f"no rer_gather_bwd for device {g.device}")
-    dx = scatter_launch(groups, g, q)
+    dev = g.device
+    w = _table(groups, g, q, [("g", g, torch.float32)])
+    src = gather_ops.groups_source(groups, q, dev)
+    t = g.shape[0] // q
+    # made at the first call, so that a traced one adds no fill
+    counter = tracing.device_counter("sum_t.merged_rows", dev)
+    dx = torch.empty_like(g)
+    status = _lib().rer_gather_bwd_sum_launch(
+        w.gtab.data_ptr(), src.pieces.data_ptr(), src.pieces.shape[0],
+        src.ptr.data_ptr(), src.tiles.data_ptr(), src.piece, src.tiles_max,
+        *src.zero, g.data_ptr(), dx.data_ptr(), src.q, t, g.shape[1],
+        counter.data_ptr() if rec else None, stream_handle(dev))
+    check_status(status, "rer_gather_bwd sum")
+    if src.q < q:               # intervals the groups do not name
+        dx[src.q * t:].zero_()
     gather_ops.LAUNCHES["sum_t"] += 1
+    if rec:
+        tracing.count("sum_t.entries", src.entries)
     return dx
 
 

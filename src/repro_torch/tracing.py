@@ -49,6 +49,8 @@ The spans and the metrics that read them (`portbench/metrics/`):
 | `typed.payload_rows` (counter) | the same route over dense typed tiles: the N x R rows of the (N, R*H) payload, per layer call | none yet |
 | `max_bwd.rows` (counter, only while a profiler records) | `kernels/rer_gather_bwd/ops.py::packed_max_backward`: the destination rows (q*T) a packed max backward covers, per call | `max_walk_share.train` |
 | `max_bwd.walk_rows` (counter, only while a profiler records; on the card a `device_counter` that the resolve pass adds into, read at `report()`) | the same call: the rows the walk visits, those its resolve pass flagged (every row where no entry has weight 1 and there is no resolve pass) | `max_walk_share.train` |
+| `sum_t.entries` (counter, only while a profiler records) | `kernels/rer_gather_bwd/ops.py::packed_groups_t`: the real entries a packed sum backward (B2^T) walks, per call, from its source table | none yet |
+| `sum_t.merged_rows` (counter, only while a profiler records; on the card a `device_counter` that B2^T's split pieces add into, read at `report()`) | the same call: the dX rows added by a split source interval's pieces (a piece's columns with an entry) rather than stored once; over `sum_t.entries`, the share of a per-entry scatter's adds that remains | none yet |
 """
 from __future__ import annotations
 

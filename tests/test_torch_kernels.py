@@ -21,9 +21,11 @@ from repro.kernels.rer_spmm import ops as j_spmm
 from repro_torch.graphs.format import COOGraph, coo_to_blocked
 from repro_torch.graphs.generate import rmat_graph
 from repro_torch.core.engn import upload_groups
+from repro_torch.core.plan import PreparedPlan
 from repro_torch.graphs.partition import (build_tile_store, merge_by_key,
                                           pack_tile_store,
                                           transpose_packed_store)
+from repro_torch import tracing
 from repro_torch.kernels import _build, _common
 from repro_torch.kernels.chunk_queue import ops as t_queue
 from repro_torch.kernels.feature_update import ops as t_update
@@ -390,6 +392,113 @@ def test_plan_groups_carry_the_table_a_read_back_builds(transposed):
         t_gather.groups_work(plan, plan.work.q - 1, store.tile, cpu)
 
 
+def _source_case(g, piece=None, dev=torch.device("cpu")):
+    """A plan's groups on `dev` with B2^T's source table: the plan's own
+    (pieces of `source_piece` entries) or, with `piece`, one rebuilt at
+    that size; (store, host groups, plan groups, real counts)."""
+    store = pack_tile_store(build_tile_store(g, 16))
+    host = t_gather.prepare_packed_groups(store)
+    plan = upload_groups(host, dev, source=True)
+    counts = [t_gather.real_counts(_t(gr.rows), _t(gr.cols),
+                                   _t(gr.vals)).numpy() for gr in host]
+    if piece is not None:
+        plan.source = t_gather._build_source(
+            counts, [gr.block_row for gr in host],
+            [gr.block_col for gr in host], plan.source.q, dev, piece)
+    return store, host, plan, counts
+
+
+@pytest.mark.parametrize("hub", [False, True])
+@pytest.mark.parametrize("piece", [64, None])
+def test_source_table_covers_each_real_entry_once(hub, piece):
+    """B2^T's source-order table over the bucket groups: the entries of
+    its pieces, found as the kernel finds them (an offset's tile by the
+    staged offsets, slot tile * S + offset - ptr[tile]), are every real
+    entry of the work table exactly once; a piece lies within one source
+    interval, within its span of tiles, and holds at most a piece's
+    entries; an interval with no entry keeps one empty piece; the split
+    flags are the intervals with more entries than a piece (at the
+    plan's size the hub graph's hub intervals, none of the small
+    graph's), and the zero span runs from the first split interval to
+    the last.  Tiles run by (source, destination), pieces longest
+    first; the table copies no entry."""
+    store, host, plan, counts = _source_case(
+        _hub_graph() if hub else _graph(), piece)
+    src = plan.source
+    pieces, ptr, tiles = (a.numpy() for a in (src.pieces, src.ptr,
+                                              src.tiles))
+    size = piece or src.piece
+    t = store.tile
+    assert src.entries == store.nnz == ptr[-1]
+    assert src.piece == (pieces[:, 2] - pieces[:, 1]).max() <= size
+    assert src.tiles_max == (pieces[:, 5] - pieces[:, 4]).max()
+    assert tiles.shape == (ptr.size - 1, 3)       # per tile, not per entry
+    tsrc = np.array([host[gi].block_col[k] for gi, k, _ in tiles.tolist()])
+    np.testing.assert_array_equal(np.lexsort((tiles[:, 2], tsrc)),
+                                  np.arange(tiles.shape[0]))
+    per = np.zeros(store.q, np.int64)
+    npieces = np.zeros(store.q, np.int64)
+    got = []
+    for s, lo, hi, split, first, end in pieces.tolist():
+        per[s] += hi - lo
+        npieces[s] += 1
+        assert 0 <= lo <= hi and hi - lo <= size
+        if hi == lo:
+            assert first == end
+            continue
+        assert first < end and ptr[first] <= lo < ptr[first + 1]
+        assert ptr[end - 1] < hi <= ptr[end]
+        for e in range(lo, hi):
+            j = int(np.searchsorted(ptr[first:end + 1], e, "right")) - 1
+            gi, k, dst = tiles[first + j]
+            gr, slot = host[gi], e - ptr[first + j]
+            assert (gr.block_col[k], gr.block_row[k]) == (s, dst)
+            assert slot < counts[gi][k]
+            got.append((s * t + gr.cols[k, slot], dst * t + gr.rows[k, slot],
+                        gr.vals[k, slot].view(np.int32)))
+    assert (np.diff(pieces[:, 2] - pieces[:, 1]) <= 0).all()
+    got = np.asarray(got, np.int64)
+    gsrc, gdst, gval = t_gather.flat_entries(store)
+    want = np.stack([gsrc, gdst, gval.view(np.int32)], axis=1).astype(
+        np.int64)
+    assert got.shape == want.shape           # no pad slot, no entry missed
+    np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
+                                  want[np.lexsort(want.T[::-1])])
+    assert (npieces >= 1).all()
+    assert (npieces[per == 0] == 1).all()
+    split = per > size
+    for s, *_, sp, _, _ in pieces.tolist():
+        assert sp == split[s]
+    assert (npieces > 1).tolist() == split.tolist()
+    if piece is None:
+        assert split.any() == hub
+        if hub:
+            assert split[0]                   # the hub rows' interval
+    hit = np.flatnonzero(split)
+    assert src.zero == ((hit[0], hit[-1] + 1) if hit.size else (0, 0))
+
+
+def test_plan_holds_the_source_table_only_where_asked():
+    """A sum plan's groups hold B2^T's table beside the work table, and
+    `held_bytes` counts it; groups uploaded without it (a max plan's)
+    hold none.  It is per tile and per piece: well under the groups'
+    own bytes."""
+    store = pack_tile_store(build_tile_store(_hub_graph(), 16))
+    host = t_gather.prepare_packed_groups(store)
+    cpu = torch.device("cpu")
+    sums = upload_groups(host, cpu, source=True)
+    maxs = upload_groups(host, cpu)
+    assert maxs.source is None and sums.source is not None
+    table = sum(a.numel() * a.element_size()
+                for a in (sums.source.pieces, sums.source.ptr,
+                          sums.source.tiles))
+    held = [PreparedPlan("blocked", store.num_vertices,
+                         {"packed_groups": p}).held_bytes()
+            for p in (sums, maxs)]
+    assert held[0] - held[1] == table > 0
+    assert table < sum(gr.nbytes() for gr in host) / 4
+
+
 # -- fused_engn -----------------------------------------------------------
 
 @pytest.mark.parametrize("f,h", [(12, 6), (20, 7), (8, 24)])
@@ -674,6 +783,68 @@ def test_rer_gather_bwd_one_launch_per_aggregate_on_card(op, f):
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 41, 64, 128, 256])
+def test_rer_gather_bwd_sum_source_stationary_on_card(f):
+    """B2^T over a plan's source table against the plain version at every
+    lane mapping (F = 1 and 3: a lane a feature; 41 and 64: sixteen lanes
+    of four; 128: thirty-two of four; 256: two passes; 41 and a g off
+    16-byte alignment: one float at a time): on the hub graph at pieces
+    of 64 entries (most intervals split) and at the plan's own (the hub
+    intervals split), and on the small graph (none split).  The empty
+    source intervals' dX rows are exactly 0; each call is one launch;
+    under a profiler the kernel's merged rows equal the table's count,
+    and the entries the store's."""
+    dev = _card()
+    cpu_prof = [torch.profiler.ProfilerActivity.CPU]
+    for graph, piece, splits in ((_hub_graph(), 64, True),
+                                 (_hub_graph(), None, True),
+                                 (_graph(), None, False)):
+        store, _, groups, _ = _source_case(graph, piece, dev)
+        src = groups.source
+        n, t = store.padded_vertices, store.tile
+        pieces = src.pieces.cpu().numpy()
+        empty = np.ones(store.q, bool)
+        empty[pieces[pieces[:, 2] > pieces[:, 1], 0]] = False
+        assert empty.any()
+        rows = torch.from_numpy(np.repeat(empty, t)).to(dev)
+        gg = _t(_hub_x(n, f, "sum", f + 7)).to(dev)
+        off = torch.empty(n * f + 1, device=dev)[1:].view(n, f).copy_(gg)
+        want = t_gather_bwd.packed_groups_t_plain(groups, gg, q=store.q)
+        merged = t_gather_bwd.source_merged_rows(src, groups, t)
+        assert bool(pieces[:, 3].any()) == (merged > 0) == splits
+        for g in (gg, off):
+            before = t_gather.LAUNCHES["sum_t"]
+            tracing.reset()
+            with torch.profiler.profile(activities=cpu_prof):
+                got = t_gather_bwd.packed_groups_t(groups, g, q=store.q)
+            rep = tracing.report()
+            assert t_gather.LAUNCHES["sum_t"] == before + 1
+            _check_hub(got.cpu(), want.cpu(), "sum")
+            assert (got[rows] == 0).all()
+            assert rep["sum_t.entries"]["calls"] == store.nnz
+            assert rep.get("sum_t.merged_rows",
+                           {"calls": 0})["calls"] == merged
+        tracing.reset()
+
+
+@pytest.mark.cuda
+def test_card_sum_plan_holds_the_source_table():
+    """On a card `prepare_graph` gives a packed sum plan's groups B2^T's
+    table and a max plan's none (its backward walks the work table)."""
+    import dataclasses
+    import repro_torch as rt
+    dev = _card()
+    layers = rt.make_gnn_stack("gcn", [8, 4], backend="blocked", tile=16,
+                               device=dev)
+    cfg = dataclasses.replace(layers[0].cfg, tile_format="packed")
+    sums = rt.prepare_graph(_hub_graph(), cfg, device=dev)
+    maxs = rt.prepare_graph(_hub_graph(), dataclasses.replace(
+        cfg, aggregate_op="max"), device=dev)
+    assert sums.carrier["packed_groups"].source is not None
+    assert maxs.carrier["packed_groups"].source is None
 
 
 @pytest.mark.cuda

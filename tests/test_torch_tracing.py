@@ -11,9 +11,13 @@ import torch
 
 import repro_torch as rt
 from repro_torch import tracing
+from repro_torch.core.engn import upload_groups
 from repro_torch.graphs.degree import (apply_vertex_permutation,
                                        degree_sort_permutation)
 from repro_torch.graphs.format import COOGraph
+from repro_torch.graphs.partition import build_tile_store, pack_tile_store
+from repro_torch.kernels.rer_gather import ops as gather_ops
+from repro_torch.kernels.rer_gather_bwd import ops as gather_bwd_ops
 from repro_torch.training.optimizer import init_opt_state
 from repro_torch.training.train_lib import make_gnn_train_step
 
@@ -185,4 +189,40 @@ def test_a_device_counter_joins_its_name_at_report():
     tracing.reset()
     assert tracing.report() == {}
     assert int(tracing.device_counter("kernel.rows", "cpu")) == 0
+    tracing.reset()
+
+
+def test_sum_backward_counters_only_while_recording():
+    """`sum_t.entries` and `sum_t.merged_rows` (beside `max_bwd.*`) are
+    counted only while a profiler records: a packed sum backward over CPU
+    groups counts its real entries and, from its source table, the dX
+    rows the card's split pieces add (each split piece's columns with an
+    entry); with no profiler it counts nothing."""
+    g = _graph()
+    store = pack_tile_store(build_tile_store(
+        COOGraph(g.num_vertices, g.src, g.dst, np.ones(g.num_edges,
+                                                       np.float32)), 64))
+    groups = upload_groups(gather_ops.prepare_packed_groups(store), "cpu",
+                           source=True)
+    src = groups.source
+    ptr, tiles = src.ptr.numpy(), src.tiles.numpy()
+    want = 0
+    for _, lo, hi, split, _, _ in src.pieces.tolist():
+        cols = set()
+        for e in range(lo, hi):
+            j = int(np.searchsorted(ptr, e, "right")) - 1
+            gi, k, _ = tiles[j]
+            cols.add(int(groups[gi]["cols"][k, e - ptr[j]]))
+        want += len(cols) if split else 0
+    assert 0 < want < store.nnz
+    gy = torch.ones(store.padded_vertices, 3)
+    tracing.reset()
+    gather_bwd_ops.packed_groups_t(groups, gy, q=store.q)
+    assert tracing.report() == {}
+    with torch.profiler.profile(activities=[CPU]):
+        gather_bwd_ops.packed_groups_t(groups, gy, q=store.q)
+        gather_bwd_ops.packed_groups_t(list(groups), gy, q=store.q)
+    rep = tracing.report()
+    assert rep["sum_t.entries"]["calls"] == 2 * store.nnz
+    assert rep["sum_t.merged_rows"]["calls"] == 2 * want
     tracing.reset()
