@@ -81,14 +81,18 @@ prints no result.  Phases, each of which fails the run if it fails:
    pair projection at the BGS packed plan's pairs, both layers' widths
    (`typed_pairs_project_bgs`, `_grad_w_bgs`, `_grad_x_bgs`: each pass
    against its plain version, beside the (N, R*H) einsum payload route
-   it replaced); then inference
+   it replaced); then Gated-GCN's kernels over merged pubmed's packed
+   gated plan at gatedgcn-reddit.train's widths 602 and 128
+   (`rer_gather_gated_fwd`, `_src` without dx at 602 and with it at
+   128, `_dph`: each against its plain version); then inference
    through the entry points: the AIFB stand-in (8,285 V, 29,043 E, 45
    relations) R-GCN [91, 16, 4] on "segment", "blocked" dense (B1 once
    per relation a layer) and packed; the BGS stand-in (333,845 V,
    2,166,243 E, 103 relations) R-GCN [207, 16, 2] on "segment" and
    "blocked" packed (the packed R-GCN runs on the pair kernels); merged
    pubmed Gated-GCN [500, 64, 3] on "segment"
-   and "blocked" packed, each against "segment" (`allclose(rtol=1e-4,
+   and "blocked" packed (the gated kernels, `rer_gather_gated`), each
+   against "segment" (`allclose(rtol=1e-4,
    atol=1e-5)`), each with its plan bytes beside what the budget gate
    priced; the gated dense plan at pubmed refused before it allocates;
 9. staged tiled: R-GCN at AIFB under a 4 MB budget and Gated-GCN at
@@ -392,8 +396,9 @@ def main() -> int:
     def kernel_case(name, source, replaces, calls, exact, nbytes, ops,
                     library=None, record=True, rel=None, counter=None,
                     phases=None):
-        """calls: (kernel thunk, plain thunk) for one forward's calls;
-        `record=False` checks and times a variant no path launches,
+        """calls: (kernel thunk, plain thunk) for one forward's calls,
+        each giving a tensor or a tuple of them (None where both give
+        None); `record=False` checks and times a variant no path launches,
         printed on its own line and kept out of the record (as is a call
         form whose launches another record counts).  `rel` holds
         a sum to within rel x the plain output's largest magnitude (and
@@ -403,21 +408,27 @@ def main() -> int:
         counted_by[name] = (counter or name, phases)
         err = 0.0
         for kern, plain in calls:
-            yk, yp = kern(), plain()
+            outs = kern(), plain()
             torch.cuda.synchronize()
-            if exact:
-                same = torch.equal(yk, yp)
-            elif rel is not None:
-                scale = max(1.0, float(yp.abs().max()) if yp.numel() else 0)
-                same = torch.allclose(yk, yp, rtol=rel, atol=rel * scale)
-            else:
-                same = torch.allclose(yk, yp, rtol=RTOL, atol=ATOL)
-            both_inf = torch.isneginf(yk) & torch.isneginf(yp)
-            diff = torch.where(both_inf, 0.0, (yk - yp).abs())
-            err = max(err, float(diff.max()) if diff.numel() else 0.0)
-            if not same:
-                raise AssertionError(f"{name}: kernel disagrees with its "
-                                     f"plain version (max abs err {err})")
+            for yk, yp in (zip(*outs) if isinstance(outs[0], tuple)
+                           else [outs]):
+                if yk is None and yp is None:
+                    continue
+                if exact:
+                    same = torch.equal(yk, yp)
+                elif rel is not None:
+                    scale = max(1.0, float(yp.abs().max())
+                                if yp.numel() else 0)
+                    same = torch.allclose(yk, yp, rtol=rel, atol=rel * scale)
+                else:
+                    same = torch.allclose(yk, yp, rtol=RTOL, atol=ATOL)
+                both_inf = torch.isneginf(yk) & torch.isneginf(yp)
+                diff = torch.where(both_inf, 0.0, (yk - yp).abs())
+                err = max(err, float(diff.max()) if diff.numel() else 0.0)
+                if not same:
+                    raise AssertionError(f"{name}: kernel disagrees with "
+                                         f"its plain version (max abs err "
+                                         f"{err})")
         ms = cuda_ms(lambda: [k() for k, _ in calls])
         plain_ms = cuda_ms(lambda: [p() for _, p in calls])
         lib_ms = cuda_ms(library) if library is not None else None
@@ -1497,6 +1508,75 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    from repro_torch.kernels.rer_gather_gated import ops as gated_ops
+
+    def gated_rows(g, widths):
+        """Gated-GCN's three kernels over one packed plan's bucket groups
+        and source table (the card's gated plan) at the widths the main
+        path gives them (gatedgcn-reddit.train's layers): the forward and
+        the dph walk at each width, the source walk without dx at the
+        first (the first layer's input takes no gradient) and with it
+        after; each against its plain version over the same entries (the
+        plain source and dph rows time the whole plain backward, which
+        computes both).  ph and pc are drawn wide enough that the gate
+        spans its range.  Bound: bytes (12 B an entry, each (N, F)
+        operand read and each output written once) or operations per
+        entry and feature, the exponential not counted: the forward 5,
+        the source walk 7 and 2 more for dx, the dph walk 8."""
+        layers = staged_stack("gated_gcn", [widths[0], 16], "blocked",
+                              "packed")
+        plan = rt.prepare_graph(g, layers[0].cfg)
+        groups = plan.carrier["packed_groups"]
+        meta = plan.carrier["blocks_meta"]
+        q, t = meta["q"], meta["tile"]
+        n = q * t
+        src, dst, val = gated_ops._flat(groups, t)
+        ent = groups.source.entries
+        cases = {"fwd": ([], 0.0, 0.0), "src": ([], 0.0, 0.0),
+                 "dph": ([], 0.0, 0.0)}
+        for i, f in enumerate(widths):
+            ph, pc = feats(n, f) * 30, feats(n, f) * 30
+            x, gy = feats(n, f), feats(n, f)
+            dx = i > 0
+            row_b = 4.0 * n * f
+
+            def plain_bwd(ph=ph, pc=pc, x=x, gy=gy, dx=dx):
+                return gated_ops.gated_backward_plain(src, dst, val, ph, pc,
+                                                      x, gy, need_dx=dx)
+            add = {
+                "fwd": ((lambda ph=ph, pc=pc, x=x: gated_ops.forward_launch(
+                            groups, ph, pc, x, q),
+                         lambda ph=ph, pc=pc, x=x: gated_ops.gated_flat_plain(
+                             src, dst, val, ph, pc, x, n=n)),
+                        12.0 * ent + 4 * row_b, 5.0 * ent * f),
+                "src": ((lambda ph=ph, pc=pc, x=x, gy=gy, dx=dx:
+                         gated_ops.src_launch(groups, ph, pc, x, gy, q, dx),
+                         lambda pb=plain_bwd: pb()[:2]),
+                        12.0 * ent + (5 + int(dx)) * row_b,
+                        (7.0 + 2 * int(dx)) * ent * f),
+                "dph": ((lambda ph=ph, pc=pc, x=x, gy=gy:
+                         gated_ops.dph_launch(groups, ph, pc, x, gy, q),
+                         lambda pb=plain_bwd: pb()[2]),
+                        12.0 * ent + 5 * row_b, 8.0 * ent * f)}
+            for k, (call, nbytes, ops) in add.items():
+                calls, b0, o0 = cases[k]
+                cases[k] = (calls + [call], b0 + nbytes, o0 + ops)
+        print(f"gated kernels: N {n} (q {q}, T {t}), {ent} entries, "
+              f"widths {widths}")
+        for k, (calls, nbytes, ops) in cases.items():
+            kernel_case(
+                f"rer_gather_gated_{k}",
+                "src/repro_torch/csrc/rer_gather_gated.cu",
+                "none: the reference's XLA flat gather "
+                "(src/repro/core/engn.py::_staged_gated)",
+                calls, exact=False, rel=NEW_RTOL, nbytes=nbytes, ops=ops,
+                phases=("staged", "staged_training"))
+
+    with torch.inference_mode():
+        gated_rows(pubmed[0], [602, 128])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # inference: each graph's "segment" run first, its twins with the
     # same weights
     g_pub, x_pub_np = pubmed[0], pubmed[1]
@@ -1517,7 +1597,7 @@ def main() -> int:
         ("pubmed gated_gcn segment", g_pub, x_pub_np, "gated_gcn",
          gated_dims, "segment", "auto", ()),
         ("pubmed gated_gcn blocked packed", g_pub, x_pub_np, "gated_gcn",
-         gated_dims, "blocked", "packed", ()),
+         gated_dims, "blocked", "packed", ("rer_gather_gated_fwd",)),
     ]
     staged_counts = {k: 0 for k in K.launch_counts()}
     staged_table, resident = [], {}
@@ -1681,7 +1761,8 @@ def main() -> int:
          ("typed_pairs_project", "typed_pairs_grad_w", "typed_pairs_grad_x")),
         ("pubmed gated_gcn segment", "gated_gcn", "segment", "auto", ()),
         ("pubmed gated_gcn blocked packed", "gated_gcn", "blocked",
-         "packed", ()),
+         "packed", ("rer_gather_gated_fwd", "rer_gather_gated_src",
+                    "rer_gather_gated_dph")),
     ]
     K.reset_launch_counts()
     staged_train_table = []

@@ -42,9 +42,11 @@ contiguous H-wide payload slice; typed packed plans carry the flat
 entries with a relation column, as the reference's do, and beside them
 their distinct (src, relation) pairs (`typed_pairs`): the layer projects
 only those, once each (`typed_pairs` kernels on the card), and the
-entries gather their pair's row.  Gated packed plans carry the flat
-entries on every device, as the reference's do (plain PyTorch gathers
-on the card: the reference's are XLA, not Pallas).  Gated dense tiles
+entries gather their pair's row.  Gated packed plans on `cuda` carry a
+sum plan's bucket groups and source table, which the gated kernels
+(`rer_gather_gated`) walk: the gate of each entry and feature is
+evaluated on chip, forward and backward, and never stored; on the CPU
+they carry the flat entries, as the reference's do.  Gated dense tiles
 run the reference's (nnzb, T, T, F) formulation, which on `cuda` is priced
 first and refused with `DeviceBudgetExceeded` over the budget or the
 card's free memory (ROADMAP B6).  The reference's `aggregate_fn`
@@ -376,8 +378,11 @@ class EnGNLayer(nn.Module):
             src, dst, val = _segment_edges(graph, x.device)
             ev = self.extract(x[src], x[dst], val, None)
             return self.update(x, segment_aggregate(ev, dst, n, "sum"))
-        ph, pc = self.gate_dst(x), self.gate_src(x)
         pad = partial(_pad_rows, graph)
+        if backend == "blocked" and ("packed_groups" in graph
+                                     or "packed_flat" in graph):
+            return self._gated_packed(graph, x)
+        ph, pc = self.gate_dst(x), self.gate_src(x)
         if backend == "ring":
             # ph stays on its destination shard, (pc || x) rotates
             meta = graph["ring_meta"]
@@ -393,19 +398,6 @@ class EnGNLayer(nn.Module):
             raise ValueError(backend)
         meta = graph["blocks_meta"]
         pad_n = meta["padded"]
-        if "packed_flat" in graph:
-            gsrc, gdst, gval = graph["packed_flat"]
-            gsrc, gdst = gsrc.long(), gdst.long()
-            xf, phf, pcf = pad(x), pad(ph), pad(pc)
-            z = torch.sigmoid(phf[gdst] + pcf[gsrc])
-            ev = gval[:, None] * z * xf[gsrc]
-            return self.update(x, segment_aggregate(ev, gdst, pad_n,
-                                                    "sum")[:n])
-        if "packed_groups" in graph:
-            raise ValueError(
-                "the gated contract needs the flat packed carrier; the "
-                "bucket-group layout does not carry endpoint projections "
-                "(prepare the plan with the layer's own config)")
         q, t = meta["q"], meta["tile"]
         blocks = graph["blocks"]
         brow, bcol = graph["block_row"].long(), graph["block_col"].long()
@@ -422,6 +414,30 @@ class EnGNLayer(nn.Module):
         agg = torch.zeros((q, t, f), dtype=x.dtype, device=x.device)
         agg = agg.index_add(0, brow, part).reshape(pad_n, f)[:n]
         return self.update(x, agg)
+
+    def _gated_packed(self, graph, x) -> torch.Tensor:
+        """The gated contract on a packed blocked plan, in the `engn.*`
+        spans: the two gate projections of the zero-padded features, the
+        gated aggregate (a card's bucket groups through the
+        `rer_gather_gated` kernels, whose backward recomputes the gates;
+        a CPU plan's flat entries through the flat formula, as the
+        reference's), the update."""
+        from repro_torch.kernels.rer_gather_gated import (
+            gated_flat_plain, gated_groups_aggregate)
+        meta = graph["blocks_meta"]
+        with span("engn.extract"):
+            xf = _pad_rows(graph, x)
+            ph, pc = self.gate_dst(xf), self.gate_src(xf)
+        with span("engn.aggregate"):
+            if "packed_groups" in graph:
+                y = gated_groups_aggregate(graph["packed_groups"], ph, pc,
+                                           xf, q=meta["q"])
+            else:
+                gsrc, gdst, gval = graph["packed_flat"]
+                y = gated_flat_plain(gsrc, gdst, gval, ph, pc, xf,
+                                     n=meta["padded"])
+        with span("engn.update"):
+            return self.update(x, y[:graph["n"]])
 
     # -- streamed out-of-core path (core/tiled.py) -------------------------
     def _tiled_executor(self, graph, x) -> TiledExecutor:
@@ -514,8 +530,8 @@ class EnGNLayer(nn.Module):
             return y[:n] / torch.clamp_min(graph["in_counts"], 1.0)[:, None]
         xf = _pad_rows(graph, feat)
         if "packed_flat" in graph:
-            # CPU plans (a gated plan's flat entries, on any device, are
-            # read by `_staged_gated`): one flat gather + segment reduce
+            # CPU plans (a gated plan's flat entries are read by
+            # `_staged_gated`): one flat gather + segment reduce
             from repro_torch.kernels.rer_gather import packed_flat_plain
             gsrc, gdst, gval = graph["packed_flat"]
             scale = graph.get("packed_val_scale")
@@ -1087,11 +1103,13 @@ def update_plan(plan: PreparedPlan, snapshot, cfg: EnGNConfig,
 
 def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
                     dev, rel_normed=False) -> PreparedPlan:
-    """Packed carriers: pow2-bucket groups for the `rer_gather` kernel on
-    CUDA, flat entry arrays for the plain version on the CPU.  The gated
-    contract takes the flat entries on every device: its gate gathers
-    both endpoints' projections per entry, which the groups do not
-    carry (as in the reference).
+    """Packed carriers: pow2-bucket groups on CUDA, for the `rer_gather`
+    kernels and, in a gated plan, the `rer_gather_gated` kernels, which
+    gather both endpoints' projections per entry themselves; flat entry
+    arrays for the plain versions on the CPU.  A gated plan takes flat
+    entries on the CPU only.  A sum or gated plan on the card holds B2^T's
+    source table too (the backward's source walk; a max plan's backward
+    walks the work table).
 
     `tile_value_dtype="int8"` quantises the flat route's values once (one
     f32 scale for the whole graph, `packed_val_scale`: uploaded once, so
@@ -1101,7 +1119,7 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
     as the reference's TPU groups do: `blocks_meta["value_dtype"]` says
     which the plan holds."""
     from repro_torch.kernels import rer_gather
-    if dev.type == "cpu" or cfg.stage_contract == "gated":
+    if dev.type == "cpu":
         with stage("plan.groups"):
             flat = rer_gather.flat_entries(packed)
         if (cfg.tile_value_dtype == "int8"
@@ -1118,9 +1136,8 @@ def _prepare_packed(g, cfg, d, h, store, packed, choice, order,
         with stage("plan.groups"):
             groups = rer_gather.prepare_packed_groups(
                 packed, cfg.packed_bucket_floor)
-        # a sum plan on a card holds B2^T's table too, built once with
-        # the plan (its backward's; a max plan's backward walks the work
-        # table)
+        # a sum or gated plan on a card holds B2^T's table too, built
+        # once with the plan
         d["packed_groups"] = upload_groups(
             groups, dev,
             source=dev.type == "cuda" and cfg.aggregate_op != "max")

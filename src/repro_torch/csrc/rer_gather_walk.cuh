@@ -1,7 +1,8 @@
 // The work-table walk of RER-Gather, shared by the forward
-// (rer_gather.cu) and its backward passes (rer_gather_bwd.cu), and the
-// warp walker `walk` of the forward, shared with the chunk-queue walker
-// (chunk_queue.cu).
+// (rer_gather.cu), its backward passes (rer_gather_bwd.cu) and Gated-GCN's
+// destination walks (rer_gather_gated.cu), and the warp walker `walk_op`
+// of the forward, shared with the chunk-queue walker (chunk_queue.cu) and
+// the gated walks (their own gather and fold).
 //
 // A plan's bucket groups are described by:
 //   gtab    (G, 4) int64: the rows, cols and vals device pointers and the
@@ -99,31 +100,67 @@ inline dim3 grid_for_table(int n_seg, int f, int fp, int nr) {
               (unsigned)((f + fp * nr - 1) / (fp * nr)));
 }
 
+// `walk`'s gather and fold: each entry's X row, summed (or maxed) with
+// its weight v.  An op of `walk_op` has: Item, one entry's values in a
+// lane's registers; empty(), a row's value before any entry (a row still
+// at it is not flushed); gather(item, v, r, c, fresh, f0, fp), the loads
+// of entry (v, Y row r, X row c) for the lane's features f0 + fp * n
+// (fresh: r is not the row of the group's last entry with v != 0); enter
+// (item), at the first entry of a row; fold(acc, v, item).
+template <bool kMax, int kNR>
+struct XFold {
+  const float* __restrict__ x;
+  int f;
+  struct Item {
+    float x[kNR];
+  };
+  __device__ __forceinline__ float empty() const {
+    return kMax ? -INFINITY : 0.f;
+  }
+  __device__ __forceinline__ void gather(Item& it, float v, int, int c,
+                                         bool, int f0, int fp) const {
+    const float* xr = x + (size_t)c * f;
+#pragma unroll
+    for (int n = 0; n < kNR; ++n) {
+      const int fi = f0 + fp * n;
+      it.x[n] = (v != 0.f && fi < f) ? xr[fi] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void enter(const Item&) {}
+  __device__ __forceinline__ void fold(float* acc, float v,
+                                       const Item& it) const {
+#pragma unroll
+    for (int n = 0; n < kNR; ++n)
+      acc[n] = kMax ? fmaxf(acc[n], v * it.x[n]) : fmaf(v, it.x[n], acc[n]);
+  }
+};
+
 // One warp walks n_entries entries, 32 at a time, and reduces each
-// destination row's products in registers, flushing to `sink` only when
+// destination row's values in registers, flushing to `sink` only when
 // the row changes (the entries of a tile are row-sorted).  The whole warp
 // calls load(e0, &v, &row, &src) for the chunk [e0, e0 + 32): each lane
 // fills entry e0 + lane's weight, Y row and X row (v stays 0 past the end
 // or where the entry is skipped; row and src are read only where v != 0),
 // so a Load may use warp collectives.  Lane = (group g, feature fl), as
 // `lanes_for` maps them; features fb + fl + fp * n, n < kNR; kU entries'
-// X values are in flight per lane.  sink(row, feature, value) takes a
-// row's finished sum or max; a row with nothing (0 for a sum, -inf for a
-// max) is not flushed.  kFew: fp < kU (fewer than kU entries a group, a
+// gathers are in flight per lane, `op` (XFold's form) loading and folding
+// them.  sink(row, feature, value) takes a row's finished value unless it
+// is still op.empty().  kFew: fp < kU (fewer than kU entries a group, a
 // pass of under 4 features, which `lanes_for` never maps; the chunk-queue
 // walker's narrow passes over tall intervals): the batch is cut at the
 // group's end (a lane past 31 wraps in the shuffle, its value dropped).
-template <bool kMax, int kNR, typename Load, typename Sink,
-          bool kFew = false>
-__device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
-                                     const float* __restrict__ x, int f,
-                                     int fb, int fp, int lane) {
+template <int kNR, bool kFew = false, typename Load, typename Op,
+          typename Sink>
+__device__ __forceinline__ void walk_op(int n_entries, Load load, Op& op,
+                                        Sink sink, int f, int fb, int fp,
+                                        int lane) {
   const int g = lane / fp, fl = lane % fp;
   const int per = fp;  // entries per group in a 32-entry chunk
+  const float empty = op.empty();
   int cur = -1;
   float acc[kNR];
 #pragma unroll
-  for (int n = 0; n < kNR; ++n) acc[n] = kMax ? -INFINITY : 0.f;
+  for (int n = 0; n < kNR; ++n) acc[n] = empty;
 
   auto flush = [&]() {
     if (cur < 0) return;
@@ -131,8 +168,8 @@ __device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
     for (int n = 0; n < kNR; ++n) {
       const int fi = fb + fl + fp * n;
       if (fi >= f) continue;
-      if (kMax ? acc[n] != -INFINITY : acc[n] != 0.f) sink(cur, fi, acc[n]);
-      acc[n] = kMax ? -INFINITY : 0.f;
+      if (acc[n] != empty) sink(cur, fi, acc[n]);
+      acc[n] = empty;
     }
   };
 
@@ -142,8 +179,10 @@ __device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
     load(e0, &v, &r, &c);
     if (__ballot_sync(0xffffffffu, v != 0.f) == 0u) continue;
     for (int i0 = 0; i0 < per; i0 += kU) {
-      float vv[kU], xv[kU][kNR];
+      float vv[kU];
       int rr[kU];
+      typename Op::Item it[kU];
+      int last = cur;
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const int j = g * per + i0 + u;
@@ -151,12 +190,8 @@ __device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
         if (kFew && i0 + u >= per) vv[u] = 0.f;
         rr[u] = __shfl_sync(0xffffffffu, r, j);
         const int cj = __shfl_sync(0xffffffffu, c, j);
-        const float* xr = x + (size_t)cj * f;
-#pragma unroll
-        for (int n = 0; n < kNR; ++n) {
-          const int fi = fb + fl + fp * n;
-          xv[u][n] = (vv[u] != 0.f && fi < f) ? xr[fi] : 0.f;
-        }
+        op.gather(it[u], vv[u], rr[u], cj, rr[u] != last, fb + fl, fp);
+        if (vv[u] != 0.f) last = rr[u];
       }
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
@@ -164,15 +199,23 @@ __device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
         if (rr[u] != cur) {
           flush();
           cur = rr[u];
+          op.enter(it[u]);
         }
-#pragma unroll
-        for (int n = 0; n < kNR; ++n)
-          acc[n] = kMax ? fmaxf(acc[n], vv[u] * xv[u][n])
-                        : fmaf(vv[u], xv[u][n], acc[n]);
+        op.fold(acc, vv[u], it[u]);
       }
     }
   }
   flush();
+}
+
+// `walk_op` summing (kMax false) or maxing each entry's X row times v.
+template <bool kMax, int kNR, typename Load, typename Sink,
+          bool kFew = false>
+__device__ __forceinline__ void walk(int n_entries, Load load, Sink sink,
+                                     const float* __restrict__ x, int f,
+                                     int fb, int fp, int lane) {
+  XFold<kMax, kNR> op{x, f};
+  walk_op<kNR, kFew>(n_entries, load, op, sink, f, fb, fp, lane);
 }
 
 }  // namespace rer_gather_walk

@@ -1,18 +1,19 @@
 // The source-stationary walk shared by the two sum adjoints that write
 // each dX row once: B5^T (chunk_queue.cu, `chunk_queue_t_launch`, over
 // the streamed executor's forward queue) and B2^T (rer_gather_bwd.cu,
-// `rer_gather_bwd_sum_launch`, over a plan's bucket groups).
+// `rer_gather_bwd_sum_launch`, over a plan's bucket groups), and by
+// Gated-GCN's source walk (rer_gather_gated.cu, its own gather and fold).
 //
 // One CTA holds one piece of one source interval's entries in shared
 // memory, each as loaded (column << 16 | rank within its column, G row,
 // value), counts them per column with integer atomics, and then:
 //   * `sort_by_column`: a prefix sum of the counts and each entry placed
 //     by its rank, so `order` lists the piece by column, on chip only;
-//   * `walk_runs`: the sorted entries cut evenly into one run per lane
-//     group; a group sums each column of its run in registers, kUT
-//     entries' G rows in flight per lane, and hands a column wholly in
-//     its run to the caller's writer once, the part of a column a cut
-//     falls inside to a per-run partial;
+//   * `walk_runs_op` (`walk_runs`: G rows times v): the sorted entries
+//     cut evenly into one run per lane group; a group sums each column of
+//     its run in registers, kUT entries' gathers in flight per lane, and
+//     hands a column wholly in its run to the caller's writer once, the
+//     part of a column a cut falls inside to a per-run partial;
 //   * `sum_cuts`: after a barrier, each column a cut falls inside summed
 //     from its partials and handed to the caller's writer once.
 // No float atomic in shared memory (they compile to compare-and-swap
@@ -166,23 +167,77 @@ struct Cuts {
   }
 };
 
+// kNR features of a lane from `row` (already at the lane's first
+// feature f0): kV neighbouring ones at a time, else every fs-th; features
+// past wf read nothing
+template <int kNR, int kV>
+__device__ __forceinline__ void load_lane(const float* __restrict__ row,
+                                          float* out, int f0, int fs,
+                                          int wf) {
+#pragma unroll
+  for (int q = 0; q < kNR; q += kV) {
+    if (f0 + q * fs >= wf) continue;
+    if constexpr (kV == 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(row + q));
+      out[q] = x.x, out[q + 1] = x.y, out[q + 2] = x.z, out[q + 3] = x.w;
+    } else if constexpr (kV == 2) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(row + q));
+      out[q] = x.x, out[q + 1] = x.y;
+    } else {
+      out[q] = __ldg(row + q * fs);
+    }
+  }
+}
+
+// `walk_runs`' gather and fold: each entry's G row times v, one sum.  An
+// op of `walk_runs_op` has: kA, its sums per feature; Item, one entry's
+// values in a lane's registers; clear(item); gather(item, row, column,
+// fresh, f0, fs, wf), the loads of the entry with G row `row` in column
+// `column` (fresh: not the column of the group's previous entry); enter
+// (item), at the first entry of a column; fold(acc, v, item) into acc[kA]
+// [kNR].
+template <int kNR, int kV>
+struct GFold {
+  static constexpr int kA = 1;
+  const float* __restrict__ g;
+  int f, fb;
+  struct Item {
+    float g[kNR];
+  };
+  __device__ __forceinline__ void clear(Item& it) const {
+#pragma unroll
+    for (int q = 0; q < kNR; ++q) it.g[q] = 0.f;
+  }
+  __device__ __forceinline__ void gather(Item& it, int row, int, bool,
+                                         int f0, int fs, int wf) const {
+    load_lane<kNR, kV>(g + (size_t)row * f + fb + f0, it.g, f0, fs, wf);
+  }
+  __device__ __forceinline__ void enter(const Item&) {}
+  __device__ __forceinline__ void fold(float (*acc)[kNR], float v,
+                                       const Item& it) const {
+#pragma unroll
+    for (int q = 0; q < kNR; ++q) acc[0][q] = fmaf(v, it.g[q], acc[0][q]);
+  }
+};
+
 // Each lane group (fp lanes, kNR features each: with kV = 4 or 2
 // neighbouring ones, moved kV at a time, F a multiple of kV; else every
 // fp-th, `queue_lanes`' mapping) walks its run of the sorted entries:
-// the sum of v * G[row] per column in registers, kUT entries' G rows in
-// flight per lane; a column wholly in the run goes to write(column,
-// feature, values) once (kV values), the part of a column that a cut
-// falls inside to the run's partial for it (part_first for the column
-// its start cuts, part_last for its end's).  G rows are read from
-// feature fb on, wf features of the pass.
-template <int kNR, int kV, int kUT, typename Write>
-__device__ __forceinline__ void walk_runs(const Cuts& cuts,
-                                          const int* e_row,
-                                          const float* e_val,
-                                          const float* __restrict__ g,
-                                          int f, int fb, int wf, int fp,
-                                          float* part_first,
-                                          float* part_last, Write write) {
+// op's kA sums per column in registers, kUT entries' gathers in flight
+// per lane; a column wholly in the run goes to write(column, feature,
+// sums) once (kA pointers to kV values each), the part of a column that
+// a cut falls inside to the run's partials for it (part_first[a] for the
+// column its start cuts, part_last[a] for its end's, sum a at k * wf +
+// feature).  wf features of the pass.
+template <int kNR, int kV, int kUT, typename Op, typename Write>
+__device__ __forceinline__ void walk_runs_op(const Cuts& cuts,
+                                             const int* e_row,
+                                             const float* e_val, Op& op,
+                                             int wf, int fp,
+                                             float* const* part_first,
+                                             float* const* part_last,
+                                             Write write) {
+  constexpr int kA = Op::kA;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // lane fl's feature q is f0 + q * fs
   const int gi = lane / fp, fl = lane % fp;
@@ -191,9 +246,11 @@ __device__ __forceinline__ void walk_runs(const Cuts& cuts,
   const int rb = cuts.cut(k), re = cuts.cut(k + 1);
   const int cf = cuts.col(k), cl = cuts.col(k + 1);
   int cur = -1;
-  float acc[kNR];
+  float acc[kA][kNR];
 #pragma unroll
-  for (int q = 0; q < kNR; ++q) acc[q] = 0.f;
+  for (int a = 0; a < kA; ++a)
+#pragma unroll
+    for (int q = 0; q < kNR; ++q) acc[a][q] = 0.f;
   auto flush = [&]() {
     if (cur >= 0) {
 #pragma unroll
@@ -201,45 +258,42 @@ __device__ __forceinline__ void walk_runs(const Cuts& cuts,
         const int fi = f0 + q * fs;
         if (fi >= wf) continue;
         if (cur == cf || cur == cl) {
-          float* y = (cur == cf ? part_first : part_last) + k * wf + fi;
 #pragma unroll
-          for (int v = 0; v < kV; ++v) y[v] = acc[q + v];
+          for (int a = 0; a < kA; ++a) {
+            float* y = (cur == cf ? part_first[a] : part_last[a]) + k * wf +
+                       fi;
+#pragma unroll
+            for (int v = 0; v < kV; ++v) y[v] = acc[a][q + v];
+          }
         } else {
-          write(cur, fi, acc + q);
+          const float* sums[kA];
+#pragma unroll
+          for (int a = 0; a < kA; ++a) sums[a] = acc[a] + q;
+          write(cur, fi, sums);
         }
       }
     }
 #pragma unroll
-    for (int q = 0; q < kNR; ++q) acc[q] = 0.f;
+    for (int a = 0; a < kA; ++a)
+#pragma unroll
+      for (int q = 0; q < kNR; ++q) acc[a][q] = 0.f;
   };
   for (int p = rb; p < re; p += kUT) {
-    float vv[kUT], gv[kUT][kNR];
+    float vv[kUT];
     int cc[kUT];
+    typename Op::Item it[kUT];
+    int last = cur;
 #pragma unroll
     for (int u = 0; u < kUT; ++u) {
       vv[u] = 0.f;
       cc[u] = -1;
-#pragma unroll
-      for (int q = 0; q < kNR; ++q) gv[u][q] = 0.f;
+      op.clear(it[u]);
       if (p + u < re) {
         const int i = cuts.order[p + u];
         vv[u] = e_val[i];
         cc[u] = cuts.e_key[i] >> 16;
-        const float* grow = g + (size_t)e_row[i] * f + fb + f0;
-#pragma unroll
-        for (int q = 0; q < kNR; q += kV) {
-          if (f0 + q * fs >= wf) continue;
-          if constexpr (kV == 4) {
-            const float4 x = __ldg(reinterpret_cast<const float4*>(grow + q));
-            gv[u][q] = x.x, gv[u][q + 1] = x.y, gv[u][q + 2] = x.z,
-            gv[u][q + 3] = x.w;
-          } else if constexpr (kV == 2) {
-            const float2 x = __ldg(reinterpret_cast<const float2*>(grow + q));
-            gv[u][q] = x.x, gv[u][q + 1] = x.y;
-          } else {
-            gv[u][q] = __ldg(grow + q * fs);
-          }
-        }
+        op.gather(it[u], e_row[i], cc[u], cc[u] != last, f0, fs, wf);
+        last = cc[u];
       }
     }
 #pragma unroll
@@ -248,12 +302,30 @@ __device__ __forceinline__ void walk_runs(const Cuts& cuts,
       if (cc[u] != cur) {
         flush();
         cur = cc[u];
+        op.enter(it[u]);
       }
-#pragma unroll
-      for (int q = 0; q < kNR; ++q) acc[q] = fmaf(vv[u], gv[u][q], acc[q]);
+      op.fold(acc, vv[u], it[u]);
     }
   }
   flush();
+}
+
+// `walk_runs_op` summing v * G[row] per column (G rows read from feature
+// fb on): write(column, feature, values) and one partial each.
+template <int kNR, int kV, int kUT, typename Write>
+__device__ __forceinline__ void walk_runs(const Cuts& cuts,
+                                          const int* e_row,
+                                          const float* e_val,
+                                          const float* __restrict__ g,
+                                          int f, int fb, int wf, int fp,
+                                          float* part_first,
+                                          float* part_last, Write write) {
+  GFold<kNR, kV> op{g, f, fb};
+  float* const pf[1] = {part_first};
+  float* const pl[1] = {part_last};
+  walk_runs_op<kNR, kV, kUT>(
+      cuts, e_row, e_val, op, wf, fp, pf, pl,
+      [&](int c, int fi, const float* const* v) { write(c, fi, v[0]); });
 }
 
 // After `walk_runs` and a barrier: each column a cut falls inside, from

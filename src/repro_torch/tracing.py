@@ -35,8 +35,8 @@ The spans and the metrics that read them (`portbench/metrics/`):
 
 | name | where | metric |
 |---|---|---|
-| `engn.extract`, `engn.aggregate`, `engn.update` | `EnGNLayer.forward`'s blocked / segment route, `_staged_typed`'s blocked route | `extract_ms.infer`, `aggregate_ms.infer`, `update_ms.infer` |
-| `engn.aggregate_bwd` | `kernels/rer_gather/ops.py::_PackedGroups.backward`: the packed aggregate's backward over a plan's bucket groups (the sum's B2 transposed; the max's winner words, resolve pass and tie walk), inside `step.backward` | `agg_bwd_ms.train` |
+| `engn.extract`, `engn.aggregate`, `engn.update` | `EnGNLayer.forward`'s blocked / segment route, `_staged_typed`'s blocked route, `_staged_gated`'s packed blocked route (`_gated_packed`: extract is the two gate projections, aggregate the gated kernels' forward) | `extract_ms.infer`, `aggregate_ms.infer`, `update_ms.infer` |
+| `engn.aggregate_bwd` | `kernels/rer_gather/ops.py::_PackedGroups.backward`: the packed aggregate's backward over a plan's bucket groups (the sum's B2 transposed; the max's winner words, resolve pass and tie walk); `kernels/rer_gather_gated/ops.py::_GatedGroups.backward`: the gated aggregate's source walk (dx, dpc) and destination walk (dph); both inside `step.backward` | `agg_bwd_ms.train` |
 | `step.forward`, `step.backward`, `step.optimizer` | `training/train_lib.py` | `fwd_ms.train`, `bwd_ms.train`, `opt_ms.train` |
 | `graph.relabel`, `graph.normalise`, `plan.fold` | `graphs/degree.py`, `COOGraph.gcn_normalized`, R-GCN's relation norm in `prepare_graph` | `plan_graph_s` |
 | `plan.distinct` | a max plan's distinct edges (`core/engn.py::max_plan_edges`) in `prepare_graph`, `prepare_tiled`, `prepare_ring` | none (inside `prepare_s`) |
@@ -50,6 +50,7 @@ The spans and the metrics that read them (`portbench/metrics/`):
 | `max_bwd.rows` (counter, only while a profiler records) | `kernels/rer_gather_bwd/ops.py::packed_max_backward`: the destination rows (q*T) a packed max backward covers, per call | `max_walk_share.train` |
 | `max_bwd.walk_rows` (counter, only while a profiler records; on the card a `device_counter` that the resolve pass adds into, read at `report()`) | the same call: the rows the walk visits, those its resolve pass flagged (every row where no entry has weight 1 and there is no resolve pass) | `max_walk_share.train` |
 | `sum_t.entries` (counter, only while a profiler records) | `kernels/rer_gather_bwd/ops.py::packed_groups_t`: the real entries a packed sum backward (B2^T) walks, per call, from its source table | none yet |
+| `gated.gate_evals` (counter, only while a profiler records) | `kernels/rer_gather_gated/ops.py`: the (entry, feature) gate evaluations of each gated walk, the forward's, the source walk's and the destination walk's, real entries x F from the plan's table | `gate_evals.train` |
 | `sum_t.merged_rows` (counter, only while a profiler records; on the card a `device_counter` that B2^T's split pieces add into, read at `report()`) | the same call: the dX rows added by a split source interval's pieces (a piece's columns with an entry) rather than stored once; over `sum_t.entries`, the share of a per-entry scatter's adds that remains | none yet |
 """
 from __future__ import annotations

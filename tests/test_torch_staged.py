@@ -360,16 +360,25 @@ def test_fused_and_non_sum_refuse_staged_models(model):
         _forward(tl, rt.prepare_graph(tg, tl.cfg, device="cpu"), x)
 
 
-def test_gated_plan_needs_flat_entries():
-    """A gated layer handed bucket groups refuses (they do not carry the
-    endpoint projections), as the reference does."""
+def test_gated_layer_over_groups_equals_the_flat_route():
+    """A gated layer handed a plan's bucket groups (the card's carrier,
+    built here on CPU tensors, with the source table) runs the gated
+    aggregate's plain version over them and equals the flat route of the
+    CPU plan, within the reference matrix's tolerance."""
+    from repro_torch.graphs.partition import build_tile_store, \
+        pack_tile_store
+    from repro_torch.kernels.rer_gather import prepare_packed_groups
     _, tg, x = _typed_graph("even")
     _, _, tl = _pair("gated_gcn", "blocked", "packed")
     plan = rt.prepare_graph(tg, tl.cfg, device="cpu")
     carrier = dict(plan.carrier)
-    carrier["packed_groups"] = carrier.pop("packed_flat")
-    with pytest.raises(ValueError, match="flat packed carrier"):
-        _forward(tl, carrier, x)
+    carrier.pop("packed_flat")
+    carrier["packed_groups"] = t_engn.upload_groups(
+        prepare_packed_groups(pack_tile_store(build_tile_store(tg, TILE))),
+        "cpu", source=True)
+    np.testing.assert_allclose(_forward(tl, carrier, x).numpy(),
+                               _forward(tl, plan, x).numpy(), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("model", MODELS)
@@ -628,4 +637,4 @@ def test_gated_dense_refused_at_pubmed_before_allocating():
     assert torch.cuda.memory_allocated(dev) == before
     layer.cfg.tile_format = "auto"
     plan = rt.prepare_graph(g, layer.cfg, device=dev)
-    assert plan.tile_format == "packed" and "packed_flat" in plan.carrier
+    assert plan.tile_format == "packed" and "packed_groups" in plan.carrier
